@@ -1,0 +1,79 @@
+"""cause_tpu_torch — the causal-tree CRDT with its device path in PyTorch
+and hand-written CUDA kernels for NVIDIA Hopper.
+
+The port of ``cause_tpu`` (which stays the JAX reference). It imports
+neither JAX nor ``cause_tpu``: the host modules it needs are its own
+copies. What is ported so far is the v5 merge wave end to end: list
+handles (``clist``) whose ``weaver="torch"`` reweaves and merges run on
+the device, ``merge_wave`` over many replica pairs, and beneath them
+the batched v5 segment-union kernel and the per-row digest, with the
+token sort (B1), the contracted-forest walk (B2) and the lane
+expansion (B3) as CUDA kernels (``csrc/``, built with nvcc on first
+use).
+
+Device entry points take ``device=`` and default to ``"cuda"``; the
+handle-level paths run on the package default, which only
+``use_device`` changes. Without a card, asking for CUDA raises.
+"""
+
+from __future__ import annotations
+
+from .benchgen import LANE_KEYS5, lanes_from_numpy
+from .collections.clist import CausalList, new_causal_list
+from .collections.shared import CausalError, CausalTree
+from .device import default_device, resolve_device, use_device
+from .ids import (
+    H_HIDE,
+    H_SHOW,
+    HIDE,
+    ROOT_ID,
+    is_special,
+    new_site_id,
+    new_uid,
+    node,
+)
+from .parallel.wave import WaveResult, merge_wave
+from .weaver.torchw5 import batched_merge_weave_v5
+from .weaver.torchwd import batched_weave_digest
+
+__version__ = "0.1.0"
+
+hide = HIDE
+h_hide = H_HIDE
+h_show = H_SHOW
+root_id = ROOT_ID
+
+# a causal list; ``weaver="torch"`` runs full reweaves and merges on the
+# device
+clist = new_causal_list
+
+
+def merge(a, b):
+    """Merge two replicas of one collection (same uuid and type)."""
+    return a.merge(b)
+
+
+__all__ = [
+    "CausalError",
+    "CausalList",
+    "CausalTree",
+    "LANE_KEYS5",
+    "WaveResult",
+    "batched_merge_weave_v5",
+    "batched_weave_digest",
+    "clist",
+    "default_device",
+    "h_hide",
+    "h_show",
+    "hide",
+    "is_special",
+    "lanes_from_numpy",
+    "merge",
+    "merge_wave",
+    "new_site_id",
+    "new_uid",
+    "node",
+    "resolve_device",
+    "root_id",
+    "use_device",
+]

@@ -1,0 +1,512 @@
+#!/usr/bin/env python3
+"""Chip smoke of the PyTorch/CUDA port (``cause_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+builds the port's CUDA kernels from ``cause_tpu_torch/csrc`` with nvcc,
+holds each one against its plain PyTorch version on the card, drives the
+north-star merge wave (1024 divergent replica pairs of 10k-node lists)
+and the handle-level ``merge_wave`` API through them, and checks that
+the kernels really carried those paths (launch counts) and that the
+results are bit-identical to the plain path on the card and to the pure
+host weaver. Every comparison is exact: all outputs are integers or
+flags.
+
+Phases, one line each (times from CUDA events unless named host):
+
+1. build: the nvcc build of every kernel source, in parallel;
+2. kernels: every kernel call of one north-star dispatch, captured at
+   its real inputs, plus edge cases (ragged widths, rows too wide for
+   shared memory), kernel against plain version; kernel, plain and, for
+   the sort, library (``torch.sort``) times;
+3. north star: ``batched_pair_lanes`` -> ``batched_v5_inputs`` ->
+   ``lanes_from_numpy`` -> ``batched_weave_digest`` on the card; launch
+   counts of one dispatch, p50 of a few, against the plain path;
+4. api: ``tree_fleet_handles`` (64 replicas of a 10k-node list) ->
+   ``merge_wave`` over 32 pairs and one ``weaver="torch"`` merge; launch
+   counts, ``merged(i)`` against the pure merge.
+
+Before the last line it prints the card's ``name, power.limit`` (as
+``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
+it) and one JSON object with a record per kernel. The last line is
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero
+before the result lines; without a CUDA device the script exits 2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+DEVICE = "cuda"
+PAIRS = 1024      # north-star replica pairs
+REPLICAS = 64     # API-phase replicas (32 pairs)
+REPS = 5          # timed north-star dispatches
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+I32_MAX = int(np.iinfo(np.int32).max)
+
+# the TPU kernels each CUDA kernel replaces (their pallas_call sites)
+REPLACES = {
+    "sort": "cause_tpu/weaver/pallas_sort.py:140",
+    "euler_walk": "cause_tpu/weaver/pallas_ops.py:139",
+    "fphase": "cause_tpu/weaver/pallas_fphase.py:211",
+}
+SOURCE = {
+    "sort": "cause_tpu_torch/csrc/sort.cu",
+    "euler_walk": "cause_tpu_torch/csrc/euler_walk.cu",
+    "fphase": "cause_tpu_torch/csrc/fphase.cu",
+}
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound_ms(nbytes: float) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def gpu_name_power() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, reps: int = 10, warm: int = 2) -> float:
+    """Mean milliseconds of ``fn`` on the card over ``reps`` calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def max_err(torch, got, want) -> int:
+    """Largest absolute difference of two int/bool tensor tuples; a
+    shape or dtype mismatch fails outright."""
+    err = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"shape/dtype {tuple(g.shape)} {g.dtype} != "
+                 f"{tuple(w.shape)} {w.dtype}")
+        d = (g.long() - w.long()).abs().max().item() if g.numel() else 0
+        err = max(err, int(d))
+    return err
+
+
+@contextlib.contextmanager
+def plain_path(record=None):
+    """Route the v5 pipeline's three kernel sites to their plain PyTorch
+    versions (the reference on the card), optionally recording every
+    call's inputs. Restores the kernel wrappers on exit."""
+    from cause_tpu_torch.weaver import bitonic, euler, fphase, torchw5
+
+    saved = (torchw5.sort_pairs, torchw5.euler_walk, torchw5.fphase_expand)
+
+    def wrap(name, plain):
+        def call(*args, **kw):
+            if record is not None:
+                ops = args[0] if name == "sort" else args
+                record.append((name, tuple(x.clone() for x in ops),
+                               dict(kw)))
+            return plain(*args, **kw)
+        return call
+
+    torchw5.sort_pairs = wrap("sort", bitonic.sort_pairs_plain)
+    torchw5.euler_walk = wrap("euler_walk", euler.euler_walk_plain)
+    torchw5.fphase_expand = wrap("fphase", fphase.fphase_expand_plain)
+    try:
+        yield
+    finally:
+        (torchw5.sort_pairs, torchw5.euler_walk,
+         torchw5.fphase_expand) = saved
+
+
+# ------------------------------------------------------------ kernels
+
+
+def kernel_fns(name):
+    from cause_tpu_torch.weaver import bitonic, euler, fphase
+
+    if name == "sort":
+        return bitonic.sort_pairs_cuda, bitonic.sort_pairs_plain
+    if name == "euler_walk":
+        return euler.euler_walk_cuda, euler.euler_walk_plain
+    return fphase.fphase_expand_cuda, fphase.fphase_expand_plain
+
+
+def call_bytes(name, ops) -> int:
+    """Bytes the function must move: each input read once, each output
+    written once."""
+    if name == "sort":
+        return 2 * sum(x.numel() * 4 for x in ops)
+    if name == "euler_walk":
+        return 5 * ops[0].numel() * 4
+    lk, tb, cs, ce, vc, seg, fl = ops
+    return (lk.numel() + tb.numel() + cs.numel() + ce.numel()) * 4 \
+        + 4 * vc.numel() * 4 + vc.numel()  # vc, seg, fl, rank + bool vis
+
+
+def library_fn(torch, ops, num_keys):
+    """One ``torch.sort`` call that orders the same rows: stable, on the
+    first key, packed with the second into int64 for two-key sites. The
+    payloads are not moved (the yardstick is the sort alone)."""
+    if num_keys == 1:
+        key = ops[0]
+    else:
+        key = (ops[0].long() << 32) + (ops[1].long() + (1 << 31))
+    return lambda: torch.sort(key, dim=-1, stable=True)
+
+
+def check_call(torch, name, ops, kw, time_it: bool):
+    kern, plain = kernel_fns(name)
+    if name == "sort":
+        got = kern(ops, **kw)
+        want = plain(ops, **kw)
+    else:
+        got = kern(*ops)
+        want = plain(*ops)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max_err(torch, got, want)
+    rec = {"err": err}
+    if time_it:
+        if name == "sort":
+            rec["ms"] = cuda_ms(torch, lambda: kern(ops, **kw))
+            rec["plain_ms"] = cuda_ms(torch, lambda: plain(ops, **kw))
+            rec["library_ms"] = cuda_ms(
+                torch, library_fn(torch, ops, kw.get("num_keys", 1)))
+        else:
+            rec["ms"] = cuda_ms(torch, lambda: kern(*ops))
+            rec["plain_ms"] = cuda_ms(torch, lambda: plain(*ops))
+        rec["bound_ms"] = bound_ms(call_bytes(name, ops))
+    return rec
+
+
+def edge_cases(torch, dev):
+    """Inputs the north star does not reach: ragged widths, negative and
+    duplicate keys with int32-max sentinels, rows too wide for shared
+    memory (the global-scratch paths), unreached forest runs."""
+    from cause_tpu_torch.weaver import euler
+
+    rng = np.random.default_rng(20261016)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    cases = []
+    for B, n, n_ops, nk in ((3, 1, 1, 1), (4, 300, 3, 2), (4, 1000, 9, 3),
+                            (2, 16384, 9, 3), (8, 4096, 7, 2),
+                            (2, 40, 9, 9), (4, 3000, 2, 1),
+                            (5, 256, 1, 1), (3, 200, 3, 2)):
+        ops = []
+        for i in range(n_ops):
+            if i < nk:
+                x = rng.integers(-4, 5, size=(B, n)).astype(np.int32)
+                x[rng.random((B, n)) < 0.15] = I32_MAX
+            else:
+                x = rng.integers(-2**31, 2**31 - 1, size=(B, n),
+                                 dtype=np.int64).astype(np.int32)
+            ops.append(T(x))
+        cases.append(("sort", f"B={B} n={n} ops={n_ops} keys={nk}",
+                      tuple(ops), {"num_keys": nk}))
+    for B, K, n_valid in ((4, 64, 40), (2, 16384, 12000), (3, 300, 300)):
+        parent_sort = np.full((B, K), K, np.int32)
+        special = rng.random((B, K)) < 0.3
+        w = np.zeros((B, K), np.int32)
+        for r in range(B):
+            parent_sort[r, 1:n_valid] = (
+                rng.random(n_valid - 1) * np.arange(1, n_valid)).astype(
+                    np.int32)
+            w[r, :n_valid] = rng.integers(0, 6, size=n_valid)
+        packed = parent_sort * 2 + (~special).astype(np.int32)
+        head = np.arange(K, dtype=np.int32)
+        order = np.stack([np.lexsort((-head, packed[r])) for r in range(B)])
+        fc, ns = euler.link_children(T(order.astype(np.int32)),
+                                     T(parent_sort))
+        parent_up = T(np.where(parent_sort < K, parent_sort, -1).astype(
+            np.int32))
+        cases.append(("euler_walk", f"B={B} K={K} reached={n_valid}",
+                      (fc, ns, parent_up, T(w)), {}))
+    for B, N, U, S in ((3, 1000, 64, 16), (2, 20480, 4096, 512),
+                       (4, 130, 300, 200)):
+        lk = np.full((B, U), N, np.int32)
+        tb = np.zeros((B, U), np.int32)
+        cs = np.full((B, S), N, np.int32)
+        ce = np.zeros((B, S), np.int32)
+        for r in range(B):
+            k = int(rng.integers(0, min(U, N) + 1))
+            lk[r, :k] = np.sort(rng.choice(N, size=k, replace=False))
+            tb[r, :k] = rng.integers(0, N, size=k)
+            cuts = np.sort(rng.choice(np.arange(1, N),
+                                      size=2 * min(S, N // 4),
+                                      replace=False)).reshape(-1, 2)
+            keep = cuts[rng.random(len(cuts)) < 0.6][:S]
+            cs[r, :len(keep)] = keep[:, 0]
+            ce[r, :len(keep)] = keep[:, 1]
+        vc = rng.choice(np.array([0, 0, 0, 1, 2, 3], np.int32), size=(B, N))
+        seg = np.sort(rng.integers(-1, N // 8, size=(B, N)),
+                      axis=1).astype(np.int32)
+        fl = rng.integers(0, 4, size=(B, N)).astype(np.int32)
+        cases.append(("fphase", f"B={B} N={N} U={U} S={S}",
+                      tuple(T(x) for x in (lk, tb, cs, ce, vc, seg, fl)),
+                      {}))
+    return cases
+
+
+def profile_dispatch(torch, dispatch, out_dir: str, wall_ms: float,
+                     reps: int = 2) -> None:
+    """``reps`` north-star dispatches under torch.profiler, read back from
+    the Chrome trace it writes to ``out_dir``: device time per dispatch
+    by kernel, the device's busy share of the unprofiled p50 wall time
+    ``wall_ms``, and the share the port's own kernels take."""
+    import collections
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            dispatch()
+        torch.cuda.synchronize()
+    trace = os.path.join(out_dir, "north_star_dispatch.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        kern = [e for e in json.load(f)["traceEvents"]
+                if e.get("cat") == "kernel"]
+    by = collections.defaultdict(lambda: [0, 0.0])
+    for e in kern:
+        by[e["name"].split("(")[0][:70]][0] += 1
+        by[e["name"].split("(")[0][:70]][1] += e["dur"] / 1e3
+    busy = sum(d for _, d in by.values()) / reps
+    ours = sum(d for name, (_, d) in by.items()
+               if any(k in name for k in ("sort_rows_", "euler_walk_kernel",
+                                          "fphase_kernel"))) / reps
+    say(f"[profile] {len(kern) // reps} kernels per dispatch, device busy "
+        f"{busy:.3f} ms = {100 * busy / wall_ms:.1f}% of the {wall_ms:.3f} "
+        f"ms p50; the port's three kernels {ours:.3f} ms = "
+        f"{100 * ours / busy:.1f}% of the device time")
+    for name, (n, d) in sorted(by.items(), key=lambda x: -x[1][1])[:15]:
+        say(f"[profile] {d / reps:8.3f} ms {n // reps:5d} launches  {name}")
+    say(f"[profile] trace {trace}")
+
+
+# --------------------------------------------------------------- main
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", metavar="DIR",
+                    help="also profile two north-star dispatches with "
+                         "torch.profiler: top device ops, the device's "
+                         "busy share, a Chrome trace in DIR")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device; this smoke runs only on the card",
+              flush=True)
+        return 2
+
+    import cause_tpu_torch as ct
+    from cause_tpu_torch import benchgen, kernels
+    from cause_tpu_torch.collections.clist import CausalList
+    from cause_tpu_torch.weaver import torchw
+    from cause_tpu_torch.weaver.arrays import next_pow2
+
+    t_start = time.perf_counter()
+    dev = torch.device(DEVICE)
+    card = gpu_name_power()
+    say(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    # ------------------------------------------------ 1. build
+    t0 = time.perf_counter()
+    kernels.build_all(verbose=True)
+    say(f"[1 build] {len(kernels.SOURCES)} kernels built in "
+        f"{time.perf_counter() - t0:.3f} s (host clock)")
+
+    # ------------------------------------------------ north-star inputs
+    cap, n_base, n_div = 10240, 9000, 1000
+    t0 = time.perf_counter()
+    batch = benchgen.batched_pair_lanes(PAIRS, n_base, n_div, cap,
+                                        hide_every=8)
+    v5 = benchgen.batched_v5_inputs(batch, cap)
+    u_max = next_pow2(benchgen.v5_token_budget(v5))
+    t1 = time.perf_counter()
+    lanes = benchgen.lanes_from_numpy(v5, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    args5 = [lanes[k] for k in benchgen.LANE_KEYS5]
+    B, N = lanes["hi"].shape
+    S = lanes["sg_len"].shape[1]
+    say(f"[marshal] B={B} N={N} S={S} u_max=k_max={u_max}: numpy "
+        f"{t1 - t0:.3f} s, to card {t2 - t1:.3f} s (host clock)")
+
+    def dispatch():
+        return ct.batched_weave_digest(*args5, u_max=u_max, k_max=u_max,
+                                       device=dev)
+
+    # the plain path on the card: the reference, and the kernel inputs
+    calls = []
+    with plain_path(record=calls):
+        ref = dispatch()
+    torch.cuda.synchronize()
+    if bool(ref[3].any()):
+        fail(f"north star overflowed on the plain path: rows "
+             f"{torch.nonzero(ref[3]).flatten()[:8].tolist()}")
+
+    # ------------------------------------------------ 2. kernels
+    per = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                  "library_ms": 0.0, "err": 0}
+           for name in kernels.SOURCES}
+    for name, ops, kw in calls:
+        rec = check_call(torch, name, ops, kw, time_it=True)
+        shapes = "x".join(str(d) for d in ops[0].shape)
+        say(f"[2 kernels] {name} {shapes} n_ops={len(ops)} {kw or ''}: "
+            f"max_abs_err {rec['err']} ms {rec['ms']:.4f} plain_ms "
+            f"{rec['plain_ms']:.4f} library_ms "
+            f"{rec.get('library_ms', float('nan')):.4f} bound_ms "
+            f"{rec['bound_ms']:.4f}")
+        p = per[name]
+        for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            p[k] += rec.get(k, 0.0)
+        p["err"] = max(p["err"], rec["err"])
+        if rec["err"]:
+            fail(f"{name} kernel disagrees with its plain version")
+    for name, tag, ops, kw in edge_cases(torch, dev):
+        rec = check_call(torch, name, ops, kw, time_it=False)
+        say(f"[2 kernels] edge {name} {tag}: max_abs_err {rec['err']}")
+        per[name]["err"] = max(per[name]["err"], rec["err"])
+        if rec["err"]:
+            fail(f"{name} kernel disagrees with its plain version ({tag})")
+    del calls
+
+    # ------------------------------------------------ 3. north star
+    kernels.reset_launches()
+    out = dispatch()
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    say(f"[3 north star] launches in one dispatch: {counts}")
+    want = {"sort": 6, "euler_walk": 1, "fphase": 1}
+    if counts != want:
+        fail(f"north-star launches {counts}, expected {want}")
+    names = ("rank", "visible", "digest", "overflow")
+    for nm, g, w in zip(names, out, ref):
+        if not torch.equal(g, w):
+            fail(f"north star {nm} differs from the plain path")
+    if bool(out[3].any()):
+        fail("north star overflowed")
+    main_launches = counts
+
+    def p50(fn):
+        times = []
+        for _ in range(REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times)), times
+
+    dispatch()  # warm
+    k_p50, k_all = p50(dispatch)
+    with plain_path():
+        dispatch()
+        p_p50, p_all = p50(dispatch)
+    say(f"[3 north star] bit-identical to the plain path (rank, visible, "
+        f"digest, overflow); dispatch p50 {k_p50:.3f} ms with the kernels, "
+        f"{p_p50:.3f} ms plain (host clock, synchronized, {REPS} "
+        f"reps: {[round(t, 3) for t in k_all]} / "
+        f"{[round(t, 3) for t in p_all]})")
+    if args.profile:
+        profile_dispatch(torch, dispatch, args.profile, k_p50)
+    del out, ref, lanes, args5
+
+    # ------------------------------------------------ 4. api
+    t0 = time.perf_counter()
+    hs = benchgen.tree_fleet_handles(REPLICAS, n_base, n_div,
+                                     hide_every=8)
+    pairs = [(hs[2 * i], hs[2 * i + 1]) for i in range(len(hs) // 2)]
+    t1 = time.perf_counter()
+    ct.use_device(dev)
+    fallbacks0 = torchw.pure_fallbacks
+    kernels.reset_launches()
+    t2 = time.perf_counter()
+    res = ct.merge_wave(pairs)
+    t3 = time.perf_counter()
+    merged0 = pairs[0][0].merge(pairs[0][1])  # weaver="torch" merge
+    counts = dict(kernels.launches)
+    say(f"[4 api] {len(hs)} replicas built in {t1 - t0:.3f} s; merge_wave "
+        f"over {len(pairs)} pairs {(t3 - t2) * 1e3:.3f} ms (host clock, "
+        f"first call); launches in merge_wave + one merge: {counts}")
+    for name in kernels.SOURCES:
+        if counts[name] < 2:  # the wave's dispatch and the merge's
+            fail(f"api path launched {name} {counts[name]} times")
+    if torchw.pure_fallbacks != fallbacks0:
+        fail("a tree went to the pure weaver on the api path")
+    if res.fallback or res.poisoned or not res.digest_valid.all():
+        fail(f"wave fell back {res.fallback} / poisoned {res.poisoned}")
+    with plain_path():
+        res_plain = ct.merge_wave(pairs)
+    if not np.array_equal(res.digest, res_plain.digest):
+        fail("merge_wave digests differ from the plain path")
+    checked = sorted({0, len(pairs) // 2, len(pairs) - 1})
+    for i in checked:
+        a, b = pairs[i]
+        pure = CausalList(a.ct.evolve(weaver="pure")).merge(
+            CausalList(b.ct.evolve(weaver="pure")))
+        got = res.merged(i)
+        if got.ct.weave != pure.ct.weave or list(got) != list(pure):
+            fail(f"merge_wave pair {i} differs from the pure merge")
+        if i == 0 and (merged0.ct.weave != pure.ct.weave
+                       or list(merged0) != list(pure)):
+            fail("weaver='torch' merge differs from the pure merge")
+    say(f"[4 api] merged(i) for pairs {checked} and the torch merge of "
+        f"pair 0 equal the pure merge ({len(pure.ct.weave)} nodes); "
+        f"digests equal the plain path; 0 trees to the pure weaver")
+
+    # ------------------------------------------------ result
+    recs = []
+    for name in kernels.SOURCES:
+        p = per[name]
+        recs.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name],
+            "launches": main_launches[name],
+            "max_abs_err": p["err"],
+            "ms": p["ms"], "plain_ms": p["plain_ms"],
+            "bound_ms": p["bound_ms"], "bound_by": "bytes",
+            "library_ms": p["library_ms"] if name == "sort" else None,
+        })
+    say(f"total {time.perf_counter() - t_start:.1f} s (host clock)")
+    print(card, flush=True)
+    print(json.dumps({"kernels": recs}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

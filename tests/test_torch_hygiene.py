@@ -1,0 +1,155 @@
+"""The port's boundaries: what it imports, and where it refuses to run.
+
+- No module of ``cause_tpu_torch`` and not ``chip_smoke.py`` imports JAX
+  or anything of the JAX package (``cause_tpu``), not even a module of
+  it that is JAX-free: the port keeps its own copies.
+- Without a CUDA card, every device entry point called without
+  ``device="cpu"`` raises, and the kernel wrappers refuse CPU tensors:
+  nothing carries on quietly on the CPU.
+- The kernels are built and loaded only on first launch, never at
+  import time, and each wrapper counts only its own launches.
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import cause_tpu_torch as ct
+from cause_tpu_torch import benchgen as tbench
+from cause_tpu_torch import kernels
+from cause_tpu_torch.weaver import bitonic, euler, fphase
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "cause_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "cause_tpu")
+
+
+def forbidden_imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+    return bad
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_cause_tpu(path):
+    assert forbidden_imports(path) == []
+
+
+def test_import_checker_catches_each_form(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import jax\nimport jax.numpy as jnp\n"
+                   "from cause_tpu import clist\nfrom cause_tpu.weaver "
+                   "import jaxw5\nimport cause_tpu.ids\n"
+                   "from cause_tpu_torch import ids\nfrom . import util\n")
+    assert forbidden_imports(src) == ["jax", "jax.numpy", "cause_tpu",
+                                      "cause_tpu.weaver", "cause_tpu.ids"]
+
+
+@pytest.fixture
+def no_card():
+    """Run only where there is no card (decided here, never at import),
+    with the package default device back at its "cuda" default."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: nothing to refuse")
+    before = ct.default_device()
+    ct.use_device("cuda")
+    yield
+    ct.use_device(before)
+
+
+def _small_v5():
+    batch = tbench.batched_pair_lanes(2, 20, 6, 64, hide_every=3)
+    v5 = tbench.batched_v5_inputs(batch, 64)
+    return v5, tbench.v5_token_budget(v5)
+
+
+def test_device_entry_points_raise_without_cuda(no_card):
+    v5, u = _small_v5()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tbench.lanes_from_numpy(v5)
+    lanes = tbench.lanes_from_numpy(v5, "cpu")
+    args = [lanes[k] for k in tbench.LANE_KEYS5]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ct.batched_merge_weave_v5(*args, u_max=u, k_max=u)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ct.batched_weave_digest(*args, u_max=u, k_max=u)
+    # with device="cpu" the same calls run
+    r, v, cf, ov = ct.batched_merge_weave_v5(*args, u_max=u, k_max=u,
+                                             device="cpu")
+    assert r.device.type == "cpu" and not ov.any()
+
+
+def test_handle_paths_follow_the_package_default(no_card):
+    a = ct.clist("x", "y")
+    a = ct.CausalList(a.ct.evolve(weaver="torch"))
+    b = ct.CausalList(a.ct.evolve(site_id=ct.new_site_id())).conj("z")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ct.merge_wave([(a, b)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        a.merge(b)
+    ct.use_device("cpu")
+    assert ct.merge_wave([(a, b)]).merged(0).causal_to_edn() == [
+        "x", "y", "z"]
+    assert a.merge(b).causal_to_edn() == ["x", "y", "z"]
+
+
+def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
+    kernels.reset_launches()
+    x = torch.arange(8, dtype=torch.int32).reshape(2, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bitonic.sort_pairs_cuda((x, x), num_keys=1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        euler.euler_walk_cuda(x, x, x, x)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fphase.fphase_expand_cuda(x, x, x, x, x, x, x)
+    # on CPU tensors the dispatching wrappers take the plain versions
+    bitonic.sort_pairs((x, x), num_keys=1)
+    euler.euler_walk(torch.full_like(x, -1), torch.full_like(x, -1),
+                     torch.full_like(x, -1), x)
+    assert kernels.launches == {"sort": 0, "euler_walk": 0, "fphase": 0}
+
+
+@pytest.mark.parametrize("bad, err", [
+    (lambda x: (x.long(), x), TypeError),          # not int32
+    (lambda x: (x, x[:, :2]), ValueError),         # ragged operands
+    (lambda x: (x.t(), x.t()), ValueError),        # not contiguous
+    (lambda x: (x,) * 10, ValueError),             # too many operands
+])
+def test_sort_wrapper_checks_its_inputs(bad, err):
+    x = torch.zeros((4, 4), dtype=torch.int32)
+    with pytest.raises(err):
+        bitonic.sort_pairs_cuda(bad(x), num_keys=1)
+
+
+def test_nothing_is_built_at_import():
+    """Importing the package needs neither nvcc nor a card."""
+    assert kernels._LIBS == {} or torch.cuda.is_available()
+    assert set(kernels.SOURCES) == {"sort", "euler_walk", "fphase"}
+    for src in kernels.SOURCES.values():
+        assert (kernels.CSRC / src).exists()
+
+
+def test_lanes_from_numpy_fixes_dtypes():
+    v5, _ = _small_v5()
+    v5 = {k: (v.astype(np.int64) if v.dtype == np.int32 else v)
+          for k, v in v5.items()}
+    lanes = tbench.lanes_from_numpy(v5, "cpu")
+    for k in tbench.LANE_KEYS5:
+        want = torch.bool if k in tbench.V5_BOOL_KEYS else torch.int32
+        assert lanes[k].dtype == want, k
+        assert lanes[k].is_contiguous()
