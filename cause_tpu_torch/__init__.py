@@ -9,7 +9,9 @@ the device, ``merge_wave`` over many replica pairs, and beneath them
 the batched v5 segment-union kernel and the per-row digest, with the
 token sort (B1), the contracted-forest walk (B2) and the lane
 expansion (B3) as CUDA kernels (``csrc/``, built with nvcc on first
-use).
+use), and the fused v5f pipeline (``batched_merge_weave_v5f``, and
+``merge_wave`` under ``BENCH_KERNEL=v5f``), whose token phases are the
+K1, K2 and K4 kernels (B4-B6).
 
 Device entry points take ``device=`` and default to ``"cuda"``; the
 handle-level paths run on the package default, which only
@@ -34,6 +36,7 @@ from .ids import (
 )
 from .parallel.wave import WaveResult, merge_wave
 from .weaver.torchw5 import batched_merge_weave_v5
+from .weaver.torchw5f import batched_merge_weave_v5f
 from .weaver.torchwd import batched_weave_digest
 
 __version__ = "0.1.0"
@@ -60,6 +63,7 @@ __all__ = [
     "LANE_KEYS5",
     "WaveResult",
     "batched_merge_weave_v5",
+    "batched_merge_weave_v5f",
     "batched_weave_digest",
     "clist",
     "default_device",

@@ -35,9 +35,14 @@
 // 227 KB a block may use runs it on a global-memory scratch row that the
 // caller allocates; __syncthreads orders global writes within the block
 // just as it does shared ones.
+//
+// Both networks live in bitonic.cuh, which the fused token kernels
+// (befuse_k1/k2/k4.cu) include for their in-block sorts.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bitonic.cuh"
 
 #define CAUSE_SORT_MAX_OPS 9
 #define CAUSE_SORT_THREADS 512
@@ -66,45 +71,7 @@ __global__ void sort_rows_kernel(SortArgs args, int n_ops, int num_keys,
     }
     __syncthreads();
 
-    const int half = P >> 1;
-    for (int k = 2; k <= P; k <<= 1) {
-        for (int j = k >> 1; j > 0; j >>= 1) {
-            for (int t = threadIdx.x; t < half; t += blockDim.x) {
-                // pair t: lower element i (bit j clear) and its partner
-                const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-                const int l = i + j;
-                int c = 0;
-                for (int q = 0; q < num_keys && c == 0; ++q) {
-                    const int32_t a = buf[(size_t)q * P + i];
-                    const int32_t b = buf[(size_t)q * P + l];
-                    if (a != b) c = (a < b) ? -1 : 1;
-                }
-                const int32_t pi = pos[i];
-                const int32_t pl = pos[l];
-                if (c == 0) c = (pi < pl) ? -1 : 1;
-                const bool asc = (i & k) == 0;
-                if (asc ? (c > 0) : (c < 0)) {
-                    for (int q = 0; q < num_keys; ++q) {
-                        int32_t* col = buf + (size_t)q * P;
-                        const int32_t x = col[i];
-                        col[i] = col[l];
-                        col[l] = x;
-                    }
-                    pos[i] = pl;
-                    pos[l] = pi;
-                }
-            }
-            // the next stage's partner distance: j / 2 within this
-            // merge, else the first stage of the next one
-            const int next_j = j > 1 ? (j >> 1) : k;
-            if (j >= 64 || next_j >= 64) {
-                __syncthreads();
-            } else {
-                __syncwarp();
-            }
-        }
-    }
-    __syncthreads();
+    bitonic_net(buf, pos, num_keys, P);
 
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
         const int src = pos[i];
@@ -119,56 +86,6 @@ __global__ void sort_rows_kernel(SortArgs args, int n_ops, int num_keys,
 
 // ---------------------------------------------------------- register path
 
-#define CAUSE_SORT_RE 8           // elements per thread
-#define CAUSE_SORT_REG_MIN 256    // whole warps: P / 8 >= 32
-#define CAUSE_SORT_REG_MAX 4096   // P / 8 <= 512 threads
-
-template <int NK>
-struct Elt {
-    int32_t k[NK];
-    int32_t p;
-};
-
-template <int NK>
-__device__ __forceinline__ bool elt_less(const Elt<NK>& a, const Elt<NK>& b) {
-#pragma unroll
-    for (int q = 0; q < NK; ++q) {
-        if (a.k[q] != b.k[q]) return a.k[q] < b.k[q];
-    }
-    return a.p < b.p;
-}
-
-// shared index with one padding word per 32: thread t's element
-// 8t + e lands in bank (8t + t/4 + e) mod 32, distinct across a warp
-__device__ __forceinline__ int pad32(int i) { return i + (i >> 5); }
-
-// partner e ^ J inside the thread (J < 8)
-template <int NK, int J>
-__device__ __forceinline__ void reg_stage(Elt<NK> (&v)[CAUSE_SORT_RE],
-                                          int base, int k) {
-#pragma unroll
-    for (int e = 0; e < CAUSE_SORT_RE; ++e) {
-        if ((e & J) == 0) {
-            const bool asc = ((base + e) & k) == 0;
-            if (elt_less(v[e + J], v[e]) == asc) {
-                const Elt<NK> x = v[e];
-                v[e] = v[e + J];
-                v[e + J] = x;
-            }
-        }
-    }
-}
-
-// keep the smaller of (own, other) where the pair sorts ascending and
-// the own element is the lower one, or both flip; else the larger.
-// Elements are distinct (the position key), so "not less" is "greater".
-template <int NK>
-__device__ __forceinline__ void keep_one(Elt<NK>& v, const Elt<NK>& o, int i,
-                                       int j, int k) {
-    const bool keep_min = ((i & j) == 0) == ((i & k) == 0);
-    if (elt_less(o, v) == keep_min) v = o;
-}
-
 template <int NK>
 __global__ void __launch_bounds__(CAUSE_SORT_REG_MAX / CAUSE_SORT_RE)
 sort_rows_reg_kernel(SortArgs args, int n_ops, int n, int P) {
@@ -177,7 +94,6 @@ sort_rows_reg_kernel(SortArgs args, int n_ops, int n, int P) {
     int32_t* s_key = smem;                 // NK columns of Pp
     int32_t* s_pos = smem + (size_t)NK * Pp;
     const size_t row_off = (size_t)blockIdx.x * (size_t)n;
-    const int base = threadIdx.x * CAUSE_SORT_RE;
 
     // coalesced load into shared, then each thread takes its 8 elements
     for (int i = threadIdx.x; i < P; i += blockDim.x) {
@@ -189,67 +105,7 @@ sort_rows_reg_kernel(SortArgs args, int n_ops, int n, int P) {
         s_pos[pad32(i)] = i;
     }
     __syncthreads();
-    Elt<NK> v[CAUSE_SORT_RE];
-#pragma unroll
-    for (int e = 0; e < CAUSE_SORT_RE; ++e) {
-#pragma unroll
-        for (int q = 0; q < NK; ++q) v[e].k[q] = s_key[q * Pp + pad32(base + e)];
-        v[e].p = s_pos[pad32(base + e)];
-    }
-    __syncthreads();
-
-    for (int k = 2; k <= P; k <<= 1) {
-        for (int j = k >> 1; j > 0; j >>= 1) {
-            if (j >= 32 * CAUSE_SORT_RE) {
-                // partner in another warp: exchange through shared
-#pragma unroll
-                for (int e = 0; e < CAUSE_SORT_RE; ++e) {
-#pragma unroll
-                    for (int q = 0; q < NK; ++q)
-                        s_key[q * Pp + pad32(base + e)] = v[e].k[q];
-                    s_pos[pad32(base + e)] = v[e].p;
-                }
-                __syncthreads();
-#pragma unroll
-                for (int e = 0; e < CAUSE_SORT_RE; ++e) {
-                    const int o_i = pad32((base + e) ^ j);
-                    Elt<NK> o;
-#pragma unroll
-                    for (int q = 0; q < NK; ++q) o.k[q] = s_key[q * Pp + o_i];
-                    o.p = s_pos[o_i];
-                    keep_one(v[e], o, base + e, j, k);
-                }
-                __syncthreads();
-            } else if (j >= CAUSE_SORT_RE) {
-                // partner in lane threadIdx ^ (j / 8) of the same warp
-                const int d = j / CAUSE_SORT_RE;
-#pragma unroll
-                for (int e = 0; e < CAUSE_SORT_RE; ++e) {
-                    Elt<NK> o;
-#pragma unroll
-                    for (int q = 0; q < NK; ++q)
-                        o.k[q] = __shfl_xor_sync(0xffffffffu, v[e].k[q], d);
-                    o.p = __shfl_xor_sync(0xffffffffu, v[e].p, d);
-                    keep_one(v[e], o, base + e, j, k);
-                }
-            } else if (j == 4) {
-                reg_stage<NK, 4>(v, base, k);
-            } else if (j == 2) {
-                reg_stage<NK, 2>(v, base, k);
-            } else {
-                reg_stage<NK, 1>(v, base, k);
-            }
-        }
-    }
-
-    // back through shared for coalesced stores and the payload gather
-#pragma unroll
-    for (int e = 0; e < CAUSE_SORT_RE; ++e) {
-#pragma unroll
-        for (int q = 0; q < NK; ++q) s_key[q * Pp + pad32(base + e)] = v[e].k[q];
-        s_pos[pad32(base + e)] = v[e].p;
-    }
-    __syncthreads();
+    bitonic_reg_smem<NK>(s_key, s_pos, P);
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
         const int src = s_pos[pad32(i)];
 #pragma unroll

@@ -1,13 +1,15 @@
 """Build, load and count the hand-written CUDA kernels.
 
-The port's three kernels live in ``csrc/*.cu`` (B1 ``sort.cu``, B2
-``euler_walk.cu``, B3 ``fphase.cu``), each with a plain C interface.
+The port's kernels live in ``csrc/*.cu`` (B1 ``sort.cu``, B2
+``euler_walk.cu``, B3 ``fphase.cu``, and the fused token kernels B4-B6
+``befuse_k1.cu``, ``befuse_k2.cu``, ``befuse_k4.cu``), each with a plain
+C interface; the headers ``csrc/*.cuh`` hold code they share.
 On first use they are compiled for Hopper with ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` into one shared library each under
 ``cause_tpu_torch/_build/`` (one ``nvcc`` per source, all started
 together) and loaded with ``ctypes``. A library is keyed by a hash of
-its source and flags, so an edited source rebuilds and an unchanged one
-is reused.
+its source, the headers and the flags, so an edited source or header
+rebuilds and an unchanged one is reused.
 
 Every kernel wrapper adds one to its entry of ``launches`` where it
 launches its kernel, and nowhere else, so a run can show that its main
@@ -40,6 +42,9 @@ SOURCES = {
     "sort": "sort.cu",
     "euler_walk": "euler_walk.cu",
     "fphase": "fphase.cu",
+    "k1_sort_redirect": "befuse_k1.cu",
+    "k2_runs": "befuse_k2.cu",
+    "k4_rank_kills": "befuse_k4.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -57,6 +62,12 @@ _SIGNATURES = {
     "cause_sort_smem_limit": [],
     "cause_euler_walk": [_VP] * 5 + [_I, _I, _VP],
     "cause_fphase_expand": [_VP] * 9 + [_I, _I, _I, _I, _VP],
+    "cause_k1_scratch_words": [_I],
+    "cause_k1_sort_redirect": [_VP] * 16 + [_I] * 3 + [_VP, _VP],
+    "cause_k2_scratch_words": [_I, _I],
+    "cause_k2_runs": [_VP] * 16 + [_I] * 5 + [_VP, _VP],
+    "cause_k4_scratch_words": [_I, _I],
+    "cause_k4_rank_kills": [_VP] * 17 + [_I] * 6 + [_VP, _VP],
 }
 
 
@@ -82,6 +93,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"lib{name}-{h[:16]}.so"
 

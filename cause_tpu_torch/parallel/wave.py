@@ -8,6 +8,11 @@ expansion on the card), whose host side is assembly of *cached*
 per-tree lanes and segment tables (``weaver.lanecache``) — no node-dict
 walking, no Python-per-node work.
 
+``BENCH_KERNEL`` picks the pipeline of the dispatch, as in the
+reference: ``""``/``v5``/``v5w`` run the v5 kernel (whose forest ranking
+is already the B2 walk on the card), ``v5f`` the fused token pipeline
+(``torchw5f``: the K1, K2 and K4 kernels); any other value raises.
+
 Contract (deliberately device-resident): ``merge_wave`` returns a
 ``WaveResult`` holding per-pair rank/visibility lanes and digests; a
 pair becomes a host ``CausalList`` again only on demand
@@ -86,16 +91,34 @@ _PAD = {
 }
 
 
-def _dispatch(lanes, u: int, device, site: str):
-    """One fused kernel + digest dispatch over an assembled lane batch;
-    host numpy ``(rank, visible, digest, overflow)``."""
+def _pipeline() -> str:
+    """The wave's pipeline from ``BENCH_KERNEL`` (the reference's knob:
+    ``cause_tpu/parallel/wave.py:669-680``); unknown values raise."""
+    forced = os.environ.get("BENCH_KERNEL", "").strip()
+    if forced not in ("", "v5", "v5w", "v5f"):
+        raise ValueError(
+            f"merge_wave supports BENCH_KERNEL of v5/v5w/v5f only "
+            f"(the wave path is segment-union); got {forced!r}")
+    return forced or "v5"
+
+
+def _dispatch(lanes, u: int, device, site: str, pipeline: str = "v5"):
+    """One kernel + digest dispatch over an assembled lane batch, v5 or
+    (``pipeline="v5f"``) the fused token pipeline; host numpy ``(rank,
+    visible, digest, overflow)``."""
     from ..benchgen import LANE_KEYS5, lanes_from_numpy
+    from ..weaver.torchw5f import batched_merge_weave_v5f
     from ..weaver.torchwd import batched_weave_digest
+    from .mesh import replica_digest
 
     def run():
         t = lanes_from_numpy(lanes, device)
-        return batched_weave_digest(*(t[k] for k in LANE_KEYS5),
-                                    u_max=int(u), k_max=int(u),
+        args = [t[k] for k in LANE_KEYS5]
+        if pipeline == "v5f":
+            r, v, _c, ov = batched_merge_weave_v5f(
+                *args, u_max=int(u), k_max=int(u), device=device)
+            return r, v, replica_digest(t["hi"], t["lo"], r, v), ov
+        return batched_weave_digest(*args, u_max=int(u), k_max=int(u),
                                     device=device)
 
     rank, visible, digest, overflow = _recovery.run_dispatch(site, run)
@@ -430,18 +453,23 @@ def merge_wave(pairs: Sequence[Tuple[object, object]],
 
     from ..benchgen import LANE_KEYS5, v5_token_budget
 
+    # v5 and v5w are one pipeline here: the port's v5 ranks with the B2
+    # walk on the card, and the walk is bit-equal to pointer doubling
+    pipeline = _pipeline()
+
     # pow2-quantized budget: waves whose divergence shifted slightly
     # keep the same shapes
     u_need = int(v5_token_budget(lanes))
     u_max = next_pow2(u_need)
-    rank, visible, digest, overflow = _dispatch(lanes, u_max, dev, "wave")
+    rank, visible, digest, overflow = _dispatch(lanes, u_max, dev, "wave",
+                                                pipeline)
     if overflow.any():
         # the token budget samples rows; a spiky unsampled row can
         # overflow. Retry just those rows with a doubled budget before
         # resorting to host merges.
         rows = np.flatnonzero(overflow)
         sub = {k: lanes[k][rows] for k in LANE_KEYS5}
-        r2, v2, d2, ov2 = _dispatch(sub, 2 * u_max, dev, "wave")
+        r2, v2, d2, ov2 = _dispatch(sub, 2 * u_max, dev, "wave", pipeline)
         rank[rows] = r2
         visible[rows] = v2
         digest[rows] = d2
@@ -468,4 +496,4 @@ def merge_wave(pairs: Sequence[Tuple[object, object]],
         full_dig[i] = digest[j]
         dig_valid[i] = True
     return WaveResult(pairs, views, cap, full_rank, full_vis, full_dig,
-                      fallback, "v5", dig_valid, poisoned=poisoned)
+                      fallback, pipeline, dig_valid, poisoned=poisoned)

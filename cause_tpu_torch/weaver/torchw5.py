@@ -30,6 +30,8 @@ host-value blind spot are as the JAX module describes.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 
 from ..benchgen import LANE_KEYS5, V5_BOOL_KEYS
@@ -104,9 +106,14 @@ def _pair_search_le(kh, kl, qh, ql, size):
     return lo_b
 
 
-def _v5(hi, lo, cci, vclass, valid, seg, sg_min_hi, sg_min_lo, sg_max_hi,
-        sg_max_lo, sg_len, sg_lane0, sg_dense, sg_tail_special, sg_valid,
-        sg_vsum, u_max: int, k_max: int):
+def _v5_ab(hi, lo, cci, vclass, seg, sg_min_hi, sg_min_lo, sg_max_hi,
+           sg_max_lo, sg_len, sg_lane0, sg_dense, sg_tail_special, sg_valid,
+           sg_vsum, u_max: int):
+    """Phases A and B: what both the v5 kernel and the fused v5f pipeline
+    (``torchw5f``) take from them — the presort tokens ``t_*``, the
+    ``token_of_lane`` resolver, ``overflow_u``, and the coverage inputs
+    ``survive`` / ``inv_s`` of phase F (``jaxw5``'s ``stage="_AB"``
+    handoff)."""
     B, N = hi.shape
     S = sg_len.shape[1]
     dev = hi.device
@@ -234,6 +241,25 @@ def _v5(hi, lo, cci, vclass, valid, seg, sg_min_hi, sg_min_lo, sg_max_hi,
         owner_ss = torch.where(ex, ss2, take(gsp, ss2))
         return (take(tb, owner_ss)
                 + torch.where(ex, pc - take(sg_lane0, m), 0)).to(I32)
+
+    return SimpleNamespace(
+        t_hi=t_hi, t_lo=t_lo, t_len=t_len, t_vc=t_vc, t_tsp=t_tsp,
+        t_lane=t_lane, token_of_lane=token_of_lane, overflow_u=overflow_u,
+        survive=survive, inv_s=inv_s, uidx=uidx)
+
+
+def _v5(hi, lo, cci, vclass, valid, seg, sg_min_hi, sg_min_lo, sg_max_hi,
+        sg_max_lo, sg_len, sg_lane0, sg_dense, sg_tail_special, sg_valid,
+        sg_vsum, u_max: int, k_max: int):
+    B, N = hi.shape
+    dev = hi.device
+    take = take1d
+    ab = _v5_ab(hi, lo, cci, vclass, seg, sg_min_hi, sg_min_lo, sg_max_hi,
+                sg_max_lo, sg_len, sg_lane0, sg_dense, sg_tail_special,
+                sg_valid, sg_vsum, u_max)
+    (t_hi, t_lo, t_len, t_vc, t_tsp, t_lane) = (
+        ab.t_hi, ab.t_lo, ab.t_len, ab.t_vc, ab.t_tsp, ab.t_lane)
+    token_of_lane, uidx, U = ab.token_of_lane, ab.uidx, u_max
 
     # ================= C. sort tokens, dedupe =======================
     # the payloads ride the sort (one kernel, no permutation gathers)
@@ -392,7 +418,7 @@ def _v5(hi, lo, cci, vclass, valid, seg, sg_min_hi, sg_min_lo, sg_max_hi,
     lane_key = torch.where(keep_t & (rank_tok < N), sv_lane, N).to(I32)
     lk, _tok_at, tb_l = sort_pairs((lane_key, uidx, rank_tok), num_keys=1)
 
-    seg_cov = sg_valid & take(survive, inv_s)
+    seg_cov = sg_valid & take(ab.survive, ab.inv_s)
     killed_sc = torch.zeros((B, N + 1), dtype=torch.bool, device=dev)
     killed_sc = at_set(killed_sc, torch.where(kg, vict_inrun, N), True)
     killed_sc = at_set(killed_sc, torch.where(kill_tail, vict_tail, N), True)
@@ -405,7 +431,7 @@ def _v5(hi, lo, cci, vclass, valid, seg, sg_min_hi, sg_min_lo, sg_max_hi,
     killed_ext = killed_sc[:, :N] | root_lane
     flags = (valid.to(I32) | (killed_ext.to(I32) << 1)).contiguous()
     rank_lane, visible = fphase_expand(lk, tb_l, cs, ce, vclass, seg, flags)
-    return rank_lane, visible, conflict, overflow_u | overflow_k
+    return rank_lane, visible, conflict, ab.overflow_u | overflow_k
 
 
 def _prepare(args, device):

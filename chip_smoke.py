@@ -6,25 +6,34 @@
 builds the port's CUDA kernels from ``cause_tpu_torch/csrc`` with nvcc,
 holds each one against its plain PyTorch version on the card, drives the
 north-star merge wave (1024 divergent replica pairs of 10k-node lists)
-and the handle-level ``merge_wave`` API through them, and checks that
-the kernels really carried those paths (launch counts) and that the
-results are bit-identical to the plain path on the card and to the pure
-host weaver. Every comparison is exact: all outputs are integers or
+through the v5 pipeline and the fused v5f pipeline, and the handle-level
+``merge_wave`` API through both, and checks that the kernels really
+carried those paths (launch counts) and that the results are
+bit-identical to the plain path on the card, to each other and to the
+pure host weaver. Every comparison is exact: all outputs are integers or
 flags.
 
 Phases, one line each (times from CUDA events unless named host):
 
 1. build: the nvcc build of every kernel source, in parallel;
-2. kernels: every kernel call of one north-star dispatch, captured at
-   its real inputs, plus edge cases (ragged widths, rows too wide for
-   shared memory), kernel against plain version; kernel, plain and, for
-   the sort, library (``torch.sort``) times;
+2. kernels: every kernel call of one north-star v5 dispatch and of one
+   v5f dispatch (K1, K2, K4 and v5f's own B1-B3 calls), captured at its
+   real inputs on the plain path, plus edge cases (ragged widths, rows
+   too wide for shared memory; for K1/K2/K4 the doubled-budget row
+   u_max = 8192 on global scratch, Kp < P, an overflowing row compared
+   on its flags, N not a multiple of 128, B = 1), kernel against plain
+   version; kernel, plain and, for the sort, library (``torch.sort``)
+   times;
 3. north star: ``batched_pair_lanes`` -> ``batched_v5_inputs`` ->
    ``lanes_from_numpy`` -> ``batched_weave_digest`` on the card; launch
    counts of one dispatch, p50 of a few, against the plain path;
+3f. north star v5f: the same batch through ``batched_merge_weave_v5f``
+   and ``replica_digest``; launch counts of one dispatch, bit-identical
+   to the plain v5f path and to phase 3's v5 outputs, p50 beside v5's;
 4. api: ``tree_fleet_handles`` (64 replicas of a 10k-node list) ->
-   ``merge_wave`` over 32 pairs and one ``weaver="torch"`` merge; launch
-   counts, ``merged(i)`` against the pure merge.
+   ``merge_wave`` over 32 pairs and one ``weaver="torch"`` merge, then
+   ``merge_wave`` again under ``BENCH_KERNEL=v5f``; launch counts,
+   ``merged(i)`` against the pure merge, equal digests.
 
 Before the last line it prints the card's ``name, power.limit`` (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -38,6 +47,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -56,12 +66,23 @@ REPLACES = {
     "sort": "cause_tpu/weaver/pallas_sort.py:140",
     "euler_walk": "cause_tpu/weaver/pallas_ops.py:139",
     "fphase": "cause_tpu/weaver/pallas_fphase.py:211",
+    "k1_sort_redirect": "cause_tpu/weaver/pallas_befuse.py:544",
+    "k2_runs": "cause_tpu/weaver/pallas_befuse.py:580",
+    "k4_rank_kills": "cause_tpu/weaver/pallas_befuse.py:656",
 }
 SOURCE = {
     "sort": "cause_tpu_torch/csrc/sort.cu",
     "euler_walk": "cause_tpu_torch/csrc/euler_walk.cu",
     "fphase": "cause_tpu_torch/csrc/fphase.cu",
+    "k1_sort_redirect": "cause_tpu_torch/csrc/befuse_k1.cu",
+    "k2_runs": "cause_tpu_torch/csrc/befuse_k2.cu",
+    "k4_rank_kills": "cause_tpu_torch/csrc/befuse_k4.cu",
 }
+FUSED = ("k1_sort_redirect", "k2_runs", "k4_rank_kills")
+# launches of one dispatch of each pipeline
+V5_LAUNCHES = {"sort": 6, "euler_walk": 1, "fphase": 1}
+V5F_LAUNCHES = {"sort": 2, "euler_walk": 1, "fphase": 1,
+                "k1_sort_redirect": 1, "k2_runs": 1, "k4_rank_kills": 1}
 
 
 def fail(msg: str) -> None:
@@ -113,57 +134,74 @@ def max_err(torch, got, want) -> int:
     return err
 
 
+def plain_fns():
+    from cause_tpu_torch.weaver import befuse, bitonic, euler, fphase
+
+    return {
+        "sort": bitonic.sort_pairs_plain,
+        "euler_walk": euler.euler_walk_plain,
+        "fphase": fphase.fphase_expand_plain,
+        "k1_sort_redirect": befuse.k1_sort_redirect_plain,
+        "k2_runs": befuse.k2_runs_plain,
+        "k4_rank_kills": befuse.k4_rank_kills_plain,
+    }
+
+
 @contextlib.contextmanager
 def plain_path(record=None):
-    """Route the v5 pipeline's three kernel sites to their plain PyTorch
-    versions (the reference on the card), optionally recording every
-    call's inputs. Restores the kernel wrappers on exit."""
-    from cause_tpu_torch.weaver import bitonic, euler, fphase, torchw5
+    """Route the kernel sites of the v5 pipeline (``torchw5``: sort, walk,
+    expansion) and of the v5f pipeline (``torchw5f``: the same three and
+    K1, K2, K4) to their plain PyTorch versions (the reference on the
+    card), optionally recording every call's inputs. Restores the kernel
+    wrappers on exit."""
+    from cause_tpu_torch.weaver import torchw5, torchw5f
 
-    saved = (torchw5.sort_pairs, torchw5.euler_walk, torchw5.fphase_expand)
+    plain = plain_fns()
+    attr = {"sort": "sort_pairs", "euler_walk": "euler_walk",
+            "fphase": "fphase_expand"}
+    sites = [(torchw5, attr[n], n) for n in attr]
+    sites += [(torchw5f, attr.get(n, n), n) for n in plain]
+    saved = [(mod, a, getattr(mod, a)) for mod, a, _ in sites]
 
-    def wrap(name, plain):
+    def wrap(name):
         def call(*args, **kw):
             if record is not None:
                 ops = args[0] if name == "sort" else args
                 record.append((name, tuple(x.clone() for x in ops),
                                dict(kw)))
-            return plain(*args, **kw)
+            return plain[name](*args, **kw)
         return call
 
-    torchw5.sort_pairs = wrap("sort", bitonic.sort_pairs_plain)
-    torchw5.euler_walk = wrap("euler_walk", euler.euler_walk_plain)
-    torchw5.fphase_expand = wrap("fphase", fphase.fphase_expand_plain)
+    for mod, a, name in sites:
+        setattr(mod, a, wrap(name))
     try:
         yield
     finally:
-        (torchw5.sort_pairs, torchw5.euler_walk,
-         torchw5.fphase_expand) = saved
+        for mod, a, fn in saved:
+            setattr(mod, a, fn)
 
 
 # ------------------------------------------------------------ kernels
 
 
 def kernel_fns(name):
-    from cause_tpu_torch.weaver import bitonic, euler, fphase
+    from cause_tpu_torch.weaver import befuse, bitonic, euler, fphase
 
-    if name == "sort":
-        return bitonic.sort_pairs_cuda, bitonic.sort_pairs_plain
-    if name == "euler_walk":
-        return euler.euler_walk_cuda, euler.euler_walk_plain
-    return fphase.fphase_expand_cuda, fphase.fphase_expand_plain
+    kern = {
+        "sort": bitonic.sort_pairs_cuda,
+        "euler_walk": euler.euler_walk_cuda,
+        "fphase": fphase.fphase_expand_cuda,
+        "k1_sort_redirect": befuse.k1_sort_redirect_cuda,
+        "k2_runs": befuse.k2_runs_cuda,
+        "k4_rank_kills": befuse.k4_rank_kills_cuda,
+    }
+    return kern[name], plain_fns()[name]
 
 
-def call_bytes(name, ops) -> int:
+def call_bytes(ops, outs) -> int:
     """Bytes the function must move: each input read once, each output
     written once."""
-    if name == "sort":
-        return 2 * sum(x.numel() * 4 for x in ops)
-    if name == "euler_walk":
-        return 5 * ops[0].numel() * 4
-    lk, tb, cs, ce, vc, seg, fl = ops
-    return (lk.numel() + tb.numel() + cs.numel() + ce.numel()) * 4 \
-        + 4 * vc.numel() * 4 + vc.numel()  # vc, seg, fl, rank + bool vis
+    return sum(x.numel() * x.element_size() for x in tuple(ops) + outs)
 
 
 def library_fn(torch, ops, num_keys):
@@ -177,29 +215,33 @@ def library_fn(torch, ops, num_keys):
     return lambda: torch.sort(key, dim=-1, stable=True)
 
 
-def check_call(torch, name, ops, kw, time_it: bool):
+def check_call(torch, name, ops, kw, time_it: bool, flags_only=False):
+    """Kernel against plain version on one call; ``flags_only`` (an
+    overflowing row, whose other outputs the reference leaves
+    unspecified) holds only the ``scal`` rows of the fused kernels to
+    the plain version, after a launch that must not fault."""
     kern, plain = kernel_fns(name)
     if name == "sort":
-        got = kern(ops, **kw)
-        want = plain(ops, **kw)
+        run = lambda f: f(ops, **kw)  # noqa: E731
     else:
-        got = kern(*ops)
-        want = plain(*ops)
+        run = lambda f: f(*ops, **kw)  # noqa: E731
+    got = run(kern)
+    torch.cuda.synchronize()
+    want = run(plain)
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    err = max_err(torch, got, want)
-    rec = {"err": err}
+    rec = {"err": max_err(torch, got, want)}
+    if flags_only:
+        rec["all_err"] = rec["err"]
+        rec["err"] = max_err(torch, got[-1:], want[-1:])
     if time_it:
+        rec["ms"] = cuda_ms(torch, lambda: run(kern))
+        rec["plain_ms"] = cuda_ms(torch, lambda: run(plain))
         if name == "sort":
-            rec["ms"] = cuda_ms(torch, lambda: kern(ops, **kw))
-            rec["plain_ms"] = cuda_ms(torch, lambda: plain(ops, **kw))
             rec["library_ms"] = cuda_ms(
                 torch, library_fn(torch, ops, kw.get("num_keys", 1)))
-        else:
-            rec["ms"] = cuda_ms(torch, lambda: kern(*ops))
-            rec["plain_ms"] = cuda_ms(torch, lambda: plain(*ops))
-        rec["bound_ms"] = bound_ms(call_bytes(name, ops))
+        rec["bound_ms"] = bound_ms(call_bytes(ops, want))
     return rec
 
 
@@ -271,14 +313,61 @@ def edge_cases(torch, dev):
     return cases
 
 
+def fused_edge_cases(torch, dev):
+    """K1/K2/K4 calls the north star does not make, captured from small
+    plain v5f dispatches: the doubled-budget retry's rows (u_max = 8192:
+    K1 and K2 on global scratch), Kp < P, rows whose runs overflow
+    k_max, N not a multiple of 128, one row. Each plain dispatch is also
+    run on the kernels and compared: all outputs on rows that do not
+    overflow, the overflow flags on all."""
+    import cause_tpu_torch as ct
+    from cause_tpu_torch import benchgen
+    from cause_tpu_torch.weaver.arrays import next_pow2
+
+    cases = []
+    for tag, shape, du, k_max in (
+            ("u_max=8192", (2, 9000, 1000, 10240, 8), 8192, None),
+            ("Kp<P", (8, 120, 40, 256, 8), 300, 0),
+            ("overflow k_max=16", (4, 100, 60, 192, 4), 256, 16),
+            ("N=144", (4, 30, 10, 72, 3), 0, 0),
+            ("B=1", (1, 9000, 1000, 10240, 8), 0, 0)):
+        B, nb, nd, cap, he = shape
+        v5 = benchgen.batched_v5_inputs(
+            benchgen.batched_pair_lanes(B, nb, nd, cap, hide_every=he), cap)
+        need = next_pow2(benchgen.v5_token_budget(v5))
+        u = du if du >= 1024 else need + du
+        k = {None: u, 0: need}.get(k_max, k_max)
+        lanes = benchgen.lanes_from_numpy(v5, dev)
+        args = [lanes[x] for x in benchgen.LANE_KEYS5]
+        rec = []
+        with plain_path(record=rec):
+            want = ct.batched_merge_weave_v5f(*args, u_max=u, k_max=k,
+                                              device=dev)
+        got = ct.batched_merge_weave_v5f(*args, u_max=u, k_max=k,
+                                         device=dev)
+        torch.cuda.synchronize()
+        ovf = want[3]
+        if tag.startswith("overflow") != bool(ovf.any()):
+            fail(f"edge {tag}: overflow rows {ovf.tolist()}")
+        if not torch.equal(got[3], ovf) or any(
+                not torch.equal(g[~ovf], w[~ovf])
+                for g, w in zip(got[:3], want[:3])):
+            fail(f"v5f kernel path differs from the plain path ({tag})")
+        for name, ops, kw in rec:
+            if name in FUSED:
+                cases.append((name, f"{tag}: B={B} N={2 * cap} U={u} "
+                              f"k_max={k}", ops, kw,
+                              tag.startswith("overflow")))
+    return cases
+
+
 def profile_dispatch(torch, dispatch, out_dir: str, wall_ms: float,
-                     reps: int = 2) -> None:
+                     reps: int = 2, tag: str = "v5") -> None:
     """``reps`` north-star dispatches under torch.profiler, read back from
     the Chrome trace it writes to ``out_dir``: device time per dispatch
     by kernel, the device's busy share of the unprofiled p50 wall time
     ``wall_ms``, and the share the port's own kernels take."""
     import collections
-    import os
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -289,7 +378,7 @@ def profile_dispatch(torch, dispatch, out_dir: str, wall_ms: float,
         for _ in range(reps):
             dispatch()
         torch.cuda.synchronize()
-    trace = os.path.join(out_dir, "north_star_dispatch.json")
+    trace = os.path.join(out_dir, f"north_star_{tag}_dispatch.json")
     prof.export_chrome_trace(trace)
     with open(trace) as f:
         kern = [e for e in json.load(f)["traceEvents"]
@@ -301,14 +390,16 @@ def profile_dispatch(torch, dispatch, out_dir: str, wall_ms: float,
     busy = sum(d for _, d in by.values()) / reps
     ours = sum(d for name, (_, d) in by.items()
                if any(k in name for k in ("sort_rows_", "euler_walk_kernel",
-                                          "fphase_kernel"))) / reps
-    say(f"[profile] {len(kern) // reps} kernels per dispatch, device busy "
-        f"{busy:.3f} ms = {100 * busy / wall_ms:.1f}% of the {wall_ms:.3f} "
-        f"ms p50; the port's three kernels {ours:.3f} ms = "
+                                          "fphase_kernel", "k1_kernel",
+                                          "k2_kernel", "k4_kernel"))) / reps
+    say(f"[profile {tag}] {len(kern) // reps} kernels per dispatch, device "
+        f"busy {busy:.3f} ms = {100 * busy / wall_ms:.1f}% of the "
+        f"{wall_ms:.3f} ms p50; the port's kernels {ours:.3f} ms = "
         f"{100 * ours / busy:.1f}% of the device time")
     for name, (n, d) in sorted(by.items(), key=lambda x: -x[1][1])[:15]:
-        say(f"[profile] {d / reps:8.3f} ms {n // reps:5d} launches  {name}")
-    say(f"[profile] trace {trace}")
+        say(f"[profile {tag}] {d / reps:8.3f} ms {n // reps:5d} launches  "
+            f"{name}")
+    say(f"[profile {tag}] trace {trace}")
 
 
 # --------------------------------------------------------------- main
@@ -317,9 +408,9 @@ def profile_dispatch(torch, dispatch, out_dir: str, wall_ms: float,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile two north-star dispatches with "
-                         "torch.profiler: top device ops, the device's "
-                         "busy share, a Chrome trace in DIR")
+                    help="also profile two north-star dispatches of each "
+                         "pipeline with torch.profiler: top device ops, "
+                         "the device's busy share, Chrome traces in DIR")
     args = ap.parse_args()
 
     import torch
@@ -332,6 +423,7 @@ def main() -> int:
     import cause_tpu_torch as ct
     from cause_tpu_torch import benchgen, kernels
     from cause_tpu_torch.collections.clist import CausalList
+    from cause_tpu_torch.parallel.mesh import replica_digest
     from cause_tpu_torch.weaver import torchw
     from cause_tpu_torch.weaver.arrays import next_pow2
 
@@ -367,40 +459,59 @@ def main() -> int:
         return ct.batched_weave_digest(*args5, u_max=u_max, k_max=u_max,
                                        device=dev)
 
-    # the plain path on the card: the reference, and the kernel inputs
-    calls = []
+    def dispatch_f():
+        r, v, _c, ov = ct.batched_merge_weave_v5f(
+            *args5, u_max=u_max, k_max=u_max, device=dev)
+        return r, v, replica_digest(args5[0], args5[1], r, v), ov
+
+    # the plain paths on the card: the references, and the kernel inputs
+    calls, calls_f = [], []
     with plain_path(record=calls):
         ref = dispatch()
+    with plain_path(record=calls_f):
+        ref_f = dispatch_f()
     torch.cuda.synchronize()
-    if bool(ref[3].any()):
-        fail(f"north star overflowed on the plain path: rows "
-             f"{torch.nonzero(ref[3]).flatten()[:8].tolist()}")
+    for tag, r in (("v5", ref), ("v5f", ref_f)):
+        if bool(r[3].any()):
+            fail(f"north star overflowed on the plain {tag} path: rows "
+                 f"{torch.nonzero(r[3]).flatten()[:8].tolist()}")
 
     # ------------------------------------------------ 2. kernels
     per = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                   "library_ms": 0.0, "err": 0}
            for name in kernels.SOURCES}
-    for name, ops, kw in calls:
-        rec = check_call(torch, name, ops, kw, time_it=True)
+    # B1-B3 are timed at the v5 dispatch's calls, K1/K2/K4 at the v5f
+    # dispatch's; v5f's own B1-B3 calls are checked, not timed
+    timed = [(n, o, kw, True, "v5") for n, o, kw in calls] + [
+        (n, o, kw, n in FUSED, "v5f") for n, o, kw in calls_f]
+    for name, ops, kw, time_it, path in timed:
+        rec = check_call(torch, name, ops, kw, time_it=time_it)
         shapes = "x".join(str(d) for d in ops[0].shape)
-        say(f"[2 kernels] {name} {shapes} n_ops={len(ops)} {kw or ''}: "
-            f"max_abs_err {rec['err']} ms {rec['ms']:.4f} plain_ms "
-            f"{rec['plain_ms']:.4f} library_ms "
-            f"{rec.get('library_ms', float('nan')):.4f} bound_ms "
-            f"{rec['bound_ms']:.4f}")
-        p = per[name]
-        for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
-            p[k] += rec.get(k, 0.0)
-        p["err"] = max(p["err"], rec["err"])
+        line = (f"[2 kernels] {path} {name} {shapes} n_ops={len(ops)} "
+                f"{kw or ''}: max_abs_err {rec['err']}")
+        if time_it:
+            line += (f" ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f}"
+                     f" library_ms {rec.get('library_ms', float('nan')):.4f}"
+                     f" bound_ms {rec['bound_ms']:.4f}")
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                per[name][k] += rec.get(k, 0.0)
+        say(line)
+        per[name]["err"] = max(per[name]["err"], rec["err"])
         if rec["err"]:
             fail(f"{name} kernel disagrees with its plain version")
-    for name, tag, ops, kw in edge_cases(torch, dev):
-        rec = check_call(torch, name, ops, kw, time_it=False)
-        say(f"[2 kernels] edge {name} {tag}: max_abs_err {rec['err']}")
+    del calls, calls_f, timed
+    edges = [(n, t, o, kw, False) for n, t, o, kw in edge_cases(torch, dev)]
+    for name, tag, ops, kw, flags_only in edges + fused_edge_cases(torch,
+                                                                    dev):
+        rec = check_call(torch, name, ops, kw, time_it=False,
+                         flags_only=flags_only)
+        say(f"[2 kernels] edge {name} {tag}: max_abs_err {rec['err']}"
+            + (f" (flags; all outputs {rec['all_err']})" if flags_only
+               else ""))
         per[name]["err"] = max(per[name]["err"], rec["err"])
         if rec["err"]:
             fail(f"{name} kernel disagrees with its plain version ({tag})")
-    del calls
+    del edges
 
     # ------------------------------------------------ 3. north star
     kernels.reset_launches()
@@ -408,7 +519,7 @@ def main() -> int:
     torch.cuda.synchronize()
     counts = dict(kernels.launches)
     say(f"[3 north star] launches in one dispatch: {counts}")
-    want = {"sort": 6, "euler_walk": 1, "fphase": 1}
+    want = {name: V5_LAUNCHES.get(name, 0) for name in kernels.SOURCES}
     if counts != want:
         fail(f"north-star launches {counts}, expected {want}")
     names = ("rank", "visible", "digest", "overflow")
@@ -440,8 +551,40 @@ def main() -> int:
         f"reps: {[round(t, 3) for t in k_all]} / "
         f"{[round(t, 3) for t in p_all]})")
     if args.profile:
-        profile_dispatch(torch, dispatch, args.profile, k_p50)
-    del out, ref, lanes, args5
+        profile_dispatch(torch, dispatch, args.profile, k_p50, tag="v5")
+    del ref
+
+    # ------------------------------------------------ 3f. north star v5f
+    kernels.reset_launches()
+    out_f = dispatch_f()
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    say(f"[3f north star v5f] launches in one dispatch: {counts}")
+    want = {name: V5F_LAUNCHES.get(name, 0) for name in kernels.SOURCES}
+    if counts != want:
+        fail(f"v5f north-star launches {counts}, expected {want}")
+    fused_launches = counts
+    for nm, g, w, w5 in zip(names, out_f, ref_f, out):
+        if not torch.equal(g, w):
+            fail(f"v5f north star {nm} differs from the plain v5f path")
+        if not torch.equal(g, w5):
+            fail(f"v5f north star {nm} differs from the v5 kernel path")
+    if bool(out_f[3].any()):
+        fail("v5f north star overflowed")
+    dispatch_f()  # warm
+    f_p50, f_all = p50(dispatch_f)
+    with plain_path():
+        dispatch_f()
+        pf_p50, pf_all = p50(dispatch_f)
+    say(f"[3f north star v5f] bit-identical to the plain v5f path and to "
+        f"the v5 kernel path (rank, visible, digest, overflow); dispatch "
+        f"p50 {f_p50:.3f} ms with the kernels (v5: {k_p50:.3f} ms), "
+        f"{pf_p50:.3f} ms plain (host clock, synchronized, {REPS} reps: "
+        f"{[round(t, 3) for t in f_all]} / "
+        f"{[round(t, 3) for t in pf_all]})")
+    if args.profile:
+        profile_dispatch(torch, dispatch_f, args.profile, f_p50, tag="v5f")
+    del out, out_f, ref_f, lanes, args5
 
     # ------------------------------------------------ 4. api
     t0 = time.perf_counter()
@@ -460,7 +603,7 @@ def main() -> int:
     say(f"[4 api] {len(hs)} replicas built in {t1 - t0:.3f} s; merge_wave "
         f"over {len(pairs)} pairs {(t3 - t2) * 1e3:.3f} ms (host clock, "
         f"first call); launches in merge_wave + one merge: {counts}")
-    for name in kernels.SOURCES:
+    for name in V5_LAUNCHES:
         if counts[name] < 2:  # the wave's dispatch and the merge's
             fail(f"api path launched {name} {counts[name]} times")
     if torchw.pure_fallbacks != fallbacks0:
@@ -472,9 +615,10 @@ def main() -> int:
     if not np.array_equal(res.digest, res_plain.digest):
         fail("merge_wave digests differ from the plain path")
     checked = sorted({0, len(pairs) // 2, len(pairs) - 1})
+    pures = {}
     for i in checked:
         a, b = pairs[i]
-        pure = CausalList(a.ct.evolve(weaver="pure")).merge(
+        pure = pures[i] = CausalList(a.ct.evolve(weaver="pure")).merge(
             CausalList(b.ct.evolve(weaver="pure")))
         got = res.merged(i)
         if got.ct.weave != pure.ct.weave or list(got) != list(pure):
@@ -486,6 +630,38 @@ def main() -> int:
         f"pair 0 equal the pure merge ({len(pure.ct.weave)} nodes); "
         f"digests equal the plain path; 0 trees to the pure weaver")
 
+    knob = os.environ.get("BENCH_KERNEL")
+    os.environ["BENCH_KERNEL"] = "v5f"
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res_f = ct.merge_wave(pairs)
+        t1 = time.perf_counter()
+        counts = dict(kernels.launches)
+    finally:
+        if knob is None:
+            del os.environ["BENCH_KERNEL"]
+        else:
+            os.environ["BENCH_KERNEL"] = knob
+    say(f"[4 api] BENCH_KERNEL=v5f: merge_wave over {len(pairs)} pairs "
+        f"{(t1 - t0) * 1e3:.3f} ms (host clock); launches: {counts}")
+    if res_f.kernel != "v5f":
+        fail(f"merge_wave under BENCH_KERNEL=v5f ran {res_f.kernel!r}")
+    for name in V5F_LAUNCHES:
+        if counts[name] < 1:
+            fail(f"v5f api path launched {name} {counts[name]} times")
+    if res_f.fallback or res_f.poisoned or not res_f.digest_valid.all():
+        fail(f"v5f wave fell back {res_f.fallback} / poisoned "
+             f"{res_f.poisoned}")
+    if not np.array_equal(res_f.digest, res.digest):
+        fail("merge_wave digests under v5f differ from the v5 wave's")
+    for i in checked:
+        got = res_f.merged(i)
+        if got.ct.weave != pures[i].ct.weave or list(got) != list(pures[i]):
+            fail(f"v5f merge_wave pair {i} differs from the pure merge")
+    say(f"[4 api] BENCH_KERNEL=v5f: kernel 'v5f', digests equal the v5 "
+        f"wave's, merged(i) for pairs {checked} equal the pure merge")
+
     # ------------------------------------------------ result
     recs = []
     for name in kernels.SOURCES:
@@ -493,7 +669,8 @@ def main() -> int:
         recs.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name],
-            "launches": main_launches[name],
+            "launches": (fused_launches if name in FUSED
+                         else main_launches)[name],
             "max_abs_err": p["err"],
             "ms": p["ms"], "plain_ms": p["plain_ms"],
             "bound_ms": p["bound_ms"], "bound_by": "bytes",

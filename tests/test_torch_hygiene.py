@@ -20,7 +20,7 @@ import torch
 import cause_tpu_torch as ct
 from cause_tpu_torch import benchgen as tbench
 from cause_tpu_torch import kernels
-from cause_tpu_torch.weaver import bitonic, euler, fphase
+from cause_tpu_torch.weaver import befuse, bitonic, euler, fphase
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "cause_tpu_torch").rglob("*.py")) + [
@@ -88,6 +88,8 @@ def test_device_entry_points_raise_without_cuda(no_card):
         ct.batched_merge_weave_v5(*args, u_max=u, k_max=u)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ct.batched_weave_digest(*args, u_max=u, k_max=u)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ct.batched_merge_weave_v5f(*args, u_max=u, k_max=u)
     # with device="cpu" the same calls run
     r, v, cf, ov = ct.batched_merge_weave_v5(*args, u_max=u, k_max=u,
                                              device="cpu")
@@ -117,11 +119,23 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
         euler.euler_walk_cuda(x, x, x, x)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fphase.fphase_expand_cuda(x, x, x, x, x, x, x)
+    p = torch.zeros((2, 128), dtype=torch.int32)
+    s8 = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        befuse.k1_sort_redirect_cuda(*(p,) * 8, U=128)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        befuse.k2_runs_cuda(*(p,) * 6, U=128, k_max=128, Kp=128)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        befuse.k4_rank_kills_cuda(*(p,) * 11, s8, U=128, k_max=128, N=4)
     # on CPU tensors the dispatching wrappers take the plain versions
     bitonic.sort_pairs((x, x), num_keys=1)
     euler.euler_walk(torch.full_like(x, -1), torch.full_like(x, -1),
                      torch.full_like(x, -1), x)
-    assert kernels.launches == {"sort": 0, "euler_walk": 0, "fphase": 0}
+    befuse.k1_sort_redirect(*(p,) * 8, U=128)
+    assert kernels.launches == {name: 0 for name in kernels.SOURCES}
+    assert set(kernels.launches) == {
+        "sort", "euler_walk", "fphase", "k1_sort_redirect", "k2_runs",
+        "k4_rank_kills"}
 
 
 @pytest.mark.parametrize("bad, err", [
@@ -136,10 +150,33 @@ def test_sort_wrapper_checks_its_inputs(bad, err):
         bitonic.sort_pairs_cuda(bad(x), num_keys=1)
 
 
+def _p(width=128, dtype=torch.int32):
+    return torch.zeros((2, width), dtype=dtype)
+
+
+@pytest.mark.parametrize("call, err", [
+    (lambda: befuse.k1_sort_redirect_cuda(
+        _p(dtype=torch.int64), *(_p(),) * 7, U=128), TypeError),
+    (lambda: befuse.k1_sort_redirect_cuda(
+        *(_p(),) * 7, _p(64), U=128), ValueError),        # ragged
+    (lambda: befuse.k1_sort_redirect_cuda(
+        *(_p(96),) * 8, U=96), ValueError),               # not a power of 2
+    (lambda: befuse.k2_runs_cuda(
+        *(_p(),) * 6, U=128, k_max=256, Kp=256), ValueError),  # Kp > P
+    (lambda: befuse.k4_rank_kills_cuda(
+        *(_p(),) * 11, _p(4), U=128, k_max=128, N=4), ValueError),
+])
+def test_fused_kernel_wrappers_check_their_inputs(call, err):
+    with pytest.raises(err):
+        call()
+
+
 def test_nothing_is_built_at_import():
     """Importing the package needs neither nvcc nor a card."""
     assert kernels._LIBS == {} or torch.cuda.is_available()
-    assert set(kernels.SOURCES) == {"sort", "euler_walk", "fphase"}
+    assert set(kernels.SOURCES) == {"sort", "euler_walk", "fphase",
+                                    "k1_sort_redirect", "k2_runs",
+                                    "k4_rank_kills"}
     for src in kernels.SOURCES.values():
         assert (kernels.CSRC / src).exists()
 

@@ -57,24 +57,26 @@ def switches(monkeypatch):
     jax.clear_caches()
 
 
-def jax_v5(v5, u, on=False):
+def jax_v5(v5, u, on=False, k_max=None):
     """The JAX reference: ``(rank, visible, conflict, overflow,
     digest)``; the digest is ``replica_digest`` over the kernel's
     outputs, as ``jaxwd.batched_weave_digest`` computes it."""
     args = [jnp.asarray(v5[k]) for k in KEYS]
     r, v, cf, ov = jaxw5.batched_merge_weave_v5(
-        *args, u_max=u, k_max=u, euler="walk" if on else "doubling")
+        *args, u_max=u, k_max=u if k_max is None else k_max,
+        euler="walk" if on else "doubling")
     dg = _digest(args[0], args[1], r, v)
     return (np.asarray(r), np.asarray(v), np.asarray(cf), np.asarray(ov),
             np.asarray(dg))
 
 
-def port_v5(v5, u):
+def port_v5(v5, u, k_max=None):
+    k_max = u if k_max is None else k_max
     lanes = tbench.lanes_from_numpy(v5, "cpu")
     args = [lanes[k] for k in KEYS]
-    r, v, cf, ov = ct.batched_merge_weave_v5(*args, u_max=u, k_max=u,
+    r, v, cf, ov = ct.batched_merge_weave_v5(*args, u_max=u, k_max=k_max,
                                              device="cpu")
-    r2, v2, dg, ov2 = ct.batched_weave_digest(*args, u_max=u, k_max=u,
+    r2, v2, dg, ov2 = ct.batched_weave_digest(*args, u_max=u, k_max=k_max,
                                               device="cpu")
     assert r.equal(r2) and v.equal(v2) and ov.equal(ov2)
     return (r.numpy(), v.numpy(), cf.numpy(), ov.numpy(),
@@ -109,6 +111,21 @@ def test_batched_pair_lanes_parity(switches, B, nb, nd, cap, he):
     want = jax_v5(v5, u)
     assert not want[3].any()
     assert_same(want, port_v5(v5, u), f"B={B} cap={cap}")
+
+
+def test_separate_budgets_parity(switches):
+    """u_max != k_max (the shape of tests/test_befuse.py:70-80): pins
+    ``_v5`` unchanged now that its phases A and B are ``_v5_ab``, which
+    the fused pipeline shares."""
+    row = jbench.divergent_pair_lanes(n_base=100, n_div=40, capacity=192,
+                                      hide_every=5)
+    v5row = jbench.v5_inputs(row, 192)
+    u = jbench.v5_token_budget(v5row)
+    v5 = {k: v[None] for k, v in v5row.items()}
+    switches(False)
+    want = jax_v5(v5, u + 40, k_max=u)
+    assert not want[3].any()
+    assert_same(want, port_v5(v5, u + 40, k_max=u), "u!=k")
 
 
 def test_switches_on_parity(switches):
