@@ -1,5 +1,7 @@
-// The in-block bitonic row network of B1 (csrc/sort.cu), shared by the
-// sort kernel and the fused token kernels (befuse_k1/k2/k4.cu).
+// The in-block bitonic row networks: the plain form is B1's path
+// (csrc/sort.cu) for more than two keys or rows outside its radix path;
+// both forms serve the in-block sorts of the fused token kernels
+// (befuse_k1/k2/k4.cu).
 //
 // Both forms sort P (a power of two) elements of ONE row inside one CTA,
 // ascending and lexicographic over NK int32 keys with the element's

@@ -11,38 +11,38 @@
 //
 // What bounds it on the H100: the HBM traffic is one read and one write
 // of every operand (2 * n_ops * B * n * 4 bytes), a fraction of a
-// millisecond at the wave's shapes. The bitonic network itself is
-// log2(P) * (log2(P) + 1) / 2 compare-exchange stages (78 at P = 4096),
-// so the kernel is bound by how fast a stage can exchange elements
-// between threads (shared-memory traffic and barriers), not by bytes
-// from HBM.
+// millisecond at the wave's shapes. A comparison network cannot get near
+// it: the bitonic network is log2(P) * (log2(P) + 1) / 2 compare-exchange
+// stages (78 at P = 4096) whatever the keys hold, each bound by how fast
+// elements move between threads.
 //
-// What the design does about it, in both paths:
-// - Only the keys and the position key run through the network; the
-//   payloads are gathered once at the end by the final positions (the
-//   Pallas kernel moves every operand at every stage).
+// What the design does about it:
+// - The radix path (one or two keys, 256 <= P <= 8192: every site of the
+//   wave, and the doubled-budget retry) sorts with radix.cuh: the keys
+//   are range-compressed to the bits the row's data spans (at most 15
+//   bits for a lane or base key, so two 8-bit digit passes), packed into
+//   one composite, and sorted by stable LSD passes that rank digits with
+//   warp ballots and scatter through shared memory. Stability replaces
+//   the position key.
+// - Only the keys (and positions) are sorted; each payload is staged in
+//   shared memory once and gathered by final position (the Pallas kernel
+//   moves every operand at every stage).
 //
-// The register path (one or two keys, 256 <= P <= 4096: every v5 site)
-// keeps each thread's 8 consecutive elements in registers. A stage whose
-// partner distance j is below 8 swaps within a thread; below 256 it
-// swaps with a lane of the same warp by shuffles; only the 10 stages
-// with j >= 256 (at P = 4096) go through shared memory, with one padding
-// word per 32 so a warp's strided accesses hit 32 distinct banks.
-//
-// The shared path (any other row) runs the network in shared memory,
-// ending a stage that stays inside a warp's 64-element chunk with a warp
-// barrier instead of a block barrier. A row whose keys do not fit the
-// 227 KB a block may use runs it on a global-memory scratch row that the
-// caller allocates; __syncthreads orders global writes within the block
-// just as it does shared ones.
-//
-// Both networks live in bitonic.cuh, which the fused token kernels
-// (befuse_k1/k2/k4.cu) include for their in-block sorts.
+// The network path (more than two keys, or P outside the radix path's
+// range) runs bitonic_net from bitonic.cuh in shared memory, ending a
+// stage that stays inside a warp's 64-element chunk with a warp barrier
+// instead of a block barrier. A row whose keys do not fit the 227 KB a
+// block may use runs it on a global-memory scratch row that the caller
+// allocates; __syncthreads orders global writes within the block just as
+// it does shared ones. The choice is a static rule on (P, num_keys) in
+// cause_sort_rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bitonic.cuh"
+#include "radix.cuh"
+#include "smem_attrs.cuh"
 
 #define CAUSE_SORT_MAX_OPS 9
 #define CAUSE_SORT_THREADS 512
@@ -84,51 +84,73 @@ __global__ void sort_rows_kernel(SortArgs args, int n_ops, int num_keys,
     }
 }
 
-// ---------------------------------------------------------- register path
+// ------------------------------------------------------------- radix path
 
-template <int NK>
-__global__ void __launch_bounds__(CAUSE_SORT_REG_MAX / CAUSE_SORT_RE)
-sort_rows_reg_kernel(SortArgs args, int n_ops, int n, int P) {
-    extern __shared__ int32_t smem[];
-    const int Pp = pad32(P);
-    int32_t* s_key = smem;                 // NK columns of Pp
-    int32_t* s_pos = smem + (size_t)NK * Pp;
+template <int NK, int IPT>
+__global__ void __launch_bounds__(CAUSE_RADIX_THREADS, IPT == 8 ? 2 : 1)
+sort_rows_radix_kernel(SortArgs args, int n_ops, int n) {
+    extern __shared__ __align__(16) unsigned char radix_smem[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const size_t row_off = (size_t)blockIdx.x * (size_t)n;
 
-    // coalesced load into shared, then each thread takes its 8 elements
-    for (int i = threadIdx.x; i < P; i += blockDim.x) {
+    // warp-striped, coalesced: element (warp * IPT + i) * 32 + lane
+    int32_t k[NK][IPT];
 #pragma unroll
-        for (int q = 0; q < NK; ++q) {
-            s_key[q * Pp + pad32(i)] =
-                i < n ? args.in[q][row_off + i] : INT32_MAX;
-        }
-        s_pos[pad32(i)] = i;
-    }
-    __syncthreads();
-    bitonic_reg_smem<NK>(s_key, s_pos, P);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int src = s_pos[pad32(i)];
+    for (int i = 0; i < IPT; ++i) {
+        const int p = (warp * IPT + i) * 32 + lane;
 #pragma unroll
         for (int q = 0; q < NK; ++q)
-            args.out[q][row_off + i] = s_key[q * Pp + pad32(i)];
-        for (int q = NK; q < n_ops; ++q)
-            args.out[q][row_off + i] = args.in[q][row_off + src];
+            k[q][i] = p < n ? args.in[q][row_off + p] : INT32_MAX;
+    }
+    const RadixRow<NK> row = radix_sort_row<NK, IPT>(k, radix_smem);
+
+    // Each payload is staged in shared memory over the composite keys and
+    // gathered by final position (padding sorts last: pos(i) < n). A
+    // payload's loads (IPT a thread, all in flight) are issued before the
+    // previous operand's writes.
+    int32_t v[IPT];
+    auto load = [&](int q) {
+#pragma unroll
+        for (int j = 0; j < IPT; ++j) {
+            const int i = threadIdx.x + j * blockDim.x;
+            v[j] = i < n ? args.in[q][row_off + i] : 0;
+        }
+    };
+    if (NK < n_ops) load(NK);
+#pragma unroll
+    for (int j = 0; j < IPT; ++j) {
+        const int i = threadIdx.x + j * blockDim.x;
+        if (i < n) {
+#pragma unroll
+            for (int q = 0; q < NK; ++q)
+                args.out[q][row_off + i] = row.key(q, i);
+        }
+    }
+    int32_t* stage = (int32_t*)radix_smem;
+    for (int q = NK; q < n_ops; ++q) {
+        __syncthreads();  // the area's last readers are done
+#pragma unroll
+        for (int j = 0; j < IPT; ++j) stage[threadIdx.x + j * blockDim.x] = v[j];
+        __syncthreads();
+        if (q + 1 < n_ops) load(q + 1);
+#pragma unroll
+        for (int j = 0; j < IPT; ++j) {
+            const int i = threadIdx.x + j * blockDim.x;
+            if (i < n) args.out[q][row_off + i] = stage[row.pos(i)];
+        }
     }
 }
 
-template <int NK>
-static cudaError_t launch_reg(const SortArgs& args, int n_ops, int B, int n,
-                              int P, cudaStream_t stream) {
-    const size_t smem = (size_t)(NK + 1) * (size_t)(P + (P >> 5)) *
-                        sizeof(int32_t);
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            sort_rows_reg_kernel<NK>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return e;
-    }
-    sort_rows_reg_kernel<NK><<<B, P / CAUSE_SORT_RE, smem, stream>>>(
-        args, n_ops, n, P);
+template <int NK, int IPT>
+static cudaError_t launch_radix(const SortArgs& args, int n_ops, int B, int n,
+                                int P, cudaStream_t stream) {
+    static std::atomic<bool> ready[CAUSE_MAX_DEVICES];
+    auto kernel = sort_rows_radix_kernel<NK, IPT>;
+    // as many rows an SM as the registers allow: the whole carveout
+    const cudaError_t e = smem_attrs_once(kernel, ready);
+    if (e != cudaSuccess) return e;
+    kernel<<<B, P / IPT, radix_smem_bytes(NK, P, IPT), stream>>>(args, n_ops,
+                                                                 n);
     return cudaGetLastError();
 }
 
@@ -164,21 +186,23 @@ int cause_sort_rows(void* const* ins, void* const* outs, int n_ops,
     }
     int P = 1;
     while (P < n) P <<= 1;
-    if (!scratch && num_keys <= 2 && P >= CAUSE_SORT_REG_MIN &&
-        P <= CAUSE_SORT_REG_MAX) {
+    if (!scratch && num_keys <= 2 && P >= CAUSE_RADIX_MIN_P &&
+        P <= CAUSE_RADIX_MAX_P) {
+        const cudaStream_t st = (cudaStream_t)stream;
+        if (radix_ipt(P) == 8)
+            return (int)(num_keys == 1
+                ? launch_radix<1, 8>(args, n_ops, B, n, P, st)
+                : launch_radix<2, 8>(args, n_ops, B, n, P, st));
         return (int)(num_keys == 1
-            ? launch_reg<1>(args, n_ops, B, n, P, (cudaStream_t)stream)
-            : launch_reg<2>(args, n_ops, B, n, P, (cudaStream_t)stream));
+            ? launch_radix<1, 16>(args, n_ops, B, n, P, st)
+            : launch_radix<2, 16>(args, n_ops, B, n, P, st));
     }
     const size_t bytes =
         (size_t)(num_keys + 1) * (size_t)P * sizeof(int32_t);
-    size_t smem = scratch ? 0 : bytes;
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            sort_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
+    const size_t smem = scratch ? 0 : bytes;
+    static std::atomic<bool> ready[CAUSE_MAX_DEVICES];
+    const cudaError_t e = smem_attrs_once(sort_rows_kernel, ready);
+    if (e != cudaSuccess) return (int)e;
     // whole warps: the warp-barrier stages rely on every lane arriving
     int threads = P / 2;
     if (threads > CAUSE_SORT_THREADS) threads = CAUSE_SORT_THREADS;

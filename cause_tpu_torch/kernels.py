@@ -3,7 +3,8 @@
 The port's kernels live in ``csrc/*.cu`` (B1 ``sort.cu``, B2
 ``euler_walk.cu``, B3 ``fphase.cu``, and the fused token kernels B4-B6
 ``befuse_k1.cu``, ``befuse_k2.cu``, ``befuse_k4.cu``), each with a plain
-C interface; the headers ``csrc/*.cuh`` hold code they share.
+C interface; the headers ``csrc/*.cuh`` hold code they share (the radix
+row sort, the bitonic networks, the fused kernels' building blocks).
 On first use they are compiled for Hopper with ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` into one shared library each under
 ``cause_tpu_torch/_build/`` (one ``nvcc`` per source, all started
@@ -60,7 +61,8 @@ _SIGNATURES = {
     "cause_sort_rows": [ctypes.POINTER(_VP), ctypes.POINTER(_VP), _I, _I,
                         _I, _I, _VP, _VP],
     "cause_sort_smem_limit": [],
-    "cause_euler_walk": [_VP] * 5 + [_I, _I, _VP],
+    "cause_euler_walk_scratch_words": [_I],
+    "cause_euler_walk": [_VP] * 5 + [_I, _I, _VP, _VP],
     "cause_fphase_expand": [_VP] * 9 + [_I, _I, _I, _I, _VP],
     "cause_k1_scratch_words": [_I],
     "cause_k1_sort_redirect": [_VP] * 16 + [_I] * 3 + [_VP, _VP],

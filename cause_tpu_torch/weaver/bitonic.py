@@ -1,4 +1,4 @@
-"""B1: the kernels' row sort — a bitonic network in shared memory.
+"""B1: the kernels' row sort — a range-compressed radix sort.
 
 Counterpart of ``cause_tpu.weaver.bitonic.sort_pairs`` and of the
 Pallas kernel it switches to (``cause_tpu.weaver.pallas_sort``): sort
@@ -10,12 +10,18 @@ as payloads.
 
 ``sort_pairs`` takes the plain version for tensors on the CPU and
 launches the CUDA kernel (``csrc/sort.cu``) for tensors on the card.
-There is no fallback between the two.
+There is no fallback between the two. The kernel sorts rows of one or
+two keys and 256 <= P <= 8192 (P = next_pow2(n); every site of the
+wave) by stable LSD radix passes over the keys compressed to the bits
+their range spans (``csrc/radix.cuh``), and any other row by a bitonic
+network in shared memory, or in a global scratch row when the row is
+too wide for it (``csrc/bitonic.cuh``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -61,6 +67,13 @@ def _check(operands, num_keys):
             raise ValueError("sort operands must be contiguous")
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_limit(device_index: int) -> int:
+    """Dynamic shared memory a block may use on the card (bytes)."""
+    with torch.cuda.device(device_index):
+        return kernels.library("sort").cause_sort_smem_limit()
+
+
 def sort_pairs_cuda(operands: Sequence[torch.Tensor],
                     num_keys: int = 1) -> Tuple[torch.Tensor, ...]:
     """Launch the B1 kernel on CUDA operands (see ``csrc/sort.cu``)."""
@@ -77,7 +90,7 @@ def sort_pairs_cuda(operands: Sequence[torch.Tensor],
     while P < n:
         P *= 2
     scratch = None  # the keys and positions of a row, when too wide
-    if (num_keys + 1) * P * 4 > lib.cause_sort_smem_limit():
+    if (num_keys + 1) * P * 4 > _smem_limit(x0.device.index):
         scratch = torch.empty((B, (num_keys + 1) * P), dtype=torch.int32,
                               device=x0.device)
     ins = (ctypes.c_void_p * n_ops)(*[x.data_ptr() for x in operands])

@@ -1,13 +1,18 @@
 """B2: ranking the contracted forest — child links, pointer doubling,
-and the sequential Euler walk kernel.
+and the Euler walk kernel.
 
 Counterparts: ``_link_children`` and ``_euler_rank`` of
 ``cause_tpu.weaver.jaxw`` (:80-137) and the Pallas walk
 ``cause_tpu.weaver.pallas_ops.euler_walk``. ``euler_walk`` takes the
 plain version (``euler_walk_plain``: ``_euler_rank``'s weighted
 preorder rank by pointer doubling) for tensors on the CPU, and launches
-the CUDA kernel (``csrc/euler_walk.cu``) for tensors on the card.
-Everything is batched ``[B, K]`` int32.
+the CUDA kernel (``csrc/euler_walk.cu``) for tensors on the card. The
+kernel ranks the Euler tour as a list in one CTA per row: one tour
+slot in 32 is a splitter (picked by a multiplicative hash of the
+slot), a walk per sublist, one walk along
+the splitter chain, and the reached sublists walked again to stamp the
+bases (a ruling set, where the Pallas kernel walks the whole tour in
+one thread). Everything is batched ``[B, K]`` int32.
 
 The walk and the doubling agree on every run the walk reaches. A run it
 never reaches keeps the row's total weight in the walk, while the
@@ -20,6 +25,7 @@ it equals the walk on every input.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -29,7 +35,6 @@ from .gatherops import at_set, take1d
 
 __all__ = ["link_children", "euler_rank", "euler_walk",
            "euler_walk_plain", "euler_walk_cuda"]
-
 
 def link_children(order: torch.Tensor, parent_sort: torch.Tensor):
     """Given lanes sorted into sibling order (``order``) and each lane's
@@ -122,6 +127,17 @@ def _check(tables):
             raise ValueError("euler_walk tables must be contiguous")
 
 
+@functools.lru_cache(maxsize=None)
+def _scratch_words(device_index: int, K: int) -> int:
+    """Int32 words of global scratch a row of K runs needs on the card
+    (0: the row fits in shared memory); one device query per width."""
+    with torch.cuda.device(device_index):
+        words = kernels.library("euler_walk").cause_euler_walk_scratch_words(K)
+    if words < 0:
+        raise RuntimeError("euler_walk: CUDA device query failed")
+    return words
+
+
 def euler_walk_cuda(fc, ns, parent_run, run_len):
     """Launch the B2 kernel on CUDA tables (see ``csrc/euler_walk.cu``)."""
     tables = (fc, ns, parent_run, run_len)
@@ -131,10 +147,15 @@ def euler_walk_cuda(fc, ns, parent_run, run_len):
     B, K = fc.shape
     base = torch.empty_like(fc)
     lib = kernels.library("euler_walk")
+    words = _scratch_words(fc.device.index, K)
+    # the rows' arrays, when too wide for shared memory
+    scratch = (torch.empty((B, words), dtype=torch.int32, device=fc.device)
+               if words else None)
     with torch.cuda.device(fc.device):
         rc = lib.cause_euler_walk(
             fc.data_ptr(), ns.data_ptr(), parent_run.data_ptr(),
             run_len.data_ptr(), base.data_ptr(), B, K,
+            scratch.data_ptr() if scratch is not None else None,
             kernels.stream_handle(fc.device))
     kernels.check(rc, "euler_walk")
     kernels.launches["euler_walk"] += 1

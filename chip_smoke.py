@@ -19,11 +19,16 @@ Phases, one line each (times from CUDA events unless named host):
 2. kernels: every kernel call of one north-star v5 dispatch and of one
    v5f dispatch (K1, K2, K4 and v5f's own B1-B3 calls), captured at its
    real inputs on the plain path, plus edge cases (ragged widths, rows
-   too wide for shared memory; for K1/K2/K4 the doubled-budget row
-   u_max = 8192 on global scratch, Kp < P, an overflowing row compared
-   on its flags, N not a multiple of 128, B = 1), kernel against plain
-   version; kernel, plain and, for the sort, library (``torch.sort``)
-   times;
+   too wide for shared memory; for B1 the doubled-budget width P = 8192
+   with two keys, keys whose composite spans more than 32 bits,
+   INT32_MIN beside INT32_MAX, rows of equal keys; for B2 a chain and a
+   star at K = 4096 and 8192, two interleaved chains, B = 1, a row on
+   global scratch; for
+   K1/K2/K4 the doubled-budget row u_max = 8192 on global scratch, Kp <
+   P, an overflowing row compared on its flags, N not a multiple of
+   128, B = 1), kernel against plain version; kernel, plain and, for
+   the sort, library (``torch.sort``) times, with one line per B1 site
+   (its keys' composite bit count, kernel against ``torch.sort``);
 3. north star: ``batched_pair_lanes`` -> ``batched_v5_inputs`` ->
    ``lanes_from_numpy`` -> ``batched_weave_digest`` on the card; launch
    counts of one dispatch, p50 of a few, against the plain path;
@@ -83,6 +88,10 @@ FUSED = ("k1_sort_redirect", "k2_runs", "k4_rank_kills")
 V5_LAUNCHES = {"sort": 6, "euler_walk": 1, "fphase": 1}
 V5F_LAUNCHES = {"sort": 2, "euler_walk": 1, "fphase": 1,
                 "k1_sort_redirect": 1, "k2_runs": 1, "k4_rank_kills": 1}
+# the v5 dispatch's sort sites, in call order (torchw5.py)
+SORT_SITES = ("A segments", "C tokens", "E siblings", "E successor",
+              "F lanes", "F coverage")
+I32_MIN = int(np.iinfo(np.int32).min)
 
 
 def fail(msg: str) -> None:
@@ -215,6 +224,25 @@ def library_fn(torch, ops, num_keys):
     return lambda: torch.sort(key, dim=-1, stable=True)
 
 
+def radix_bits(torch, ops, num_keys) -> list:
+    """Per row, the bits of the radix path's composite key
+    (``csrc/radix.cuh``): per key, the bit length of the largest code
+    ``k - min`` with INT32_MAX (and the padding to the next power of
+    two) mapped just above the largest other key."""
+    B, n = ops[0].shape
+    P = 1 << max(0, (n - 1).bit_length())
+    total = torch.zeros(B, dtype=torch.int64, device=ops[0].device)
+    for key in ops[:num_keys]:
+        k = key.long()
+        is_max = k == I32_MAX
+        mx = torch.where(is_max, I32_MIN, k).max(dim=1).values
+        top = torch.where(is_max.any(dim=1) | (P > n), mx + 1, mx) - \
+            k.min(dim=1).values
+        top = torch.where(is_max.all(dim=1), 0, top)
+        total += sum((top >> b) > 0 for b in range(33))
+    return total.tolist()
+
+
 def check_call(torch, name, ops, kw, time_it: bool, flags_only=False):
     """Kernel against plain version on one call; ``flags_only`` (an
     overflowing row, whose other outputs the reference leaves
@@ -253,23 +281,62 @@ def edge_cases(torch, dev):
 
     rng = np.random.default_rng(20261016)
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+
+    def full(B, n):
+        return rng.integers(I32_MIN, I32_MAX, size=(B, n), dtype=np.int64,
+                            endpoint=True)
+
+    def sort_key(kind, B, n):
+        if kind == "narrow":      # duplicates, INT32_MAX sentinels
+            x = rng.integers(-4, 5, size=(B, n))
+            x[rng.random((B, n)) < 0.15] = I32_MAX
+        elif kind == "full":      # two of these: a 64-bit composite
+            x = full(B, n)
+        elif kind == "extremes":  # INT32_MIN beside INT32_MAX
+            x = rng.choice(np.array([I32_MIN, I32_MIN + 1, -1, 0, 1,
+                                     I32_MAX - 1, I32_MAX]), size=(B, n))
+        elif kind == "equal":     # zero passes (n = P: no padding)
+            x = np.full((B, n), -77)
+        else:                     # a sibling key: 15 bits of parent
+            x = rng.integers(0, 2 * 8192 + 2, size=(B, n))
+        return x.astype(np.int32)
+
     cases = []
-    for B, n, n_ops, nk in ((3, 1, 1, 1), (4, 300, 3, 2), (4, 1000, 9, 3),
-                            (2, 16384, 9, 3), (8, 4096, 7, 2),
-                            (2, 40, 9, 9), (4, 3000, 2, 1),
-                            (5, 256, 1, 1), (3, 200, 3, 2)):
-        ops = []
-        for i in range(n_ops):
-            if i < nk:
-                x = rng.integers(-4, 5, size=(B, n)).astype(np.int32)
-                x[rng.random((B, n)) < 0.15] = I32_MAX
-            else:
-                x = rng.integers(-2**31, 2**31 - 1, size=(B, n),
-                                 dtype=np.int64).astype(np.int32)
-            ops.append(T(x))
-        cases.append(("sort", f"B={B} n={n} ops={n_ops} keys={nk}",
-                      tuple(ops), {"num_keys": nk}))
-    for B, K, n_valid in ((4, 64, 40), (2, 16384, 12000), (3, 300, 300)):
+    for B, n, n_ops, nk, kind in (
+            (3, 1, 1, 1, "narrow"), (4, 300, 3, 2, "narrow"),
+            (4, 1000, 9, 3, "narrow"), (2, 16384, 9, 3, "narrow"),
+            (8, 4096, 7, 2, "narrow"), (2, 40, 9, 9, "narrow"),
+            (4, 3000, 2, 1, "narrow"), (5, 256, 1, 1, "narrow"),
+            (3, 200, 3, 2, "narrow"), (2, 8192, 3, 2, "sibling"),
+            (2, 6000, 4, 2, "full"), (4, 4096, 3, 2, "full"),
+            (4, 1000, 2, 1, "extremes"), (3, 4096, 3, 2, "equal"),
+            (2, 2048, 2, 1, "equal")):
+        ops = [sort_key(kind, B, n) if i < nk else
+               full(B, n).astype(np.int32) for i in range(n_ops)]
+        cases.append(("sort", f"B={B} n={n} ops={n_ops} keys={nk} {kind}",
+                      tuple(T(x) for x in ops), {"num_keys": nk}))
+
+    def shaped(shape, B, K):
+        """Run tables of a chain (parent i - 1), a star (parent 0) or two
+        interleaved chains (parent i - 2)."""
+        par = np.full((B, K), -1, np.int64)
+        par[:, 1:] = {"chain": np.arange(K - 1), "star": 0,
+                      "two chains": np.maximum(np.arange(-1, K - 2), 0)}[
+                          shape]
+        parent_sort = np.where(par >= 0, par, K).astype(np.int32)
+        order = np.argsort(parent_sort, axis=1, kind="stable").astype(
+            np.int32)
+        fc, ns = euler.link_children(T(order), T(parent_sort))
+        w = rng.integers(0, 6, size=(B, K)).astype(np.int32)
+        return fc, ns, T(par.astype(np.int32)), T(w)
+
+    for shape, B, K in (("chain", 2, 4096), ("star", 2, 4096),
+                        ("two chains", 2, 4096), ("chain", 1, 8192),
+                        ("star", 1, 8192)):
+        cases.append(("euler_walk", f"{shape} B={B} K={K}",
+                      shaped(shape, B, K), {}))
+    for B, K, n_valid in ((4, 64, 40), (2, 16384, 12000), (3, 300, 300),
+                          (2, 32768, 30000), (1, 4096, 1)):
         parent_sort = np.full((B, K), K, np.int32)
         special = rng.random((B, K)) < 0.3
         w = np.zeros((B, K), np.int32)
@@ -388,10 +455,20 @@ def profile_dispatch(torch, dispatch, out_dir: str, wall_ms: float,
         by[e["name"].split("(")[0][:70]][0] += 1
         by[e["name"].split("(")[0][:70]][1] += e["dur"] / 1e3
     busy = sum(d for _, d in by.values()) / reps
-    ours = sum(d for name, (_, d) in by.items()
-               if any(k in name for k in ("sort_rows_", "euler_walk_kernel",
-                                          "fphase_kernel", "k1_kernel",
-                                          "k2_kernel", "k4_kernel"))) / reps
+
+    def port(name):
+        return any(k in name for k in ("sort_rows_", "euler_walk_kernel",
+                                       "fphase_kernel", "k1_kernel",
+                                       "k2_kernel", "k4_kernel"))
+
+    ours = sum(d for name, (_, d) in by.items() if port(name)) / reps
+    launches = [e for e in sorted(kern, key=lambda e: e["ts"])
+                if port(e["name"])]
+    first = launches[:len(launches) // reps]
+    say(f"[profile {tag}] the port's launches in one dispatch, in order "
+        f"(device ms): " + ", ".join(
+            f"{e['name'].split('(')[0].replace('void ', '')} "
+            f"{e['dur'] / 1e3:.4f}" for e in first))
     say(f"[profile {tag}] {len(kern) // reps} kernels per dispatch, device "
         f"busy {busy:.3f} ms = {100 * busy / wall_ms:.1f}% of the "
         f"{wall_ms:.3f} ms p50; the port's kernels {ours:.3f} ms = "
@@ -484,6 +561,7 @@ def main() -> int:
     # dispatch's; v5f's own B1-B3 calls are checked, not timed
     timed = [(n, o, kw, True, "v5") for n, o, kw in calls] + [
         (n, o, kw, n in FUSED, "v5f") for n, o, kw in calls_f]
+    sites = iter(SORT_SITES)
     for name, ops, kw, time_it, path in timed:
         rec = check_call(torch, name, ops, kw, time_it=time_it)
         shapes = "x".join(str(d) for d in ops[0].shape)
@@ -496,9 +574,21 @@ def main() -> int:
             for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
                 per[name][k] += rec.get(k, 0.0)
         say(line)
+        if name == "sort" and path == "v5":
+            bits = radix_bits(torch, ops, kw.get("num_keys", 1))
+            say(f"[2 kernels] B1 site {next(sites, '?')} {shapes} "
+                f"n_ops={len(ops)} keys={kw.get('num_keys', 1)}: kernel "
+                f"{rec['ms']:.4f} ms, torch.sort {rec['library_ms']:.4f} "
+                f"ms, ratio {rec['ms'] / rec['library_ms']:.3f}; composite "
+                f"bits per row {min(bits)}-{max(bits)} "
+                f"({-(-max(bits) // 8)} passes at most)")
         per[name]["err"] = max(per[name]["err"], rec["err"])
         if rec["err"]:
             fail(f"{name} kernel disagrees with its plain version")
+    s5 = per["sort"]
+    say(f"[2 kernels] B1 over the v5 sites: kernel {s5['ms']:.4f} ms, "
+        f"torch.sort {s5['library_ms']:.4f} ms, ratio "
+        f"{s5['ms'] / s5['library_ms']:.3f}")
     del calls, calls_f, timed
     edges = [(n, t, o, kw, False) for n, t, o, kw in edge_cases(torch, dev)]
     for name, tag, ops, kw, flags_only in edges + fused_edge_cases(torch,
