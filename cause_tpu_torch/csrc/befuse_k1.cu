@@ -144,7 +144,9 @@ extern "C" {
 // fits in shared memory; -1: a CUDA error).
 int cause_k1_scratch_words(int P) {
     int fits = 0;
-    if (bf_fits_smem((size_t)k1_words(P), &fits) != cudaSuccess) return -1;
+    if (bf_fits_smem((size_t)k1_words(P) * sizeof(int32_t), &fits) !=
+        cudaSuccess)
+        return -1;
     return fits ? 0 : k1_words(P);
 }
 
@@ -164,7 +166,7 @@ int cause_k1_sort_redirect(const void* t_hi, const void* t_lo,
         return (int)cudaErrorInvalidValue;
     if (B == 0) return (int)cudaSuccess;
     int fits = 0;
-    cudaError_t e = bf_fits_smem((size_t)k1_words(P), &fits);
+    cudaError_t e = bf_fits_smem((size_t)k1_words(P) * sizeof(int32_t), &fits);
     if (e != cudaSuccess) return (int)e;
     if (!fits && !scratch) return (int)cudaErrorInvalidValue;
     K1Args a = {(const int32_t*)t_hi, (const int32_t*)t_lo,
@@ -175,7 +177,8 @@ int cause_k1_sort_redirect(const void* t_hi, const void* t_lo,
                 (int32_t*)sv_lane, (int32_t*)keep, (int32_t*)cause_su,
                 (int32_t*)parent_su, (int32_t*)scal};
     const size_t smem = fits ? (size_t)k1_words(P) * sizeof(int32_t) : 0;
-    e = bf_smem_attr(k1_kernel, smem);
+    static std::atomic<bool> ready[CAUSE_MAX_DEVICES];
+    e = smem_attrs_once(k1_kernel, ready);
     if (e != cudaSuccess) return (int)e;
     k1_kernel<<<B, bf_threads(P), smem, (cudaStream_t)stream>>>(
         a, P, U, (int32_t*)scratch, fits);

@@ -44,10 +44,13 @@ static inline int radix_ipt(int P) { return P > 4096 ? 16 : 8; }
 
 // Dynamic shared memory of a row of width P with NK keys and IPT items a
 // thread: composite keys, positions (uint16), the per-warp digit
-// counters (uint16), the digit offsets and the reduction partials.
-static inline size_t radix_smem_bytes(int NK, int P, int ipt) {
+// counters (uint16), the digit offsets and the reduction partials. A
+// caller whose two keys never need more than 32 composite bits passes
+// wide = false (and sorts with radix_sort_row<2, IPT, false>).
+__host__ __device__ inline size_t radix_smem_bytes(int NK, int P, int ipt,
+                                                   bool wide = true) {
     const int W = P / ipt / 32;
-    return (size_t)P * (NK == 2 ? 8 : 4) + (size_t)P * 2 +
+    return (size_t)P * (NK == 2 && wide ? 8 : 4) + (size_t)P * 2 +
            (size_t)W * CAUSE_RADIX_BINS * 2 + CAUSE_RADIX_BINS * 4 +
            (size_t)W * 3 * NK * 4;
 }
@@ -260,17 +263,20 @@ __device__ __forceinline__ void radix_passes(KT (&key)[IPT],
 
 // Sort the row whose raw keys thread (w, l) holds in k[q][i] for element
 // (w * IPT + i) * 32 + l, P = blockDim.x * IPT elements in all, NK <= 2.
-// `smem` is radix_smem_bytes(NK, P, IPT) bytes of shared memory, 8-byte
-// aligned. Returns the sorted row (keys and positions in shared memory,
-// after a block barrier).
-template <int NK, int IPT>
+// `smem` is radix_smem_bytes(NK, P, IPT, WIDE) bytes of shared memory,
+// 8-byte aligned. WIDE = false drops the 64-bit composite path: the
+// caller guarantees that the two keys' codes span at most 32 bits.
+// Returns the sorted row (keys and positions in shared memory, after a
+// block barrier).
+template <int NK, int IPT, bool WIDE = true>
 __device__ __forceinline__ RadixRow<NK> radix_sort_row(
     const int32_t (&k)[NK][IPT], unsigned char* smem) {
     const int P = blockDim.x * IPT;
     const int W = blockDim.x >> 5;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     unsigned char* s_key = smem;
-    uint16_t* s_pos = (uint16_t*)(smem + (size_t)P * (NK == 2 ? 8 : 4));
+    uint16_t* s_pos =
+        (uint16_t*)(smem + (size_t)P * (NK == 2 && WIDE ? 8 : 4));
     uint16_t* s_hist = s_pos + P;
     uint32_t* s_digit = (uint32_t*)(s_hist + W * CAUSE_RADIX_BINS);
     int32_t* s_red = (int32_t*)(s_digit + CAUSE_RADIX_BINS);
@@ -281,14 +287,14 @@ __device__ __forceinline__ RadixRow<NK> radix_sort_row(
     int bits = 0;
 #pragma unroll
     for (int q = 0; q < NK; ++q) bits += row.r[q].bits;
-    row.wide = bits > 32;
+    row.wide = WIDE && bits > 32;
     row.keys = s_key;
     row.positions = s_pos;
 
     uint32_t pos[IPT];
 #pragma unroll
     for (int i = 0; i < IPT; ++i) pos[i] = (warp * IPT + i) * 32 + lane;
-    if constexpr (NK == 2) {
+    if constexpr (NK == 2 && WIDE) {
         if (row.wide) {
             uint64_t key[IPT];
 #pragma unroll

@@ -31,7 +31,7 @@ import threading
 from pathlib import Path
 from typing import Dict, Optional
 
-__all__ = ["SOURCES", "launches", "reset_launches", "build_all",
+__all__ = ["SOURCES", "launches", "reset_launches", "build_all", "load",
            "library", "check", "stream_handle"]
 
 _HERE = Path(__file__).resolve().parent
@@ -67,9 +67,13 @@ _SIGNATURES = {
     "cause_k1_scratch_words": [_I],
     "cause_k1_sort_redirect": [_VP] * 16 + [_I] * 3 + [_VP, _VP],
     "cause_k2_scratch_words": [_I, _I],
+    "cause_k2_ctas_per_sm": [_I, _I, _I],
     "cause_k2_runs": [_VP] * 16 + [_I] * 5 + [_VP, _VP],
     "cause_k4_scratch_words": [_I, _I],
+    "cause_k4_ctas_per_sm": [_I, _I, _I],
     "cause_k4_rank_kills": [_VP] * 17 + [_I] * 6 + [_VP, _VP],
+    # only in a build with -DCAUSE_PHASE_CLOCKS (chip_smoke.py --phases)
+    "cause_phase_cycles_take": [_VP],
 }
 
 
@@ -133,6 +137,17 @@ def build_all(verbose: bool = False) -> Dict[str, Path]:
     return paths
 
 
+def load(path) -> ctypes.CDLL:
+    """Load one built library and declare its C entry points."""
+    cdll = ctypes.CDLL(str(path))
+    for fn, argtypes in _SIGNATURES.items():
+        f = getattr(cdll, fn, None)
+        if f is not None:
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+    return cdll
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel, building all kernels first if
     any library is missing."""
@@ -142,15 +157,8 @@ def library(name: str) -> ctypes.CDLL:
     with _LOCK:
         if name not in _LIBS:
             for n, p in build_all().items():
-                if n in _LIBS:
-                    continue
-                cdll = ctypes.CDLL(str(p))
-                for fn, argtypes in _SIGNATURES.items():
-                    f = getattr(cdll, fn, None)
-                    if f is not None:
-                        f.argtypes = argtypes
-                        f.restype = ctypes.c_int
-                _LIBS[n] = cdll
+                if n not in _LIBS:
+                    _LIBS[n] = load(p)
     return _LIBS[name]
 
 

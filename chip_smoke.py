@@ -26,9 +26,14 @@ Phases, one line each (times from CUDA events unless named host):
    global scratch; for
    K1/K2/K4 the doubled-budget row u_max = 8192 on global scratch, Kp <
    P, an overflowing row compared on its flags, N not a multiple of
-   128, B = 1), kernel against plain version; kernel, plain and, for
-   the sort, library (``torch.sort``) times, with one line per B1 site
-   (its keys' composite bit count, kernel against ``torch.sort``);
+   128, B = 1, Kp = 256 below P and P = Kp = 256 at the radix form's
+   lower width, rows that keep no token), kernel against plain version;
+   kernel, plain and, for the sort, library (``torch.sort``) times, with
+   one line per B1 site (its keys' composite bit count, kernel against
+   ``torch.sort``) and one per K2/K4 launch (ms, bound ms, CTAs
+   per SM of its form and of the network form at its width);
+   ``--phases`` adds K2's and K4's split between load/store, scans and
+   sorts in both forms;
 3. north star: ``batched_pair_lanes`` -> ``batched_v5_inputs`` ->
    ``lanes_from_numpy`` -> ``batched_weave_digest`` on the card; launch
    counts of one dispatch, p50 of a few, against the plain path;
@@ -395,6 +400,8 @@ def fused_edge_cases(torch, dev):
     for tag, shape, du, k_max in (
             ("u_max=8192", (2, 9000, 1000, 10240, 8), 8192, None),
             ("Kp<P", (8, 120, 40, 256, 8), 300, 0),
+            ("Kp=256<P", (8, 120, 40, 256, 8), 600, 200),
+            ("P=Kp=256", (3, 120, 40, 256, 8), 0, 0),
             ("overflow k_max=16", (4, 100, 60, 192, 4), 256, 16),
             ("N=144", (4, 30, 10, 72, 3), 0, 0),
             ("B=1", (1, 9000, 1000, 10240, 8), 0, 0)):
@@ -420,12 +427,37 @@ def fused_edge_cases(torch, dev):
                 not torch.equal(g[~ovf], w[~ovf])
                 for g, w in zip(got[:3], want[:3])):
             fail(f"v5f kernel path differs from the plain path ({tag})")
+        desc = f"{tag}: B={B} N={2 * cap} U={u} k_max={k}"
         for name, ops, kw in rec:
             if name in FUSED:
-                cases.append((name, f"{tag}: B={B} N={2 * cap} U={u} "
-                              f"k_max={k}", ops, kw,
+                cases.append((name, desc, ops, kw,
                               tag.startswith("overflow")))
+        if tag in ("P=Kp=256", "B=1"):
+            cases += no_kept_rows(rec, desc, B - 1)
     return cases
+
+
+def no_kept_rows(rec, desc, row):
+    """K2 and K4 calls of a recorded v5f dispatch whose row ``row`` keeps
+    no token (keep = 0 throughout): K4's run tables and bases come from
+    the plain K2 and walk on the changed K2 inputs."""
+    from cause_tpu_torch.weaver import befuse, euler
+
+    _, ops2, kw2 = next(c for c in rec if c[0] == "k2_runs")
+    _, ops4, kw4 = next(c for c in rec if c[0] == "k4_rank_kills")
+    ops2 = list(ops2)
+    ops2[3] = ops2[3].clone()
+    ops2[3][row] = 0
+    (fc, ns, parent_up, run_w, hc, h_w, run_id, glued, prev_kept,
+     scal2) = befuse.k2_runs_plain(*ops2, **kw2)
+    if int(scal2[row, 0]) != 0:
+        fail(f"edge {desc}: row {row} without kept tokens has runs")
+    base = euler.euler_walk_plain(fc, ns, parent_up, run_w)
+    new4 = (base, hc, h_w, run_id, ops2[3], ops2[0], ops2[1], ops4[7],
+            glued, prev_kept, ops4[10], scal2)
+    tag = f"{desc}, row {row} keeps no token"
+    return [("k2_runs", tag, tuple(ops2), kw2, False),
+            ("k4_rank_kills", tag, new4, kw4, False)]
 
 
 def profile_dispatch(torch, dispatch, out_dir: str, wall_ms: float,
@@ -459,7 +491,8 @@ def profile_dispatch(torch, dispatch, out_dir: str, wall_ms: float,
     def port(name):
         return any(k in name for k in ("sort_rows_", "euler_walk_kernel",
                                        "fphase_kernel", "k1_kernel",
-                                       "k2_kernel", "k4_kernel"))
+                                       "k2_radix_kernel", "k2_net_kernel",
+                                       "k4_radix_kernel", "k4_net_kernel"))
 
     ours = sum(d for name, (_, d) in by.items() if port(name)) / reps
     launches = [e for e in sorted(kern, key=lambda e: e["ts"])
@@ -479,6 +512,104 @@ def profile_dispatch(torch, dispatch, out_dir: str, wall_ms: float,
     say(f"[profile {tag}] trace {trace}")
 
 
+def fused_widths(name, ops, kw):
+    """(P, Kp) of a K2 or K4 call."""
+    if name == "k2_runs":
+        return ops[0].shape[1], kw["Kp"]
+    return ops[3].shape[1], ops[0].shape[1]
+
+
+def ctas_per_sm(name, P, Kp, network=False) -> int:
+    """CTAs an SM holds of K2's or K4's kernel at row width P (the radix
+    form where the width takes it; ``network``: the network form, the
+    first design), from cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    from cause_tpu_torch import kernels
+
+    lib = kernels.library(name)
+    fn = (lib.cause_k2_ctas_per_sm if name == "k2_runs"
+          else lib.cause_k4_ctas_per_sm)
+    n = fn(P, Kp, int(network))
+    if n < 1:
+        fail(f"{name}: occupancy query at P={P} Kp={Kp} returned {n}")
+    return n
+
+
+def phase_split(torch, calls) -> None:
+    """``--phases``: K2 and K4 rebuilt with -DCAUSE_PHASE_CLOCKS (thread
+    0 of each block sums clock64() cycles between block barriers into
+    load/compute/store, scans and sorts; befuse.cuh), in the radix form
+    and, with -DCAUSE_FORCE_NETWORK, the network form, and run at the
+    north star's K2 and K4 calls. Prints each form's unstamped time
+    (CUDA events), its cycle shares, and the shares applied to that
+    time. The stamped builds add a barrier per mark, so only their shares
+    are read."""
+    import ctypes
+    import subprocess as sp
+
+    from cause_tpu_torch import kernels
+
+    out = kernels.BUILD / "phases"
+    out.mkdir(parents=True, exist_ok=True)
+    forms = {"radix": ["CAUSE_PHASE_CLOCKS"],
+             "network": ["CAUSE_PHASE_CLOCKS", "CAUSE_FORCE_NETWORK"],
+             "network unstamped": ["CAUSE_FORCE_NETWORK"]}
+    jobs = {}
+    for name in ("k2_runs", "k4_rank_kills"):
+        for form, defs in forms.items():
+            so = out / f"lib{name}-{'-'.join(defs).lower()}.so"
+            cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS,
+                   *[f"-D{d}" for d in defs], "-o", str(so),
+                   str(kernels.CSRC / kernels.SOURCES[name])]
+            jobs[name, form] = (so, sp.Popen(cmd, stdout=sp.PIPE,
+                                             stderr=sp.STDOUT, text=True))
+    libs = {}
+    for key, (so, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"nvcc {key}: {log[-3000:]}")
+        libs[key] = kernels.load(so)
+
+    cycles = (ctypes.c_ulonglong * 3)()
+    done = set()
+    for name, ops, kw in calls:
+        if name not in ("k2_runs", "k4_rank_kills") or name in done:
+            continue
+        done.add(name)
+        kern, plain = kernel_fns(name)
+        run = lambda: kern(*ops, **kw)  # noqa: E731
+        want = plain(*ops, **kw)
+        saved = kernels.library(name)
+        ms = {"radix": cuda_ms(torch, run)}
+        shares = {}
+        try:
+            kernels._LIBS[name] = libs[name, "network unstamped"]
+            if max_err(torch, run(), want):
+                fail(f"{name}: the network form disagrees with the plain "
+                     f"version")
+            ms["network"] = cuda_ms(torch, run)
+            for form in ("radix", "network"):
+                lib = kernels._LIBS[name] = libs[name, form]
+                kernels.check(lib.cause_phase_cycles_take(
+                    ctypes.addressof(cycles)), "phase clocks")
+                if max_err(torch, run(), want):
+                    fail(f"{name}: the stamped {form} form disagrees with "
+                         f"the plain version")
+                torch.cuda.synchronize()
+                kernels.check(lib.cause_phase_cycles_take(
+                    ctypes.addressof(cycles)), "phase clocks")
+                tot = float(sum(cycles)) or 1.0
+                shares[form] = [c / tot for c in cycles]
+        finally:
+            kernels._LIBS[name] = saved
+        for form in ("radix", "network"):
+            sh = shares[form]
+            say(f"[phases] {name} {form} form: {ms[form]:.4f} ms (CUDA "
+                f"events, unstamped); cycle shares load/store "
+                f"{sh[0]:.3f}, scans {sh[1]:.3f}, sorts {sh[2]:.3f}; as "
+                f"ms {sh[0] * ms[form]:.4f} / {sh[1] * ms[form]:.4f} / "
+                f"{sh[2] * ms[form]:.4f}")
+
+
 # --------------------------------------------------------------- main
 
 
@@ -488,6 +619,10 @@ def main() -> int:
                     help="also profile two north-star dispatches of each "
                          "pipeline with torch.profiler: top device ops, "
                          "the device's busy share, Chrome traces in DIR")
+    ap.add_argument("--phases", action="store_true",
+                    help="also split K2's and K4's time at the north star "
+                         "between load/store, scans and sorts, in both "
+                         "forms, from builds stamped with clock64()")
     args = ap.parse_args()
 
     import torch
@@ -574,6 +709,13 @@ def main() -> int:
             for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
                 per[name][k] += rec.get(k, 0.0)
         say(line)
+        if name in ("k2_runs", "k4_rank_kills") and time_it:
+            P, Kp = fused_widths(name, ops, kw)
+            say(f"[2 kernels] {name} launch at P={P} Kp={Kp}: ms "
+                f"{rec['ms']:.4f} (CUDA events, mean of 10 calls), bound ms "
+                f"{rec['bound_ms']:.4f}, CTAs per SM "
+                f"{ctas_per_sm(name, P, Kp)} (the network form at this "
+                f"width: {ctas_per_sm(name, P, Kp, network=True)})")
         if name == "sort" and path == "v5":
             bits = radix_bits(torch, ops, kw.get("num_keys", 1))
             say(f"[2 kernels] B1 site {next(sites, '?')} {shapes} "
@@ -585,6 +727,8 @@ def main() -> int:
         per[name]["err"] = max(per[name]["err"], rec["err"])
         if rec["err"]:
             fail(f"{name} kernel disagrees with its plain version")
+    if args.phases:
+        phase_split(torch, calls_f)
     s5 = per["sort"]
     say(f"[2 kernels] B1 over the v5 sites: kernel {s5['ms']:.4f} ms, "
         f"torch.sort {s5['library_ms']:.4f} ms, ratio "
