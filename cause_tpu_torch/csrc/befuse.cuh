@@ -3,17 +3,17 @@
 // block-wide scans and reductions, the in-block row sort of the network
 // kernels, and the register-resident scans of the radix kernels.
 //
-// Every kernel runs one CTA per replica row. K2 and K4 have two forms:
+// Every kernel runs one CTA per replica row, in one of two forms:
 // - the radix form (256 <= P <= 8192: every width of the wave and its
 //   doubled-budget retry) holds the row in registers, warp-striped as
 //   radix.cuh's row sort wants it, and keeps only what other threads
 //   gather in shared memory;
-// - the network form (K1 always; K2 and K4 at other widths) keeps its
-//   [P] and [Kp] working arrays in dynamic shared memory when they fit
-//   the block's limit (227 KB on the H100), else in a global-memory
-//   scratch row that the wrapper allocates. The code is the same either
-//   way: a base pointer and __syncthreads, which orders global writes
-//   within a block as it does shared ones.
+// - the network form (other widths) keeps its [P] and [Kp] working
+//   arrays in dynamic shared memory when they fit the block's limit
+//   (227 KB on the H100), else in a global-memory scratch row that the
+//   wrapper allocates. The code is the same either way: a base pointer
+//   and __syncthreads, which orders global writes within a block as it
+//   does shared ones.
 
 #pragma once
 

@@ -84,15 +84,24 @@ struct RadixRow {
 
     __device__ __forceinline__ int pos(int i) const { return positions[i]; }
 
-    // key q of the element at sorted index i, as the original int32
-    __device__ __forceinline__ int32_t key(int q, int i) const {
-        const uint64_t c = wide ? ((const uint64_t*)keys)[i]
-                                : ((const uint32_t*)keys)[i];
+    // the composite at sorted index i; the codes are injective, so two
+    // elements have equal keys exactly when their composites are equal
+    __device__ __forceinline__ uint64_t comp(int i) const {
+        return wide ? ((const uint64_t*)keys)[i] : ((const uint32_t*)keys)[i];
+    }
+
+    // key q of composite c, as the original int32
+    __device__ __forceinline__ int32_t decode(int q, uint64_t c) const {
         uint32_t code = (uint32_t)c;
         if (NK == 2)
             code = q == 0 ? (uint32_t)(c >> bits1)
                           : (uint32_t)(c & ((1ull << bits1) - 1));
         return radix_decode(code, r[q]);
+    }
+
+    // key q of the element at sorted index i, as the original int32
+    __device__ __forceinline__ int32_t key(int q, int i) const {
+        return decode(q, comp(i));
     }
 };
 

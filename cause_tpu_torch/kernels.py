@@ -64,7 +64,9 @@ _SIGNATURES = {
     "cause_euler_walk_scratch_words": [_I],
     "cause_euler_walk": [_VP] * 5 + [_I, _I, _VP, _VP],
     "cause_fphase_expand": [_VP] * 9 + [_I, _I, _I, _I, _VP],
+    "cause_fphase_ctas_per_sm": [],
     "cause_k1_scratch_words": [_I],
+    "cause_k1_ctas_per_sm": [_I, _I],
     "cause_k1_sort_redirect": [_VP] * 16 + [_I] * 3 + [_VP, _VP],
     "cause_k2_scratch_words": [_I, _I],
     "cause_k2_ctas_per_sm": [_I, _I, _I],

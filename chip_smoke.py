@@ -27,13 +27,20 @@ Phases, one line each (times from CUDA events unless named host):
    K1/K2/K4 the doubled-budget row u_max = 8192 on global scratch, Kp <
    P, an overflowing row compared on its flags, N not a multiple of
    128, B = 1, Kp = 256 below P and P = Kp = 256 at the radix form's
-   lower width, rows that keep no token), kernel against plain version;
+   lower width, rows that keep no token; for K1 alone P = 256 and 8192,
+   a row of only padding, (hi, lo) composites wider than 32 bits,
+   INT32_MIN beside INT32_MAX, long duplicate runs that count conflicts,
+   U < P with links the clamps change, B = 1, and the network form's
+   widths; for B3 N below 1024 and not a multiple of 4, 128 or 1024,
+   rows with no kept token, tokens at lanes 0 and N - 1, a tile of 1024
+   tokens, segments over several tiles, a covered lane whose lane + 1
+   starts the next tile, S = 1, B = 1), kernel against plain version;
    kernel, plain and, for the sort, library (``torch.sort``) times, with
    one line per B1 site (its keys' composite bit count, kernel against
-   ``torch.sort``) and one per K2/K4 launch (ms, bound ms, CTAs
-   per SM of its form and of the network form at its width);
-   ``--phases`` adds K2's and K4's split between load/store, scans and
-   sorts in both forms;
+   ``torch.sort``), one per K1/K2/K4 launch (ms, bound ms, CTAs per SM
+   of its form and of the network form at its width) and one for B3
+   (ms, bound ms, CTAs per SM); ``--phases`` adds K1's, K2's and K4's
+   split between load/store, scans and sorts in both forms;
 3. north star: ``batched_pair_lanes`` -> ``batched_v5_inputs`` ->
    ``lanes_from_numpy`` -> ``batched_weave_digest`` on the card; launch
    counts of one dispatch, p50 of a few, against the plain path;
@@ -282,7 +289,7 @@ def edge_cases(torch, dev):
     """Inputs the north star does not reach: ragged widths, negative and
     duplicate keys with int32-max sentinels, rows too wide for shared
     memory (the global-scratch paths), unreached forest runs."""
-    from cause_tpu_torch.weaver import euler
+    from cause_tpu_torch.weaver import befuse, euler
 
     rng = np.random.default_rng(20261016)
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
@@ -359,30 +366,138 @@ def edge_cases(torch, dev):
             np.int32))
         cases.append(("euler_walk", f"B={B} K={K} reached={n_valid}",
                       (fc, ns, parent_up, T(w)), {}))
-    for B, N, U, S in ((3, 1000, 64, 16), (2, 20480, 4096, 512),
-                       (4, 130, 300, 200)):
-        lk = np.full((B, U), N, np.int32)
-        tb = np.zeros((B, U), np.int32)
-        cs = np.full((B, S), N, np.int32)
-        ce = np.zeros((B, S), np.int32)
-        for r in range(B):
-            k = int(rng.integers(0, min(U, N) + 1))
-            lk[r, :k] = np.sort(rng.choice(N, size=k, replace=False))
-            tb[r, :k] = rng.integers(0, N, size=k)
+    for B, N, U, S, kind in (
+            (3, 1000, 64, 16, "random"), (2, 20480, 4096, 512, "random"),
+            (4, 130, 300, 200, "random"), (2, 3001, 700, 40, "random"),
+            (2, 20556, 4096, 512, "random"), (3, 4096, 256, 8, "no tokens"),
+            (2, 5000, 300, 20, "ends"), (2, 4096, 2048, 30, "full tile"),
+            (2, 6144, 200, 4, "long segments"), (2, 4099, 100, 10,
+                                                   "tile-edge kill"),
+            (2, 4096, 100, 10, "tile-edge kill"), (2, 2048, 50, 1, "random"),
+            (1, 20480, 4096, 512, "random")):
+        ops = fphase_inputs(rng, B, N, U, S, kind)
+        if kind == "tile-edge kill" and not tile_edge_killed(torch, ops):
+            fail("B3 edge case: no tile's last lane is killed by its next")
+        cases.append(("fphase", f"{kind} B={B} N={N} U={U} S={S}",
+                      tuple(T(x) for x in ops), {}))
+    for tag, B, P, U, kind in (
+            ("P=256", 4, 256, 256, "tokens"),
+            ("P=8192", 2, 8192, 8192, "tokens"),
+            ("a row of only padding", 3, 4096, 4096, "padding row"),
+            ("composite > 32 bits", 3, 4096, 4096, "wide"),
+            ("INT32_MIN beside INT32_MAX", 3, 1024, 1024, "extremes"),
+            ("duplicate runs", 4, 4096, 4096, "dups"),
+            ("U<P", 3, 2048, 1500, "tokens"),
+            ("B=1", 1, 4096, 4096, "dups"),
+            ("network form P=128", 3, 128, 100, "dups"),
+            ("network form P=16384, global scratch", 1, 16384, 16384,
+             "tokens")):
+        ops = tuple(T(x) for x in k1_inputs(rng, B, P, U, kind))
+        if kind == "wide" and min(radix_bits(torch, ops, 2)) <= 32:
+            fail("K1 edge case 'composite > 32 bits' has narrower rows")
+        if kind == "dups" and not bool((befuse.k1_sort_redirect_plain(
+                *ops, U=U)[-1][:, 0] > 0).all()):
+            fail("K1 edge case 'duplicate runs' counts no conflict")
+        cases.append(("k1_sort_redirect", f"{tag}: B={B} P={P} U={U}", ops,
+                      {"U": U}))
+    return cases
+
+
+def k1_inputs(rng, B, P, U, kind):
+    """K1's eight [B, P] inputs: n tokens a row (the rest padding, hi =
+    lo = INT32_MAX) with keys of the given kind, payloads, and cause /
+    host links in [-1, P), so that links at or past U meet the clamps."""
+    hi = np.full((B, P), I32_MAX, np.int64)
+    lo = np.full((B, P), I32_MAX, np.int64)
+    for r in range(B):
+        n = int(rng.integers(U // 2, U + 1))
+        if kind == "padding row" and r == 1:
+            n = 0
+        if kind == "wide":        # full-range keys: a 64-bit composite
+            h = rng.integers(I32_MIN, I32_MAX, size=n, endpoint=True)
+            lo_ = rng.integers(I32_MIN, I32_MAX, size=n, endpoint=True)
+        elif kind == "extremes":  # INT32_MIN beside INT32_MAX in hi
+            h = rng.choice(np.array([I32_MIN, I32_MIN + 1, -1, 0, 1,
+                                     I32_MAX - 1, I32_MAX]), size=n)
+            lo_ = rng.choice(np.array([I32_MIN, 0, 5, I32_MAX]), size=n)
+        elif kind == "dups":      # few ids: long duplicate runs
+            h = rng.integers(0, 4, size=n)
+            lo_ = rng.integers(0, 6, size=n)
+        else:                     # ids (site, counter) of a wave's rows
+            h = rng.integers(0, 1 << 20, size=n)
+            lo_ = rng.integers(0, 1 << 14, size=n)
+        hi[r, :n], lo[r, :n] = h, lo_
+    small = lambda a, b: rng.integers(a, b, size=(B, P))  # noqa: E731
+    return (hi.astype(np.int32), lo.astype(np.int32),
+            small(0, 4).astype(np.int32), small(1, 3).astype(np.int32),
+            small(0, 2).astype(np.int32), small(0, 2 * P).astype(np.int32),
+            small(-1, P).astype(np.int32), small(-1, P).astype(np.int32))
+
+
+def fphase_inputs(rng, B, N, U, S, kind, tile=1024):
+    """B3's seven inputs (lk, tb, cs, ce, vc, seg, fl) under phase F's
+    invariants (token lanes distinct and ascending, N after; segments
+    disjoint with ascending starts, start N / end 0 after), with the
+    token lanes and segments of the given kind; the kinds bound to B3's
+    tiles take their width ``tile``."""
+    lk = np.full((B, U), N, np.int32)
+    tb = np.zeros((B, U), np.int32)
+    cs = np.full((B, S), N, np.int32)
+    ce = np.zeros((B, S), np.int32)
+    vc = rng.choice(np.array([0, 0, 0, 1, 2, 3], np.int32), size=(B, N))
+    seg = np.sort(rng.integers(-1, max(N // 8, 1), size=(B, N)),
+                  axis=1).astype(np.int32)
+    fl = rng.integers(0, 4, size=(B, N)).astype(np.int32)
+    for r in range(B):
+        if kind == "no tokens":
+            lanes = np.zeros(0, np.int64)
+        elif kind == "full tile":  # every lane of the second tile
+            extra = rng.choice(np.r_[0:tile, 2 * tile:N], size=U - tile,
+                               replace=False)
+            lanes = np.sort(np.r_[np.arange(tile, 2 * tile), extra])
+        else:
+            k = int(rng.integers(0, min(U, N) - 1))
+            lanes = rng.choice(N, size=k, replace=False)
+            if kind == "ends":  # at most U lanes with 0 and N - 1
+                lanes = np.unique(np.r_[0, N - 1, lanes])
+            lanes = np.sort(lanes)
+        lk[r, :len(lanes)] = lanes
+        tb[r, :len(lanes)] = rng.integers(0, N, size=len(lanes))
+        if kind == "long segments":  # over several tiles
+            mid = 5 * tile // 2
+            segs = np.array([[5, mid], [mid + 3, mid + 4], [3 * tile, N - 1]])
+        elif kind == "tile-edge kill":  # over the first two tile edges
+            segs = np.array([[tile - 20, tile + 20],
+                             [2 * tile - 20, 2 * tile + 20]])
+        else:
             cuts = np.sort(rng.choice(np.arange(1, N),
                                       size=2 * min(S, N // 4),
                                       replace=False)).reshape(-1, 2)
-            keep = cuts[rng.random(len(cuts)) < 0.6][:S]
-            cs[r, :len(keep)] = keep[:, 0]
-            ce[r, :len(keep)] = keep[:, 1]
-        vc = rng.choice(np.array([0, 0, 0, 1, 2, 3], np.int32), size=(B, N))
-        seg = np.sort(rng.integers(-1, N // 8, size=(B, N)),
-                      axis=1).astype(np.int32)
-        fl = rng.integers(0, 4, size=(B, N)).astype(np.int32)
-        cases.append(("fphase", f"B={B} N={N} U={U} S={S}",
-                      tuple(T(x) for x in (lk, tb, cs, ce, vc, seg, fl)),
-                      {}))
-    return cases
+            segs = cuts[rng.random(len(cuts)) < 0.6]
+        segs = segs[:S]
+        cs[r, :len(segs)], ce[r, :len(segs)] = segs[:, 0], segs[:, 1]
+    if kind == "tile-edge kill":
+        # a tile's last lane, visible but for the tombstone after it in
+        # its segment (an ordinal no other lane has)
+        for ln in (tile - 1, 2 * tile - 1):
+            seg[:, ln:ln + 2] = 1 << 20
+            vc[:, ln], vc[:, ln + 1] = 0, 1
+            fl[:, ln] = 1
+        tb[:, :] = 0
+    return lk, tb, cs, ce, vc, seg, fl
+
+
+def tile_edge_killed(torch, ops, tile=1024) -> bool:
+    """Whether the plain version kills the first two tiles' last lanes
+    for their next lane alone (a "tile-edge kill" case reaches the
+    kernel's exchange across the tile edge)."""
+    from cause_tpu_torch.weaver import fphase
+
+    t = tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in ops)
+    rank, vis = fphase.fphase_expand_plain(*t)
+    N = ops[4].shape[1]
+    return all(bool(((rank[:, ln] < N) & ~vis[:, ln]).all())
+               for ln in (tile - 1, 2 * tile - 1))
 
 
 def fused_edge_cases(torch, dev):
@@ -490,7 +605,8 @@ def profile_dispatch(torch, dispatch, out_dir: str, wall_ms: float,
 
     def port(name):
         return any(k in name for k in ("sort_rows_", "euler_walk_kernel",
-                                       "fphase_kernel", "k1_kernel",
+                                       "fphase_row_kernel",
+                                       "k1_radix_kernel", "k1_net_kernel",
                                        "k2_radix_kernel", "k2_net_kernel",
                                        "k4_radix_kernel", "k4_net_kernel"))
 
@@ -513,33 +629,58 @@ def profile_dispatch(torch, dispatch, out_dir: str, wall_ms: float,
 
 
 def fused_widths(name, ops, kw):
-    """(P, Kp) of a K2 or K4 call."""
+    """(P, Kp) of a K1, K2 or K4 call (K1: Kp = P)."""
+    if name == "k1_sort_redirect":
+        return ops[0].shape[1], ops[0].shape[1]
     if name == "k2_runs":
         return ops[0].shape[1], kw["Kp"]
     return ops[3].shape[1], ops[0].shape[1]
 
 
-def ctas_per_sm(name, P, Kp, network=False) -> int:
-    """CTAs an SM holds of K2's or K4's kernel at row width P (the radix
-    form where the width takes it; ``network``: the network form, the
-    first design), from cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+def ctas_per_sm(name, P=0, Kp=0, network=False) -> int:
+    """CTAs an SM holds of a kernel: K1's, K2's or K4's at row width P
+    (the radix form where the width takes it; ``network``: the network
+    form, the first design), B3's at any width, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
     from cause_tpu_torch import kernels
 
     lib = kernels.library(name)
-    fn = (lib.cause_k2_ctas_per_sm if name == "k2_runs"
-          else lib.cause_k4_ctas_per_sm)
-    n = fn(P, Kp, int(network))
+    if name == "fphase":
+        n = lib.cause_fphase_ctas_per_sm()
+    elif name == "k1_sort_redirect":
+        n = lib.cause_k1_ctas_per_sm(P, int(network))
+    else:
+        fn = (lib.cause_k2_ctas_per_sm if name == "k2_runs"
+              else lib.cause_k4_ctas_per_sm)
+        n = fn(P, Kp, int(network))
     if n < 1:
         fail(f"{name}: occupancy query at P={P} Kp={Kp} returned {n}")
     return n
 
 
+def k1_widths() -> None:
+    """K1 at the wave's width (P = 4096) and its doubled-budget retry's
+    (8192) runs its radix form in shared memory: no global scratch row."""
+    from cause_tpu_torch import kernels
+
+    lib = kernels.library("k1_sort_redirect")
+    for P in (4096, 8192):
+        words = lib.cause_k1_scratch_words(P)
+        if words != 0:
+            fail(f"k1_sort_redirect at P={P} takes {words} scratch words a "
+                 f"row, not shared memory")
+        say(f"[2 kernels] k1_sort_redirect at P={P}: radix form in shared "
+            f"memory (no scratch row), CTAs per SM "
+            f"{ctas_per_sm('k1_sort_redirect', P, P)} (the network form: "
+            f"{ctas_per_sm('k1_sort_redirect', P, P, network=True)})")
+
+
 def phase_split(torch, calls) -> None:
-    """``--phases``: K2 and K4 rebuilt with -DCAUSE_PHASE_CLOCKS (thread
-    0 of each block sums clock64() cycles between block barriers into
-    load/compute/store, scans and sorts; befuse.cuh), in the radix form
-    and, with -DCAUSE_FORCE_NETWORK, the network form, and run at the
-    north star's K2 and K4 calls. Prints each form's unstamped time
+    """``--phases``: K1, K2 and K4 rebuilt with -DCAUSE_PHASE_CLOCKS
+    (thread 0 of each block sums clock64() cycles between block barriers
+    into load/compute/store, scans and sorts; befuse.cuh), in the radix
+    form and, with -DCAUSE_FORCE_NETWORK, the network form, and run at
+    the north star's K1, K2 and K4 calls. Prints each form's unstamped time
     (CUDA events), its cycle shares, and the shares applied to that
     time. The stamped builds add a barrier per mark, so only their shares
     are read."""
@@ -554,7 +695,7 @@ def phase_split(torch, calls) -> None:
              "network": ["CAUSE_PHASE_CLOCKS", "CAUSE_FORCE_NETWORK"],
              "network unstamped": ["CAUSE_FORCE_NETWORK"]}
     jobs = {}
-    for name in ("k2_runs", "k4_rank_kills"):
+    for name in FUSED:
         for form, defs in forms.items():
             so = out / f"lib{name}-{'-'.join(defs).lower()}.so"
             cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS,
@@ -572,7 +713,7 @@ def phase_split(torch, calls) -> None:
     cycles = (ctypes.c_ulonglong * 3)()
     done = set()
     for name, ops, kw in calls:
-        if name not in ("k2_runs", "k4_rank_kills") or name in done:
+        if name not in FUSED or name in done:
             continue
         done.add(name)
         kern, plain = kernel_fns(name)
@@ -709,13 +850,21 @@ def main() -> int:
             for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
                 per[name][k] += rec.get(k, 0.0)
         say(line)
-        if name in ("k2_runs", "k4_rank_kills") and time_it:
+        if name in FUSED and time_it:
             P, Kp = fused_widths(name, ops, kw)
             say(f"[2 kernels] {name} launch at P={P} Kp={Kp}: ms "
                 f"{rec['ms']:.4f} (CUDA events, mean of 10 calls), bound ms "
                 f"{rec['bound_ms']:.4f}, CTAs per SM "
                 f"{ctas_per_sm(name, P, Kp)} (the network form at this "
                 f"width: {ctas_per_sm(name, P, Kp, network=True)})")
+        if name == "k1_sort_redirect" and time_it:
+            k1_widths()
+        if name == "fphase" and time_it:
+            say(f"[2 kernels] fphase launch at B={ops[4].shape[0]} "
+                f"N={ops[4].shape[1]} U={ops[0].shape[1]} "
+                f"S={ops[2].shape[1]}: ms {rec['ms']:.4f} (CUDA events, mean "
+                f"of 10 calls), bound ms {rec['bound_ms']:.4f}, CTAs per SM "
+                f"{ctas_per_sm(name)} (one CTA a row)")
         if name == "sort" and path == "v5":
             bits = radix_bits(torch, ops, kw.get("num_keys", 1))
             say(f"[2 kernels] B1 site {next(sites, '?')} {shapes} "
