@@ -33,6 +33,7 @@ __all__ = [
     "chain_tree_lanes",
     "divergent_pair_lanes",
     "batched_pair_lanes",
+    "delta_sweep_inputs",
     "tree_fleet_handles",
     "v5_inputs",
     "batched_v5_inputs",
@@ -291,6 +292,103 @@ def divergent_pair_lanes(
         b["cci"] >= 0, b["cci"] + capacity, -1
     )
     return out
+
+
+def delta_sweep_inputs(
+    n_replicas: int,
+    n_base: int,
+    n_div: int,
+    capacity: int,
+    hide_every: int = 0,
+    spec: PackSpec = DEFAULT_PACK,
+    include_full: bool = True,
+) -> dict:
+    """Paired full-weave / delta-weave inputs: the same synthetic
+    workload as the document-width batch the full v5 kernel dispatches
+    and as the delta-native WINDOW batch
+    (``weaver.torchwd.batched_delta_weave``'s inputs), plus the frozen
+    prefix state a resident session would hold.
+
+    The workload is ``batched_pair_lanes`` restricted to the delta
+    domain: the first divergent node on each side is never a tombstone
+    (its cause is the shared base tail, the anchor, whose frozen
+    visibility it would flip; see ``parallel.wave.delta_domain_ok``).
+
+    Returns a dict: ``full`` (``LANE_KEYS5`` arrays, [B, 2*capacity];
+    None with ``include_full=False``), ``window`` (``LANE_KEYS5``
+    arrays, [B, 2*wcap] with ``wcap = next_pow2(max(8, 1 + n_div))``),
+    ``r0`` ([B] int32 anchor ranks = ``n_base``), ``prefix_digest`` ([B]
+    uint32, the resident prefix's frozen term sum from
+    ``mesh.mix32_np``), ``wcap`` and ``starts``/``counts`` ([B, 2], the
+    splice's coordinates). The full kernel's digest equals
+    ``prefix_digest`` plus the window's contribution."""
+    batch = batched_pair_lanes(
+        n_replicas=n_replicas, n_base=n_base, n_div=n_div,
+        capacity=capacity, hide_every=hide_every, spec=spec,
+    )
+    # delta-domain restriction: no tombstone on the first suffix node
+    # of either side (its cause is the anchor)
+    if n_div > 0:
+        batch["vc"][:, 1 + n_base] = 0
+        batch["vc"][:, capacity + 1 + n_base] = 0
+    full = batched_v5_inputs(batch, capacity) if include_full else None
+
+    wcap = next_pow2(max(8, 1 + n_div))
+    B = n_replicas
+    n_w = 2 * wcap
+    window = {
+        "hi": np.full((B, n_w), I32_MAX, np.int32),
+        "lo": np.full((B, n_w), I32_MAX, np.int32),
+        "cci": np.full((B, n_w), -1, np.int32),
+        "vc": np.zeros((B, n_w), np.int32),
+        "valid": np.zeros((B, n_w), bool),
+    }
+    sfx = {0: slice(1 + n_base, 1 + n_base + n_div),
+           1: slice(capacity + 1 + n_base,
+                    capacity + 1 + n_base + n_div)}
+    anchor_hi = np.int32(n_base)
+    anchor_lo = np.int32(SITE_BASE << spec.tx_bits)
+    for t in range(2):
+        off = t * wcap
+        window["hi"][:, off] = anchor_hi
+        window["lo"][:, off] = anchor_lo
+        window["valid"][:, off] = True
+        if n_div:
+            w = 1 + n_div
+            window["hi"][:, off + 1:off + w] = batch["hi"][:, sfx[t]]
+            window["lo"][:, off + 1:off + w] = batch["lo"][:, sfx[t]]
+            window["vc"][:, off + 1:off + w] = batch["vc"][:, sfx[t]]
+            window["valid"][:, off + 1:off + w] = True
+            # suffix causes are a pure chain off the anchor: window
+            # lane j's cause is lane j-1 (the anchor at j=1)
+            window["cci"][:, off + 1:off + w] = off + np.arange(
+                n_div, dtype=np.int32)
+    window = batched_v5_inputs(
+        {k: window[k] for k in LANE_KEYS4}, wcap)
+
+    # the frozen prefix: root + base chain, ranks 0..n_base (the weave
+    # IS the chain), root invisible, chain visible — identical for
+    # every row, so one host sum serves the whole batch
+    from .parallel.mesh import mix32_np
+
+    p_hi = np.arange(n_base + 1, dtype=np.int32)
+    p_lo = np.full(n_base + 1, np.int32(SITE_BASE << spec.tx_bits))
+    p_lo[0] = 0  # the root's site rank is 0
+    p_rank = np.arange(n_base + 1, dtype=np.int32)
+    p_vis = np.ones(n_base + 1, bool)
+    p_vis[0] = False
+    pdig = np.uint32(
+        mix32_np(p_hi, p_lo, p_rank, p_vis).sum(dtype=np.uint64)
+        & np.uint64(0xFFFFFFFF))
+    return {
+        "full": full,
+        "window": window,
+        "wcap": int(wcap),
+        "r0": np.full(B, n_base, np.int32),
+        "prefix_digest": np.full(B, pdig, np.uint32),
+        "starts": np.full((B, 2), n_base + 1, np.int32),
+        "counts": np.full((B, 2), n_div, np.int32),
+    }
 
 
 def tree_fleet_handles(n_replicas: int, n_base: int, n_div: int,

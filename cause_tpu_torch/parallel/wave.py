@@ -22,7 +22,13 @@ Pairs outside the accelerated domain (ids beyond the PackSpec, rank
 generations that cannot be aligned) and rows that still overflow the
 doubled token budget fall back to the ordinary per-pair ``merge`` —
 same trees out, just slower. Not ported yet: the quarantine check
-(it needs the sync registry) and the ``mesh=`` sharding.
+(it needs the sync registry) and the ``mesh=`` sharding (a mesh
+raises).
+
+The delta-native pieces the session and the merge tree share live here
+too, as in the reference: ``delta_domain_ok`` (may a divergent lane
+ride the delta window?) and ``assemble_delta_window`` (the window batch
+from cached views), both host numpy.
 """
 
 from __future__ import annotations
@@ -41,7 +47,9 @@ from ..weaver.arrays import I32_MAX, next_pow2
 from ..weaver.segments import SEG_LANE_KEYS, concat_seg_tables
 from . import recovery as _recovery
 
-__all__ = ["merge_wave", "WaveResult", "WaveBuffers", "dispatch_full_rows"]
+__all__ = ["merge_wave", "WaveResult", "WaveBuffers",
+           "delta_domain_ok", "delta_window_rows", "assemble_delta_window",
+           "dispatch_full_rows"]
 
 
 class WaveBuffers:
@@ -91,6 +99,137 @@ _PAD = {
 }
 
 
+def delta_domain_ok(view, s: int, anchor: int,
+                    start: Optional[int] = None) -> bool:
+    """Whether lanes ``[start, view.n)`` stay inside the delta-wave
+    domain for a pair whose shared converged prefix is ``[0, s)`` with
+    anchor lane ``anchor`` (the prefix weave's final node):
+
+    - every cause resolves inside the divergent window (lane >= s) or
+      to the anchor itself — a cause stabbing any other resident lane
+      would splice new weave positions into the frozen prefix;
+    - no special (tombstone) targets the anchor — that would flip a
+      frozen resident lane's visibility.
+
+    ``start`` defaults to ``s`` (validate the whole divergent region,
+    the rebuild-time call); updates validate only their appended tail.
+    O(lanes checked) vectorized numpy."""
+    a = view.arena
+    lo = s if start is None else start
+    if lo >= view.n:
+        return True
+    ci = a.cause_idx[lo:view.n]
+    if not bool(np.all((ci >= s) | (ci == anchor))):
+        return False
+    return not bool(np.any((a.vclass[lo:view.n] > 0) & (ci == anchor)))
+
+
+def delta_window_rows(rows, wcap: int, s_max: Optional[int] = None):
+    """The ``[B, 2*wcap]`` delta-window batch the session and the merge
+    tree both dispatch. ``rows`` yields, per row, ``(anchor_hi,
+    anchor_lo, trees)`` with ``trees`` the two trees' divergent lanes as
+    ``(hi, lo, vc, cci)`` arrays, ``cci`` in tree-local window
+    coordinates (0 = the anchor). Each tree is lane 0 = the anchor
+    (presented as the window root: cause -1) followed by its lanes.
+    ``s_max`` defaults to the next power of two of the widest row's
+    segment count (at least 8). Returns the ``benchgen.LANE_KEYS5``
+    dict. O(total window lanes) on the host."""
+    from ..weaver.segments import _TABLE_DTYPES, tree_segments
+
+    rows = list(rows)
+    B = len(rows)
+    Nw = 2 * wcap
+    hi = np.full((B, Nw), I32_MAX, np.int32)
+    lo = np.full((B, Nw), I32_MAX, np.int32)
+    cci = np.full((B, Nw), -1, np.int32)
+    vc = np.zeros((B, Nw), np.int32)
+    valid = np.zeros((B, Nw), bool)
+    seg = np.full((B, Nw), -1, np.int32)
+    per_row = []
+    s_need = 8
+    for r, (a_hi, a_lo, trees) in enumerate(rows):
+        per_tree = []
+        for t, (t_hi, t_lo, t_vc, t_cci) in enumerate(trees):
+            w = 1 + len(t_hi)
+            off = t * wcap
+            hi[r, off] = a_hi
+            lo[r, off] = a_lo
+            valid[r, off] = True
+            local_cci = np.full(wcap, -1, np.int32)
+            if w > 1:
+                hi[r, off + 1:off + w] = t_hi
+                lo[r, off + 1:off + w] = t_lo
+                vc[r, off + 1:off + w] = t_vc
+                valid[r, off + 1:off + w] = True
+                local_cci[1:w] = t_cci
+                cci[r, off + 1:off + w] = t_cci + off
+            segs = tree_segments(hi[r, off:off + wcap],
+                                 lo[r, off:off + wcap],
+                                 local_cci, vc[r, off:off + wcap], w)
+            per_tree.append((segs, w))
+        per_row.append(per_tree)
+        s_need = max(s_need,
+                     sum(sg["sg_len"].shape[0] for sg, _ in per_tree))
+    if s_max is None:
+        s_max = next_pow2(s_need)
+    tables = {k: np.zeros((B, s_max), _TABLE_DTYPES[k])
+              for k in SEG_LANE_KEYS}
+    for r, per_tree in enumerate(per_row):
+        row_out = {k: tables[k][r] for k in SEG_LANE_KEYS}
+        _t, bases = concat_seg_tables(per_tree, wcap, s_max,
+                                      out=row_out)
+        for t, ((segs, w), base) in enumerate(zip(per_tree, bases)):
+            off = t * wcap
+            seg[r, off:off + w] = segs["run_of_lane"][:w] + base
+    lanes = {"hi": hi, "lo": lo, "cci": cci, "vc": vc, "valid": valid,
+             "seg": seg}
+    lanes.update(tables)
+    return lanes
+
+
+def assemble_delta_window(views, s_arr, anchor_arr, wcap: int,
+                          s_max: int):
+    """The delta wave's ``[B, 2*wcap]`` window batch from cached views
+    (``delta_window_rows``): per tree, the anchor followed by the
+    divergent-suffix lanes ``[s, n)``, causes remapped into window
+    coordinates (anchor -> 0, lane ``j`` -> ``j - s + 1``). Returns
+    ``(lanes, starts, counts)``: ``lanes`` holds every
+    ``benchgen.LANE_KEYS5`` key, ``starts``/``counts`` are the [B, 2]
+    per-tree shared-prefix length and divergent lane count the splice
+    consumes."""
+    B = len(views)
+    starts = np.zeros((B, 2), np.int32)
+    counts = np.zeros((B, 2), np.int32)
+
+    def rows():
+        for r, (va, vb) in enumerate(views):
+            s = int(s_arr[r])
+            anchor = int(anchor_arr[r])
+            a0 = va.arena
+            trees = []
+            for t, v in enumerate((va, vb)):
+                a = v.arena
+                sl = slice(s, v.n)
+                ci = a.cause_idx[sl]
+                trees.append((
+                    a.ts[sl], a.spec.pack_lo(a.site[sl], a.tx[sl]),
+                    a.vclass[sl],
+                    np.where(ci == anchor, 0, ci - s + 1).astype(np.int32)))
+                starts[r, t] = s
+                counts[r, t] = v.n - s
+            yield (np.int32(a0.ts[anchor]),
+                   a0.spec.pack_lo(a0.site[anchor:anchor + 1],
+                                   a0.tx[anchor:anchor + 1])[0], trees)
+
+    return delta_window_rows(rows(), wcap, s_max), starts, counts
+
+
+def fetch_digest(d) -> np.ndarray:
+    """A device digest tensor (``mesh.replica_digest``'s int32 bits) as
+    the reference's host uint32 array."""
+    return d.cpu().numpy().view(np.uint32)
+
+
 def _pipeline() -> str:
     """The wave's pipeline from ``BENCH_KERNEL`` (the reference's knob:
     ``cause_tpu/parallel/wave.py:669-680``); unknown values raise."""
@@ -123,7 +262,7 @@ def _dispatch(lanes, u: int, device, site: str, pipeline: str = "v5"):
 
     rank, visible, digest, overflow = _recovery.run_dispatch(site, run)
     return (rank.cpu().numpy(), visible.cpu().numpy(),
-            digest.cpu().numpy().astype(np.uint32), overflow.cpu().numpy())
+            fetch_digest(digest), overflow.cpu().numpy())
 
 
 def dispatch_full_rows(lanes, site: str = "tree", device="cuda"):
@@ -386,17 +525,24 @@ class WaveResult:
 
 
 def merge_wave(pairs: Sequence[Tuple[object, object]],
-               ctx: Optional[WaveBuffers] = None,
+               mesh=None, ctx: Optional[WaveBuffers] = None,
                device=None) -> WaveResult:
     """Merge every (a, b) replica pair in one batched device dispatch
     on ``device`` (the package default, ``use_device``, when None).
 
-    All pairs must be list-shaped handles; each pair shares a uuid/type
-    (the usual merge guards). Body validation between duplicate ids
-    follows the device contract (torchw5 module caveat): a sampled
-    host-side spot-check poisons corrupt pairs, and ``merged(i)``
-    validates fully.
+    The positional parameters are the reference's ``(pairs, mesh,
+    ctx)``. ``mesh`` (the replica axis sharded over devices) is not
+    ported yet and raises; ``ctx`` is a ``WaveBuffers`` reused across
+    waves. All pairs must be list-shaped handles; each pair shares a
+    uuid/type (the usual merge guards). Body validation between
+    duplicate ids follows the device contract (torchw5 module caveat):
+    a sampled host-side spot-check poisons corrupt pairs, and
+    ``merged(i)`` validates fully.
     """
+    if mesh is not None:
+        raise NotImplementedError(
+            "merge_wave(mesh=...): the sharded wave is not ported yet "
+            "(ROADMAP A.15)")
     pairs = list(pairs)
     if not pairs:
         raise s.CausalError("Nothing to merge.", {"causes": {"empty-fleet"}})

@@ -65,6 +65,7 @@ __all__ = [
     "extend_view",
     "view_for",
     "compatible",
+    "shared_prefix_len",
     "union_views",
     "union_views_many",
 ]
@@ -524,6 +525,25 @@ def _packed_keys(a: LaneArena, n: int) -> np.ndarray:
     return (a.ts[:n].astype(np.int64) << 32) | (
         lo.astype(np.int64) & 0xFFFFFFFF
     )
+
+
+def shared_prefix_len(va: LaneView, vb: LaneView) -> int:
+    """Length of the leading lane range holding IDENTICAL node ids in
+    both views — the converged resident prefix of a replica pair, the
+    quantity the delta-native wave pins its frozen region to. Lanes
+    are id-sorted, so one vectorized packed-key compare finds the
+    first divergence point. Views must be ``compatible`` (same rank
+    generation) or the packed site ranks would not be comparable;
+    the delta-session caller guarantees that."""
+    n = min(va.n, vb.n)
+    if n <= 0:
+        return 0
+    ka = _packed_keys(va.arena, n)
+    kb = _packed_keys(vb.arena, n)
+    eq = ka == kb
+    if eq.all():
+        return n
+    return int(np.argmin(eq))
 
 
 def union_views(va: LaneView, vb: LaneView) -> Optional[LaneView]:

@@ -50,7 +50,40 @@ Phases, one line each (times from CUDA events unless named host):
 4. api: ``tree_fleet_handles`` (64 replicas of a 10k-node list) ->
    ``merge_wave`` over 32 pairs and one ``weaver="torch"`` merge, then
    ``merge_wave`` again under ``BENCH_KERNEL=v5f``; launch counts,
-   ``merged(i)`` against the pure merge, equal digests.
+   ``merged(i)`` against the pure merge, equal digests;
+5. delta: ``delta_sweep_inputs`` at the north-star batch (1000 divergent
+   ops a tree, N_w = 2048, then a steady-state round of 16, N_w = 64:
+   B1's network form) -> ``batched_delta_weave`` on the card; launch
+   counts of one delta dispatch (6/1/1), every kernel call of it against
+   its plain version, timed, with its bound; digests bit-identical to
+   the full arm's ``batched_weave_digest``; ``splice_ranks`` into the
+   full arm's ranks with the divergent lanes cleared gives them back;
+   the delta dispatch's p50 between two of the full arm's, and beside
+   phase 3's; ``--profile`` adds a breakdown of both dispatches;
+6. session: ``FleetSession`` over phase 4's 32 pairs, their lane caches
+   built first: the first wave equals ``merge_wave``; the first round of
+   edits re-uploads (a suffix that ends in a tombstone restructures its
+   tree's segments, as in the reference: ``tests/test_torch_session.py``
+   holds both packages to full, full, delta on this fleet's pattern);
+   after the second round and ``update()`` the frontier holds and the
+   next wave splices into the resident ranks (the delta path, read from
+   the session's state) with digests equal to a fresh ``merge_wave``;
+   that wave again on the plain versions, every kernel call of it held
+   against its plain version and timed once a shape; ``merged(i)``
+   against the pure merge; ``checkpoint()`` -> ``restore()`` through its
+   digest gate on the card; upload, wave, window assembly and restore
+   times;
+7. tree: ``merge_tree_report`` over the 64 replicas: 6 levels, level 0
+   full width and the rest delta, each level's path, window and time
+   (from the report); the tree again on the plain versions, with the
+   same levels and root, every kernel call of it held against its plain
+   version on the card and timed once a shape (every level's window,
+   down to B1's network form on global scratch); the root equals
+   ``merge_many`` of the same handles; ``merge_all`` launches exactly
+   the tree's kernels (not ``merge_many``'s) and gives the same root.
+
+Phases 5-7 each reset the launch counts before they run and read them
+after: a phase that did not launch B1, B2 and B3 fails.
 
 Before the last line it prints the card's ``name, power.limit`` (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -73,6 +106,8 @@ import numpy as np
 
 DEVICE = "cuda"
 PAIRS = 1024      # north-star replica pairs
+CAP, N_BASE, N_DIV = 10240, 9000, 1000  # north-star rows (lanes a tree)
+N_DIV_STEADY = 16  # phase 5's steady-state round of edits (N_w = 64)
 REPLICAS = 64     # API-phase replicas (32 pairs)
 REPS = 5          # timed north-star dispatches
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
@@ -751,6 +786,360 @@ def phase_split(torch, calls) -> None:
                 f"{sh[2] * ms[form]:.4f}")
 
 
+def device_kernels(torch, fn, reps: int = 2):
+    """(kernels per call, device ms per call) of ``fn`` on the card, from a
+    torch.profiler trace of ``reps`` calls."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            kern = [e for e in json.load(f)["traceEvents"]
+                    if e.get("cat") == "kernel"]
+    return len(kern) / reps, sum(e["dur"] for e in kern) / 1e3 / reps
+
+
+def expect_launches(counts, want, what: str) -> None:
+    """A phase's launch counts: exactly ``want`` (a dict) or, for a phase
+    whose dispatch count depends on the data, at least one of each name
+    in ``want`` and none of the others."""
+    from cause_tpu_torch import kernels
+
+    if isinstance(want, dict):
+        exp = {name: want.get(name, 0) for name in kernels.SOURCES}
+        if counts != exp:
+            fail(f"{what}: launches {counts}, expected {exp}")
+        return
+    for name in kernels.SOURCES:
+        if (counts[name] > 0) != (name in want):
+            fail(f"{what}: launches {counts}, expected some of {want} "
+                 f"and none of the others")
+
+
+def check_recorded(torch, calls, tag: str) -> None:
+    """Every kernel call a path made (recorded under ``plain_path``)
+    against its plain version on the card; the first call of each
+    distinct kernel, shape and keyword set also timed against its plain
+    version and its bound, one line each."""
+    timed = set()
+    for name, ops, kw in calls:
+        key = (name, tuple(tuple(x.shape) for x in ops),
+               tuple(sorted(kw.items())))
+        rec = check_call(torch, name, ops, kw, time_it=key not in timed)
+        if rec["err"]:
+            fail(f"{tag}: {name} at {[tuple(x.shape) for x in ops]} "
+                 f"{kw or ''} disagrees with its plain version "
+                 f"(max_abs_err {rec['err']})")
+        if key in timed:
+            continue
+        timed.add(key)
+        shapes = "x".join(str(d) for d in ops[0].shape)
+        say(f"{tag}: {name} {shapes} n_ops={len(ops)} {kw or ''}: "
+            f"max_abs_err 0, ms {rec['ms']:.4f} plain_ms "
+            f"{rec['plain_ms']:.4f} bound_ms {rec['bound_ms']:.4f}"
+            + (f" library_ms {rec['library_ms']:.4f}"
+               if name == "sort" else ""))
+    say(f"{tag}: {len(calls)} kernel calls, each equal to its plain "
+        f"version on the card ({len(timed)} distinct shapes timed)")
+
+
+def phase_delta(torch, dev, ns_p50: float, p50, profile_dir=None) -> None:
+    """Phase 5: the delta wave at the north-star batch, at N_DIV and at
+    N_DIV_STEADY divergent ops a tree, each kernel call of one delta
+    dispatch timed against its plain version and its bound."""
+    import cause_tpu_torch as ct
+    from cause_tpu_torch import benchgen, kernels
+    from cause_tpu_torch.weaver import torchwd
+    from cause_tpu_torch.weaver.arrays import next_pow2
+
+    names = ("rank_w", "visible_w", "digest", "overflow")
+    for n_div in (N_DIV, N_DIV_STEADY):
+        t0 = time.perf_counter()
+        sw = benchgen.delta_sweep_inputs(PAIRS, N_BASE, n_div, CAP,
+                                         hide_every=8)
+        t1 = time.perf_counter()
+        full = benchgen.lanes_from_numpy(sw["full"], dev)
+        u = next_pow2(benchgen.v5_token_budget(sw["full"]))
+
+        def full_dispatch():
+            return ct.batched_weave_digest(
+                *(full[k] for k in benchgen.LANE_KEYS5), u_max=u, k_max=u,
+                device=dev)
+
+        f_rank, f_vis, f_dig, f_ov = full_dispatch()
+        if bool(f_ov.any()):
+            fail(f"delta sweep's full arm overflowed (n_div={n_div})")
+        win = benchgen.lanes_from_numpy(sw["window"], dev)
+        wargs = [win[k] for k in benchgen.LANE_KEYS5]
+        nw = 2 * sw["wcap"]
+        tag = f"[5 delta] n_div={n_div} N_w={nw}"
+
+        def delta():
+            return ct.batched_delta_weave(
+                *wargs, sw["prefix_digest"], sw["r0"], u_max=nw, k_max=nw,
+                device=dev)
+
+        calls = []
+        with plain_path(record=calls):
+            ref = delta()
+        kernels.reset_launches()
+        got = delta()
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        say(f"{tag}: window marshal {t1 - t0:.3f} s (host clock, numpy, "
+            f"full arm included); launches in one delta dispatch: {counts}")
+        expect_launches(counts, V5_LAUNCHES, f"{tag} dispatch")
+        for nm, g, w in zip(names, got, ref):
+            if not torch.equal(g, w):
+                fail(f"{tag}: {nm} differs from the plain path")
+        if bool(got[3].any()):
+            fail(f"{tag}: the window overflowed")
+        if not torch.equal(got[2], f_dig):
+            fail(f"{tag}: delta digests differ from the full-width digests")
+        # the splice: clear the divergent lanes of the full arm's ranks
+        # and visibility, splice the window back, get the full arm back
+        rf, vf = f_rank.clone(), f_vis.clone()
+        s0 = N_BASE + 1
+        for t in range(2):
+            sl = slice(t * CAP + s0, t * CAP + s0 + n_div)
+            rf[:, sl] = -1
+            vf[:, sl] = ~vf[:, sl]
+        torchwd.splice_ranks(rf, vf, got[0], got[1], sw["starts"],
+                             sw["counts"], sw["r0"])
+        if not (torch.equal(rf, f_rank) and torch.equal(vf, f_vis)):
+            fail(f"{tag}: the splice does not give back the full-width "
+                 f"ranks and visibility")
+        per = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                      "library_ms": 0.0} for name in V5_LAUNCHES}
+        sites = iter(SORT_SITES)
+        for name, ops, kw in calls:
+            rec = check_call(torch, name, ops, kw, time_it=True)
+            if rec["err"]:
+                fail(f"{tag}: {name} kernel disagrees with its plain "
+                     f"version")
+            for k in per[name]:
+                per[name][k] += rec.get(k, 0.0)
+            shapes = "x".join(str(d) for d in ops[0].shape)
+            site = f" site {next(sites, '?')}" if name == "sort" else ""
+            say(f"{tag}: {name}{site} {shapes} n_ops={len(ops)} "
+                f"{kw or ''}: max_abs_err 0, ms {rec['ms']:.4f} plain_ms "
+                f"{rec['plain_ms']:.4f} bound_ms {rec['bound_ms']:.4f}"
+                + (f" library_ms {rec['library_ms']:.4f}"
+                   if name == "sort" else ""))
+        delta()  # warm
+        # the full arm and the window in turns, in this phase: the host's
+        # speed drifts between phases
+        f_p50, f_all = p50(full_dispatch)
+        d_p50, d_all = p50(delta)
+        f2_p50, f2_all = p50(full_dispatch)
+        say(f"{tag}: digests bit-identical to the full arm's, rank_w / "
+            f"visible_w / digest / overflow to the plain path, splice "
+            f"exact; delta dispatch p50 {d_p50:.3f} ms, the full arm's "
+            f"{f_p50:.3f} ms before it and {f2_p50:.3f} ms after it, "
+            f"phase 3's {ns_p50:.3f} ms (host clock, synchronized, {REPS} "
+            f"reps: {[round(t, 3) for t in d_all]} / "
+            f"{[round(t, 3) for t in f_all]} / "
+            f"{[round(t, 3) for t in f2_all]}); per kernel in one dispatch "
+            + "; ".join(f"{n} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, "
+                        f"plain {v['plain_ms']:.4f})"
+                        for n, v in per.items()))
+        if profile_dir:
+            profile_dispatch(torch, delta, profile_dir, d_p50,
+                             tag=f"delta{n_div}")
+            profile_dispatch(torch, full_dispatch, profile_dir, f_p50,
+                             tag=f"full{n_div}")
+        del full, win, wargs, f_rank, f_vis, f_dig, ref, got, rf, vf
+
+
+def phase_session(torch, pairs, wave_digest, p50) -> None:
+    """Phase 6: a FleetSession over the API fleet's pairs, on the card:
+    full wave, edit + update, delta wave, merged, checkpoint/restore."""
+    import cause_tpu_torch as ct
+    from cause_tpu_torch import kernels
+    from cause_tpu_torch.collections import clist as c_list
+    from cause_tpu_torch.collections.clist import CausalList
+    from cause_tpu_torch.parallel.wave import assemble_delta_window
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t) * 1e3
+
+    # the API fleet's handles carry no lane cache (their base was woven
+    # on the host), so every view would be rebuilt from the node dict;
+    # one device reweave each gives them the cache an edited
+    # weaver="torch" list keeps, which appends then extend in place
+    pairs, warm_ms = timed(lambda: [
+        tuple(CausalList(c_list.weave(h.ct)) for h in pair)
+        for pair in pairs])
+    kernels.reset_launches()
+    sess, up_ms = timed(lambda: ct.FleetSession(pairs))
+    d0, full_ms = timed(sess.wave)
+    expect_launches(dict(kernels.launches), V5_LAUNCHES, "[6 session] "
+                    "first wave")
+    if not np.array_equal(d0, wave_digest):
+        fail("[6 session] the first wave's digests differ from merge_wave's")
+    if sess._delta is None:
+        fail("[6 session] no delta frontier after the first wave")
+    say(f"[6 session] {len(pairs)} pairs: lane caches {warm_ms:.3f} ms "
+        f"(one device reweave a handle), upload {up_ms:.3f} ms, first "
+        f"(full) wave {full_ms:.3f} ms (host clock, synchronized), digests "
+        f"equal merge_wave's; frontier s={int(sess._delta['s'][0])} "
+        f"w_cap={sess._delta['w_cap']}")
+
+    def edit(ps, rnd):
+        return [(a.conj(f"e{rnd}.{i}a").extend([f"e{rnd}.{i}b"]),
+                 b.conj(f"e{rnd}.{i}c")) for i, (a, b) in enumerate(ps)]
+
+    # the first round of edits appends to a suffix that ends in a
+    # tombstone, which restructures that tree's segments: update()
+    # re-uploads and the wave runs full width, as the reference's does
+    # (test_session_edit_after_tombstoned_tail_runs_full_once); the
+    # second round extends plain chains and must ride the delta path
+    pairs1 = edit(pairs, 1)
+    sess.update(pairs1)
+    path1 = "delta" if sess._delta is not None else "full"
+    if not np.array_equal(sess.wave(), ct.merge_wave(pairs1).digest):
+        fail("[6 session] round 1's digests differ from merge_wave's")
+    pairs2 = edit(pairs1, 2)
+    _, upd_ms = timed(lambda: sess.update(pairs2))
+    if sess._delta is None:
+        fail("[6 session] update() dropped the frontier: the next wave "
+             "would run full width")
+    resident = sess.last_rank
+    kernels.reset_launches()
+    d1, delta_ms = timed(sess.wave)
+    counts = dict(kernels.launches)
+    expect_launches(counts, V5_LAUNCHES, "[6 session] delta wave")
+    if sess.last_rank is not resident:
+        fail("[6 session] round 2's wave replaced the resident ranks: it "
+             "ran full width, not the delta path")
+    fresh = ct.merge_wave(pairs2)
+    if not np.array_equal(d1, fresh.digest):
+        fail("[6 session] round 2's digests differ from a fresh "
+             "merge_wave of the edited pairs")
+    # the same delta wave again under the plain versions, every kernel
+    # call it makes held against them on the card
+    calls = []
+    with plain_path(record=calls):
+        d_plain = sess.wave()
+    if not np.array_equal(d_plain, d1):
+        fail("[6 session] the delta wave's digests differ on the plain path")
+    check_recorded(torch, calls, "[6 session] delta wave")
+    d_p50, d_all = p50(sess.wave)
+    # its host window assembly alone, from the same frontier
+    dstate = sess._delta
+    assembly = []
+    for _ in range(REPS):
+        t = time.perf_counter()
+        assemble_delta_window(sess._views, dstate["s"], dstate["anchor"],
+                              dstate["w_cap"], 2 * dstate["w_cap"])
+        assembly.append((time.perf_counter() - t) * 1e3)
+    f_p50, f_all = p50(sess._full_wave)
+    checked = [0, len(pairs) - 1]
+    for i in checked:
+        a, b = pairs2[i]
+        want = CausalList(a.ct.evolve(weaver="pure")).merge(
+            CausalList(b.ct.evolve(weaver="pure")))
+        got = sess.merged(i)
+        if got.ct.weave != want.ct.weave or list(got) != list(want):
+            fail(f"[6 session] merged({i}) differs from the pure merge")
+    ck, ck_ms = timed(sess.checkpoint)
+    restored, rs_ms = timed(lambda: ct.FleetSession.restore(ck))
+    if restored._delta is None or not np.array_equal(
+            restored._last_digest, sess._last_digest):
+        fail("[6 session] restore lost the frontier or the digests")
+    say(f"[6 session] round 1 took the {path1} path; round 2: update "
+        f"{upd_ms:.3f} ms, wave on the delta "
+        f"path {delta_ms:.3f} ms (launches {counts}; spliced into the "
+        f"resident ranks), digests equal a fresh merge_wave; delta wave "
+        f"p50 {d_p50:.3f} ms (its window assembly alone on the host "
+        f"{float(np.median(assembly)):.3f} ms), full wave p50 "
+        f"{f_p50:.3f} ms (host clock, "
+        f"synchronized, {REPS} reps: {[round(t, 3) for t in d_all]} / "
+        f"{[round(t, 3) for t in f_all]}); merged(i) for pairs {checked} "
+        f"equal the pure merge; checkpoint {ck_ms:.3f} ms, restore "
+        f"{rs_ms:.3f} ms through its digest gate on the card, frontier "
+        f"kept")
+
+
+def phase_tree(torch, hs) -> None:
+    """Phase 7: the merge tree over the API fleet's replicas, per level;
+    every kernel call of the tree against its plain version, the root
+    against the plain path's and merge_many's, and merge_all's routing
+    (its launches are the tree's)."""
+    import cause_tpu_torch as ct
+    from cause_tpu_torch import kernels
+    from cause_tpu_torch.parallel import tree as tree_mod
+
+    def strip(rep):
+        return [{k: v for k, v in lv.items() if k != "ms"}
+                for lv in rep["levels"]]
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    root, rep = ct.merge_tree_report(hs)
+    t1 = time.perf_counter()
+    counts = dict(kernels.launches)
+    expect_launches(counts, tuple(V5_LAUNCHES), "[7 tree]")
+    paths = [lv["path"] for lv in rep["levels"]]
+    want_paths = ["full"] + ["delta"] * (tree_mod.tree_rounds(len(hs)) - 1)
+    if paths != want_paths:
+        fail(f"[7 tree] level paths {paths}, expected {want_paths}")
+    for lv in rep["levels"]:
+        say(f"[7 tree] level {lv['level']}: {lv['path']}, {lv['pairs']} "
+            f"pairs, {lv['byes']} byes, window {lv['window']}, "
+            f"{lv['delta_ops']} divergent ops, digests agree "
+            f"{lv['agreed']}: {lv['ms']:.3f} ms (host clock, through the "
+            f"level's digest fetch)")
+    # the same tree on the plain versions, every kernel call recorded
+    calls = []
+    with plain_path(record=calls):
+        p_root, p_rep = ct.merge_tree_report(hs)
+    if strip(p_rep) != strip(rep) or p_root.ct.weave != root.ct.weave \
+            or p_root.ct.nodes != root.ct.nodes:
+        fail("[7 tree] the tree's levels or root differ on the plain path")
+    check_recorded(torch, calls, "[7 tree]")
+    t2 = time.perf_counter()
+    flat = hs[0].merge_many(hs[1:])
+    t3 = time.perf_counter()
+    if root.ct.weave != flat.ct.weave or root.ct.nodes != flat.ct.nodes:
+        fail("[7 tree] the root differs from merge_many of the same "
+             "handles")
+    # merge_all must launch exactly what the tree launched, which is not
+    # what merge_many launches
+    kernels.reset_launches()
+    hs[0].merge_many(hs[1:])
+    flat_counts = dict(kernels.launches)
+    kernels.reset_launches()
+    routed = ct.merge_all(hs[0], *hs[1:])
+    all_counts = dict(kernels.launches)
+    if flat_counts == counts:
+        fail(f"[7 tree] merge_many launches what the tree does "
+             f"({counts}): the routing check cannot tell them apart")
+    if all_counts != counts or routed.ct.weave != root.ct.weave:
+        fail(f"[7 tree] merge_all did not route through the tree "
+             f"(launches {all_counts}, the tree's {counts}) or its root "
+             f"differs")
+    say(f"[7 tree] {len(hs)} replicas in {len(paths)} levels: "
+        f"{(t1 - t0) * 1e3:.3f} ms (host clock, root materialized); "
+        f"launches {counts}; root ({len(root.ct.weave)} nodes) equals "
+        f"the plain path's and merge_many's ({(t3 - t2) * 1e3:.3f} ms, "
+        f"launches {flat_counts}); merge_all launched the tree's kernels "
+        f"and gave the same root")
+
+
 # --------------------------------------------------------------- main
 
 
@@ -792,7 +1181,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.3f} s (host clock)")
 
     # ------------------------------------------------ north-star inputs
-    cap, n_base, n_div = 10240, 9000, 1000
+    cap, n_base, n_div = CAP, N_BASE, N_DIV
     t0 = time.perf_counter()
     batch = benchgen.batched_pair_lanes(PAIRS, n_base, n_div, cap,
                                         hide_every=8)
@@ -935,6 +1324,13 @@ def main() -> int:
         f"{[round(t, 3) for t in p_all]})")
     if args.profile:
         profile_dispatch(torch, dispatch, args.profile, k_p50, tag="v5")
+        dig_ms = cuda_ms(torch, lambda: replica_digest(
+            args5[0], args5[1], out[0], out[1]))
+        n_k, dev_ms = device_kernels(torch, lambda: replica_digest(
+            args5[0], args5[1], out[0], out[1]))
+        say(f"[profile v5] the digest (int32 replica_digest) at B={B} "
+            f"N={N}: {dig_ms:.4f} ms (CUDA events, mean of 10), {n_k:.0f} "
+            f"device kernels, {dev_ms:.4f} ms of device time (profile)")
     del ref
 
     # ------------------------------------------------ 3f. north star v5f
@@ -1044,6 +1440,15 @@ def main() -> int:
             fail(f"v5f merge_wave pair {i} differs from the pure merge")
     say(f"[4 api] BENCH_KERNEL=v5f: kernel 'v5f', digests equal the v5 "
         f"wave's, merged(i) for pairs {checked} equal the pure merge")
+
+    # ------------------------------------------------ 5. delta
+    phase_delta(torch, dev, k_p50, p50, args.profile)
+
+    # ------------------------------------------------ 6. session
+    phase_session(torch, pairs, res.digest, p50)
+
+    # ------------------------------------------------ 7. tree
+    phase_tree(torch, hs)
 
     # ------------------------------------------------ result
     recs = []
