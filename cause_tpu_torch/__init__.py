@@ -5,13 +5,20 @@ The port of ``cause_tpu`` (which stays the JAX reference). It imports
 neither JAX nor ``cause_tpu``: the host modules it needs are its own
 copies. What is ported so far is the v5 merge wave end to end and the
 steady-state sync loop built on it: list handles (``clist``) whose
-``weaver="torch"`` reweaves and merges run on the device, ``merge_wave``
-over many replica pairs, the device-resident ``FleetSession`` (full
+``weaver="torch"`` reweaves and merges run on the device, with the set
+and counter handles (``cset``, ``ccounter``) riding the same list
+route; map handles (``cmap``), whose ``weaver="torch"`` reweaves and
+merges run one forest linearization on the device, and
+``merge_map_wave``, which runs many map replica pairs as key-rooted
+forests through the v5 kernel; ``serde`` for all four collections;
+``merge_wave`` over many list replica pairs, the device-resident
+``FleetSession`` (full
 waves, delta updates, delta-native waves over the divergent window,
 ``converge``, ``merged``, ``checkpoint``/``restore``), the merge
 reduction tree (``merge_tree``, ``merge_tree_report``, the
 ``flat_fold`` control) and ``merge_all``, which routes fleets of four
-or more ``weaver="torch"`` replicas through the tree. Beneath them run
+or more ``weaver="torch"`` list-shaped replicas through the tree. Beneath
+them run
 the batched v5 segment-union kernel, the full-width and delta-window
 weave-and-digest programs (``batched_weave_digest``,
 ``batched_delta_weave``) and the per-row digest, with the token sort
@@ -29,7 +36,10 @@ handle-level paths run on the package default, which only
 from __future__ import annotations
 
 from .benchgen import LANE_KEYS5, lanes_from_numpy
+from .collections.ccounter import CausalCounter, new_causal_counter
 from .collections.clist import CausalList, new_causal_list
+from .collections.cmap import CausalMap, new_causal_map
+from .collections.cset import CausalSet, new_causal_set
 from .collections.shared import CausalError, CausalTree
 from .device import default_device, resolve_device, use_device
 from .ids import (
@@ -37,6 +47,8 @@ from .ids import (
     H_SHOW,
     HIDE,
     ROOT_ID,
+    K,
+    Keyword,
     is_special,
     new_site_id,
     new_uid,
@@ -45,6 +57,7 @@ from .ids import (
 from .parallel.session import FleetSession
 from .parallel.tree import flat_fold, merge_tree, merge_tree_report
 from .parallel.wave import WaveResult, merge_wave
+from .weaver.mapw import MapWaveResult, merge_map_wave
 from .weaver.torchw5 import batched_merge_weave_v5
 from .weaver.torchw5f import batched_merge_weave_v5f
 from .weaver.torchwd import batched_delta_weave, batched_weave_digest
@@ -56,9 +69,12 @@ h_hide = H_HIDE
 h_show = H_SHOW
 root_id = ROOT_ID
 
-# a causal list; ``weaver="torch"`` runs full reweaves and merges on the
-# device
+# the causal collections; ``weaver="torch"`` runs full reweaves and
+# merges on the device
 clist = new_causal_list
+cmap = new_causal_map
+cset = new_causal_set
+ccounter = new_causal_counter
 
 
 def merge(a, b):
@@ -69,12 +85,13 @@ def merge(a, b):
 def merge_all(causal, *more, tree=True):
     """Converge a whole fleet of replicas into one collection.
 
-    Fleets of four or more ``weaver="torch"`` list replicas go through
-    the merge reduction tree (``parallel.tree``): ceil(log2(n)) batched
-    device rounds, level 0 full width, later levels on the delta window
-    path. ``tree=False``, or any fleet outside the tree's domain (pure
-    weaver, fewer than four replicas, PackSpec overflow), takes the
-    flat path: the N-way node union and ONE reweave (``merge_many``).
+    Fleets of four or more ``weaver="torch"`` list-shaped replicas
+    (lists, sets, counters) go through the merge reduction tree
+    (``parallel.tree``): ceil(log2(n)) batched device rounds, level 0
+    full width, later levels on the delta window path. ``tree=False``,
+    or any fleet outside the tree's domain (maps, pure weaver, fewer
+    than four replicas, PackSpec overflow), takes the flat path: the
+    N-way node union and ONE reweave (``merge_many``).
     Either way the result equals folding ``merge`` in any order."""
     if tree and len(more) >= 3 \
             and getattr(getattr(causal, "ct", None), "weaver", "") == "torch":
@@ -87,17 +104,26 @@ def merge_all(causal, *more, tree=True):
 
 
 __all__ = [
+    "CausalCounter",
     "CausalError",
     "CausalList",
+    "CausalMap",
+    "CausalSet",
     "CausalTree",
     "FleetSession",
+    "K",
+    "Keyword",
     "LANE_KEYS5",
+    "MapWaveResult",
     "WaveResult",
     "batched_delta_weave",
     "batched_merge_weave_v5",
     "batched_merge_weave_v5f",
     "batched_weave_digest",
+    "ccounter",
     "clist",
+    "cmap",
+    "cset",
     "default_device",
     "flat_fold",
     "h_hide",
@@ -107,6 +133,7 @@ __all__ = [
     "lanes_from_numpy",
     "merge",
     "merge_all",
+    "merge_map_wave",
     "merge_tree",
     "merge_tree_report",
     "merge_wave",

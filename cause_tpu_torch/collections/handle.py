@@ -6,7 +6,7 @@ metadata accessors, same insert/append/weft plumbing, and the same
 pure/torch merge dispatch. That dispatch is exactly the code that must
 never diverge between collection types, so it lives here once and each
 concrete class contributes only its rendering and its type-specific
-interop. The port has ``CausalList`` so far.
+interop: ``CausalList``, ``CausalSet`` and ``CausalCounter``.
 """
 
 from __future__ import annotations

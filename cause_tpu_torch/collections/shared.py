@@ -59,8 +59,8 @@ __all__ = [
 ]
 
 LIST_TYPE = "list"
-# list-shaped tree types of the other collections (sets and counters
-# are not ported yet; the lane cache only needs their names)
+MAP_TYPE = "map"
+# the list-shaped tree types of the set and counter collections
 SET_TYPE = "set"
 COUNTER_TYPE = "counter"
 

@@ -1,10 +1,11 @@
-"""Serialization: tagged JSON round-trip of causal lists and plain values.
+"""Serialization: tagged JSON round-trip of causal collections and plain
+values.
 
-Copy of ``cause_tpu.serde`` holding what a list fleet's checkpoint
-needs (``FleetSession.checkpoint``): the same tag scheme and the same
-bytes, so a list encodes to the data the reference encodes it to. Only
-``nodes`` is serialized per tree; decoding rebuilds yarns and the weave
-with the tree's weave function.
+Copy of ``cause_tpu.serde`` for lists, maps, sets and counters: the same
+tag scheme and the same bytes, so a collection encodes to the data the
+reference encodes it to. Only ``nodes`` is serialized per tree;
+decoding rebuilds yarns and the weave with the tree's weave function,
+so a decoded tree is also a proof of cache idempotency.
 
 Tag scheme (single-``~``-key JSON objects; plain scalars pass through):
 
@@ -15,13 +16,14 @@ Tag scheme (single-``~``-key JSON objects; plain scalars pass through):
 ``{"~t": [...]}``     tuple
 ``{"~set": [...]}``   set; ``{"~fset": [...]}`` frozenset
 ``{"~d": [[k,v]..]}`` dict (keys can be any encodable value)
-``{"~causal": ...}``  CausalList
+``{"~causal": ...}``  CausalList / CausalMap / CausalSet / CausalCounter
 ====================  =========================================
 
 Node ids and id-valued causes are stored as plain ``[ts, site, tx]``
-arrays. Maps, sets, counters, bases and refs (``{"~r": uuid}``) raise a
-``CausalError``: their modules are not ported yet (ROADMAP A.10 and
-A.16).
+arrays: positionally unambiguous (map keys are hashable, so a raw
+Python list can never be a key). Bases (``{"~causal": "base"}``) and
+refs (``{"~r": uuid}``) raise a ``CausalError``: the base module is not
+ported yet (ROADMAP A.16).
 """
 
 from __future__ import annotations
@@ -29,9 +31,15 @@ from __future__ import annotations
 import json
 from typing import Any, Optional
 
+from .collections import ccounter as c_counter
 from .collections import clist as c_list
+from .collections import cmap as c_map
+from .collections import cset as c_set
 from .collections import shared as s
+from .collections.ccounter import CausalCounter
 from .collections.clist import CausalList
+from .collections.cmap import CausalMap
+from .collections.cset import CausalSet
 from .collections.shared import CausalTree
 from .ids import Keyword, Special, is_id
 
@@ -49,9 +57,8 @@ _INF = float("inf")
 
 def _not_ported(what: str) -> s.CausalError:
     return s.CausalError(
-        f"{what} is not ported yet (ROADMAP A.10 / A.16): only lists "
-        "and plain values serialize", {"causes": {"not-ported"},
-                                       "what": what})
+        f"{what} is not ported yet (ROADMAP A.16): bases and refs do not "
+        "serialize", {"causes": {"not-ported"}, "what": what})
 
 
 def _encode_id(nid) -> list:
@@ -90,35 +97,43 @@ def decode_node_items(data: list) -> dict:
 
 
 def _encode_tree(ct: CausalTree) -> dict:
-    if ct.type != s.LIST_TYPE:
-        raise _not_ported(f"a {ct.type!r} tree")
+    nodes = encode_node_items(ct.nodes)
     return {
         "~causal": ct.type,
         "uuid": ct.uuid,
         "site_id": ct.site_id,
         "lamport_ts": ct.lamport_ts,
         "weaver": ct.weaver,
-        "nodes": encode_node_items(ct.nodes),
+        "nodes": nodes,
     }
 
 
 def _decode_tree(d: dict) -> CausalTree:
-    """Reconstitute a list from its bag of nodes: rebuild yarns, ts and
-    the weave from scratch, then restore the recorded clock (it may run
-    ahead of the max node ts)."""
+    """Reconstitute a tree from its bag of nodes: rebuild yarns, ts and
+    the weave from scratch (refresh-caches parity, shared.cljc:259-266),
+    then restore the recorded clock (it may run ahead of the max node
+    ts, e.g. after tombstone-only activity elsewhere in a base)."""
     kind = d["~causal"]
-    if kind != s.LIST_TYPE:
-        raise _not_ported(f"a {kind!r} tree")
     nodes = decode_node_items(d["nodes"])
-    fresh = c_list.new_causal_tree(d["weaver"])
-    nodes.update(fresh.nodes)  # the seeded root sentinel
+    if kind == s.LIST_TYPE:
+        fresh, weave_fn = c_list.new_causal_tree(d["weaver"]), c_list.weave
+    elif kind == s.MAP_TYPE:
+        fresh, weave_fn = c_map.new_causal_tree(d["weaver"]), c_map.weave
+    elif kind == c_set.SET_TYPE:
+        fresh, weave_fn = c_set.new_causal_tree(d["weaver"]), c_list.weave
+    elif kind == c_counter.COUNTER_TYPE:
+        fresh, weave_fn = (c_counter.new_causal_tree(d["weaver"]),
+                           c_list.weave)
+    else:
+        raise s.CausalError("unknown causal tag", {"tag": kind})
+    nodes.update(fresh.nodes)  # the seeded root sentinel (list trees)
     ct = fresh.evolve(uuid=d["uuid"], site_id=d["site_id"], nodes=nodes)
-    ct = s.refresh_caches(c_list.weave, ct)
+    ct = s.refresh_caches(weave_fn, ct)
     return ct.evolve(lamport_ts=max(ct.lamport_ts, d["lamport_ts"]))
 
 
 def to_data(x) -> Any:
-    """Encode a value (a list or plain data) to JSON-able tagged data.
+    """Encode a value (a collection or plain data) to JSON-able tagged data.
     Non-finite floats get a tag so the emitted JSON stays strict RFC
     8259."""
     if isinstance(x, float) and x != x:
@@ -131,7 +146,7 @@ def to_data(x) -> Any:
         return {"~k": x.name}
     if isinstance(x, Special):
         return {"~s": x.name}
-    if isinstance(x, CausalList):
+    if isinstance(x, (CausalList, CausalMap, CausalSet, CausalCounter)):
         return _encode_tree(x.ct)
     if isinstance(x, CausalTree):
         return _encode_tree(x)
@@ -151,8 +166,9 @@ def to_data(x) -> Any:
 
 
 def from_data(d) -> Any:
-    """Decode tagged data produced by ``to_data``; lists come back as
-    ``CausalList`` handles."""
+    """Decode tagged data produced by ``to_data``. Decoded trees come
+    back wrapped in their handles (CausalList / CausalMap / CausalSet /
+    CausalCounter)."""
     if d is None or isinstance(d, (bool, int, float, str)):
         return d
     if isinstance(d, list):
@@ -175,12 +191,21 @@ def from_data(d) -> Any:
         if "~d" in d:
             return {from_data(k): from_data(v) for k, v in d["~d"]}
         if "~causal" in d:
-            return CausalList(_decode_tree(d))
+            if d["~causal"] == "base":
+                raise _not_ported("a base")
+            ct = _decode_tree(d)
+            handle = {
+                s.LIST_TYPE: CausalList,
+                s.MAP_TYPE: CausalMap,
+                c_set.SET_TYPE: CausalSet,
+                c_counter.COUNTER_TYPE: CausalCounter,
+            }[ct.type]
+            return handle(ct)
     raise s.CausalError("undecodable data", {"data": type(d).__name__})
 
 
 def dumps(x, indent: Optional[int] = None) -> str:
-    """Serialize a list or plain value to strict RFC-compliant JSON."""
+    """Serialize a collection or plain value to strict RFC-compliant JSON."""
     return json.dumps(to_data(x), indent=indent, allow_nan=False)
 
 

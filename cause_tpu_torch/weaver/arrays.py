@@ -40,9 +40,18 @@ __all__ = [
     "DEFAULT_PACK",
     "SiteInterner",
     "NodeArrays",
+    "OutsideDomain",
+    "map_lanes",
+    "rebuild_map_weave",
     "vclass_of",
     "next_pow2",
 ]
+
+
+class OutsideDomain(Exception):
+    """The input is outside an accelerated weaver's domain (dangling
+    causes from weft gibberish, exotic map cause chains); callers fall
+    back to the pure weaver, which defines the semantics everywhere."""
 
 
 VCLASS_NORMAL = 0
@@ -302,3 +311,63 @@ class NodeArrays:
                 "unavailable (host backends can still use cause_idx)"
             )
         return self.cause_hi, self.cause_lo
+
+
+def map_lanes(nodes_map):
+    """``(sorted_nodes, cause_idx, key_rank, vclass, keys)`` for a map
+    tree — the shared marshaller of the native and device map weavers.
+
+    Key resolution follows the pure weaver exactly (single level: an
+    id-caused node's key is its target's cause, map.cljc:31-37), so the
+    accelerated domain requires id-caused nodes to target key-caused
+    nodes — everything the collection/base APIs generate. Anything else
+    raises ``OutsideDomain`` and the caller falls back to pure.
+    """
+    from ..ids import is_id
+
+    ids = sorted(nodes_map)
+    idx_of = {nid: i for i, nid in enumerate(ids)}
+    n = len(ids)
+    cause_idx = np.full(n, -1, np.int32)
+    key_rank = np.full(n, -1, np.int32)
+    vclass = np.zeros(n, np.int32)
+    keys = []
+    key_ordinal = {}
+    nodes = []
+    for i, nid in enumerate(ids):
+        cause, value = nodes_map[nid]
+        vclass[i] = vclass_of(value)
+        if is_id(cause):
+            ci = idx_of.get(tuple(cause), -1)
+            if ci < 0:
+                raise OutsideDomain()  # dangling target
+            target_cause = nodes_map[tuple(cause)][0]
+            if is_id(target_cause):
+                raise OutsideDomain()  # id-caused targeting id-caused
+            cause_idx[i] = ci
+        else:
+            k = cause
+            if k not in key_ordinal:
+                key_ordinal[k] = len(keys)
+                keys.append(k)
+            key_rank[i] = key_ordinal[k]
+        nodes.append((nid, cause, value))
+    return nodes, cause_idx, key_rank, vclass, keys
+
+
+def rebuild_map_weave(nodes, key_of, order, keys):
+    """Split an accelerated forest ordering back into the per-key weave
+    dict — shared by the native and device map weavers. ``nodes`` are
+    host triples in lane order, ``key_of[i]`` each lane's resolved key
+    ordinal, ``order`` the lanes in global weave order. Key-caused
+    nodes' in-weave cause is rewritten to the root sentinel
+    (map.cljc:77)."""
+    from ..ids import ROOT_ID, ROOT_NODE, is_id
+
+    weave = {}
+    for i in order:
+        nid, cause, value = nodes[i]
+        k = keys[key_of[i]]
+        in_weave_cause = cause if is_id(cause) else ROOT_ID
+        weave.setdefault(k, [ROOT_NODE]).append((nid, in_weave_cause, value))
+    return weave

@@ -1,8 +1,8 @@
 """B2: ranking the contracted forest — child links, pointer doubling,
 and the Euler walk kernel.
 
-Counterparts: ``_link_children`` and ``_euler_rank`` of
-``cause_tpu.weaver.jaxw`` (:80-137) and the Pallas walk
+Counterparts: ``_link_children``, ``_euler_rank`` and ``_host_jump`` of
+``cause_tpu.weaver.jaxw`` (:80-137, :197-212) and the Pallas walk
 ``cause_tpu.weaver.pallas_ops.euler_walk``. ``euler_walk`` takes the
 plain version (``euler_walk_plain``: ``_euler_rank``'s weighted
 preorder rank by pointer doubling) for tensors on the CPU, and launches
@@ -33,7 +33,7 @@ import torch
 from .. import kernels
 from .gatherops import at_set, take1d
 
-__all__ = ["link_children", "euler_rank", "euler_walk",
+__all__ = ["link_children", "euler_rank", "host_jump", "euler_walk",
            "euler_walk_plain", "euler_walk_cuda"]
 
 def link_children(order: torch.Tensor, parent_sort: torch.Tensor):
@@ -83,6 +83,21 @@ def euler_rank(first_child, next_sibling, parent_up, weights):
     rank = (total - s_down).to(torch.int32)
     size = (s_down - s_up).to(torch.int32)
     return rank, size
+
+
+def host_jump(special, cause, steps: int):
+    """First non-special ancestor of each lane through the cause chain
+    (``cause`` ``[B, M]`` lane indices in range), by ``steps`` rounds of
+    pointer doubling where the current host is special. Counterpart of
+    ``cause_tpu.weaver.jaxw._host_jump`` (:197-212), which stops once no
+    related lane's host is special: after that a round changes no
+    related lane (padding and root lanes are never special), so a fixed
+    ``ceil(log2(M))`` rounds give the same hosts on every lane the
+    caller reads, without reading a flag back from the device a round."""
+    host = cause
+    for _ in range(steps):
+        host = torch.where(take1d(special, host), take1d(host, host), host)
+    return host
 
 
 def euler_walk_plain(fc, ns, parent_run, run_len):

@@ -477,7 +477,7 @@ def extend_view(view: Optional[LaneView], new_nodes) -> Optional[LaneView]:
 
 def _list_shaped_types():
     """Tree types whose lanes ARE list lanes (maps need the key-rooted
-    forest encoding, not ported yet). Derived from the type
+    forest encoding of ``weaver.mapw``). Derived from the type
     constants so a rename can't silently diverge."""
     from ..collections.shared import COUNTER_TYPE, LIST_TYPE, SET_TYPE
 

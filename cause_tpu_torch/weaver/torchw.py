@@ -1,12 +1,16 @@
 """The device weaver behind ``weaver="torch"`` handles.
 
-Counterpart of the API half of ``cause_tpu.weaver.jaxw`` (:469-673):
-``weave_arrays``, ``refresh_list_weave``, ``merge_list_trees`` and
-``merge_many_list_trees``. The weave of a list tree is a pure function
-of its node set (jaxw's module docstring derives the order semantics);
-a full rebuild or a merge marshals the tree's cached lanes and runs ONE
-v5 segment-union dispatch on the package's device
-(``device.use_device``).
+Counterpart of the API half of ``cause_tpu.weaver.jaxw`` (:331-432,
+:469-673): ``weave_arrays``, ``refresh_list_weave``, ``merge_list_trees``
+and ``merge_many_list_trees`` for list-shaped trees, and
+``linearize_map_forest``, ``refresh_map_weave`` and ``merge_map_trees``
+for maps. The weave of a tree is a pure function of its node set
+(jaxw's module docstring derives the order semantics). A list's full
+rebuild or merge marshals the tree's cached lanes and runs ONE v5
+segment-union dispatch on the package's device (``device.use_device``);
+a map's runs one forest linearization there (PyTorch ops over
+``euler.link_children``/``euler_rank``, as the reference's is XLA
+with no Pallas kernel).
 
 The JAX package backs the v5 rung with v4, v2 and v1 kernels for trees
 v5 does not take (too many segments for the table budget, or a budget
@@ -17,11 +21,13 @@ do in both packages, and ``pure_fallbacks`` counts it.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
-from ..device import default_device
+from ..device import default_device, resolve_device
 from .arrays import NodeArrays
 
 __all__ = [
@@ -29,6 +35,9 @@ __all__ = [
     "refresh_list_weave",
     "merge_list_trees",
     "merge_many_list_trees",
+    "linearize_map_forest",
+    "refresh_map_weave",
+    "merge_map_trees",
     "pure_fallbacks",
 ]
 
@@ -199,3 +208,111 @@ def merge_many_list_trees(cts):
         nodes=nodes, yarns=yarns, weave=weave, lamport_ts=lamport,
         lanes=view,
     )
+
+
+def linearize_map_forest(cause_idx, key_rank, vclass, valid, n_keys: int,
+                         k_cap: int):
+    """Map-weave ordering on the device: one forest preorder over the
+    per-key mini list-weaves (map.cljc:21-45).
+
+    Lanes are the real nodes in ascending id order (``[N]`` tensors);
+    ``k_cap`` slots of virtual key roots (lane N+k is key k's ROOT
+    sentinel, ``n_keys`` of them live) are appended internally.
+    Key-caused lanes hang off their key's root, id-caused lanes off
+    their target; then the standard T* derivation applies per
+    component.
+
+    Returns ``s_down`` (``[N]`` int32): the tour suffix weight of each
+    real lane. Within one key's component s_down strictly decreases
+    along weave order, so the host orders each key's nodes by
+    descending s_down."""
+    from .euler import euler_rank, host_jump, link_children
+
+    N = cause_idx.shape[0]
+    M = N + k_cap
+    dev = cause_idx.device
+    i32 = torch.int32
+    idx = torch.arange(M, dtype=i32, device=dev)
+    is_rootlane = idx >= N
+    valid_all = torch.cat(
+        [valid, torch.arange(k_cap, device=dev) < n_keys])
+    special = torch.cat([valid & (vclass > 0),
+                         torch.zeros(k_cap, dtype=torch.bool, device=dev)])
+    cause_all = torch.cat([
+        torch.where(key_rank >= 0, N + key_rank, cause_idx.clamp(0, N - 1)),
+        torch.arange(N, M, dtype=i32, device=dev),  # roots cause themselves
+    ]).to(i32)
+    rel = valid_all & ~is_rootlane
+    host = host_jump(special[None], cause_all[None],
+                     max(1, math.ceil(math.log2(M))))[0]
+    parent_t = torch.where(special, cause_all, host)
+    parent_sort = torch.where(rel, parent_t, M).to(i32)
+    # sibling order: specials first, then descending id == descending
+    # lane (real lanes are id-sorted; roots are parentless) — the
+    # reference's lexsort on (packed, -idx) as one int64 key
+    packed = parent_sort * 2 + (~special).to(i32)
+    key = packed.long() * M + (M - 1 - idx).long()
+    order = torch.sort(key, stable=True).indices.to(i32)
+    fc, ns = link_children(order[None], parent_sort[None])
+    parent_up = torch.where(rel, parent_t, -1).to(i32)
+    weights = rel.to(i32)
+    rank, _size = euler_rank(fc, ns, parent_up[None], weights[None])
+    # per-lane suffix weight: euler_rank's rank = total - s_down
+    s_down = weights.sum(dtype=i32) - rank[0]
+    return s_down[:N]
+
+
+def refresh_map_weave(ct, device=None):
+    """Full map-weave rebuild on the device (the ``weaver="torch"`` path
+    of cmap.weave): marshal with ``map_lanes``, rank the forest on the
+    package's device (or ``device``), and split the order back into the
+    per-key weave dict — identical to the pure per-key replay (which it
+    falls back to off-domain)."""
+    from ..collections import cmap as c_map
+    from .arrays import OutsideDomain, next_pow2, rebuild_map_weave
+
+    try:
+        nodes, cause_idx, key_rank, vclass, valid_n, keys = (
+            _padded_map_lanes(ct.nodes))
+    except OutsideDomain:
+        return c_map.weave(ct.evolve(weaver="pure")).evolve(weaver=ct.weaver)
+    if not nodes:
+        return ct.evolve(weave={})
+    dev = resolve_device(device)
+    k_cap = next_pow2(max(1, len(keys)))
+    s_down = linearize_map_forest(
+        *(torch.from_numpy(a).to(dev)
+          for a in (cause_idx, key_rank, vclass, valid_n)),
+        len(keys), k_cap).cpu().numpy()
+    n = len(nodes)
+    # each lane's key ordinal (single-level rule: an id-caused lane's
+    # target is key-caused), then per key by descending s_down
+    kr = key_rank[:n]
+    key_of = np.where(kr >= 0, kr, kr[np.clip(cause_idx[:n], 0, None)])
+    order = np.lexsort((-s_down[:n].astype(np.int64), key_of))
+    return ct.evolve(weave=rebuild_map_weave(nodes, key_of, order, keys))
+
+
+def _padded_map_lanes(nodes_map):
+    """map_lanes padded to a power-of-two capacity with a valid mask."""
+    from .arrays import map_lanes, next_pow2
+
+    nodes, cause_idx, key_rank, vclass, keys = map_lanes(nodes_map)
+    n = len(nodes)
+    cap = next_pow2(max(1, n))
+    pad = cap - n
+    cause_idx = np.concatenate([cause_idx, np.full(pad, -1, np.int32)])
+    key_rank = np.concatenate([key_rank, np.full(pad, -1, np.int32)])
+    vclass = np.concatenate([vclass, np.zeros(pad, np.int32)])
+    valid = np.concatenate([np.ones(n, bool), np.zeros(pad, bool)])
+    return nodes, cause_idx, key_rank, vclass, valid, keys
+
+
+def merge_map_trees(ct1, ct2):
+    """Device-backed map merge (map.cljc:248-249 semantics): union the
+    node stores on the host, then one forest linearization on the
+    device over the per-key mini-weaves — the map twin of
+    ``merge_list_trees``."""
+    from ..collections import shared as s
+
+    return refresh_map_weave(s.union_nodes(ct1, ct2))

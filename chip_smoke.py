@@ -6,8 +6,9 @@
 builds the port's CUDA kernels from ``cause_tpu_torch/csrc`` with nvcc,
 holds each one against its plain PyTorch version on the card, drives the
 north-star merge wave (1024 divergent replica pairs of 10k-node lists)
-through the v5 pipeline and the fused v5f pipeline, and the handle-level
-``merge_wave`` API through both, and checks that the kernels really
+through the v5 pipeline and the fused v5f pipeline, the handle-level
+``merge_wave`` API through both, the session, the merge tree and the
+map-fleet wave, and checks that the kernels really
 carried those paths (launch counts) and that the results are
 bit-identical to the plain path on the card, to each other and to the
 pure host weaver. Every comparison is exact: all outputs are integers or
@@ -80,9 +81,24 @@ Phases, one line each (times from CUDA events unless named host):
    version on the card and timed once a shape (every level's window,
    down to B1's network form on global scratch); the root equals
    ``merge_many`` of the same handles; ``merge_all`` launches exactly
-   the tree's kernels (not ``merge_many``'s) and gives the same root.
+   the tree's kernels (not ``merge_many``'s) and gives the same root;
+8. maps: a fleet of 256 map replica pairs built as
+   ``benchmarks.config6_map_fleet`` builds its own, at a document
+   service's size (1,024 keys written 4 times in the base, every 8th
+   write hidden by an id-caused hide, 64 writes a side over 1,056 keys,
+   every 8th hidden again: N = 16,384 forest lanes a row) through
+   ``merge_map_wave``: launch counts (6/1/1 a dispatch, times the
+   dispatches of the overflow retry), no row to the host merge, the
+   same wave on the plain versions bit-identical with every kernel call
+   held against its plain version and timed once a shape (each B1 call
+   with its v5 site, width and form), ``merged(i)`` against the pure
+   merge, the wave's p50 beside its marshal's and its bare dispatch's;
+   then config 6's own wave (64 pairs, 24 keys, 12 writes a side) the
+   same way; one ``weaver="torch"`` map of the base's size, reweave and
+   merge against the pure weaver; fleets of 8 ``weaver="torch"`` sets
+   and counters through ``merge_all`` against the pure fold.
 
-Phases 5-7 each reset the launch counts before they run and read them
+Phases 5-8 each reset the launch counts before they run and read them
 after: a phase that did not launch B1, B2 and B3 fails.
 
 Before the last line it prints the card's ``name, power.limit`` (as
@@ -110,6 +126,9 @@ CAP, N_BASE, N_DIV = 10240, 9000, 1000  # north-star rows (lanes a tree)
 N_DIV_STEADY = 16  # phase 5's steady-state round of edits (N_w = 64)
 REPLICAS = 64     # API-phase replicas (32 pairs)
 REPS = 5          # timed north-star dispatches
+# phase 8's map fleet: pairs, keys, writes a key in the base, writes a side
+MAP_PAIRS, MAP_KEYS, MAP_WRITES, MAP_EDITS = 256, 1024, 4, 64
+MAP_SMALL = 64    # pairs of config 6's own wave (24 keys, 12 edits)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 I32_MAX = int(np.iinfo(np.int32).max)
 
@@ -825,13 +844,38 @@ def expect_launches(counts, want, what: str) -> None:
                  f"and none of the others")
 
 
-def check_recorded(torch, calls, tag: str) -> None:
+def b1_form(ops, num_keys: int) -> str:
+    """B1's width P for rows of these operands and the form it takes
+    there (``csrc/sort.cu``): radix at 256 <= P <= 8192 for one or two
+    keys, else the network, in shared memory or on global scratch."""
+    from cause_tpu_torch.weaver import bitonic
+
+    P = 1 << max(0, (ops[0].shape[1] - 1).bit_length())
+    if num_keys <= 2 and 256 <= P <= 8192:
+        form = "radix"
+    elif (num_keys + 1) * P * 4 > bitonic._smem_limit(ops[0].device.index):
+        form = "network, global scratch"
+    else:
+        form = "network, shared memory"
+    return f"P={P} {form}"
+
+
+def check_recorded(torch, calls, tag: str) -> dict:
     """Every kernel call a path made (recorded under ``plain_path``)
     against its plain version on the card; the first call of each
     distinct kernel, shape and keyword set also timed against its plain
-    version and its bound, one line each."""
+    version and its bound, one line each (a B1 call with its v5 site,
+    its width and its form). Returns the timed calls' sums per
+    kernel."""
     timed = set()
+    per = {}
+    n_sorts = 0
     for name, ops, kw in calls:
+        site = ""
+        if name == "sort":  # a v5 dispatch sorts its six sites in order
+            site = (f" site {SORT_SITES[n_sorts % len(SORT_SITES)]} "
+                    f"{b1_form(ops, kw.get('num_keys', 1))}")
+            n_sorts += 1
         key = (name, tuple(tuple(x.shape) for x in ops),
                tuple(sorted(kw.items())))
         rec = check_call(torch, name, ops, kw, time_it=key not in timed)
@@ -842,14 +886,19 @@ def check_recorded(torch, calls, tag: str) -> None:
         if key in timed:
             continue
         timed.add(key)
+        tot = per.setdefault(name, {"ms": 0.0, "plain_ms": 0.0,
+                                    "bound_ms": 0.0})
+        for k in tot:
+            tot[k] += rec[k]
         shapes = "x".join(str(d) for d in ops[0].shape)
-        say(f"{tag}: {name} {shapes} n_ops={len(ops)} {kw or ''}: "
+        say(f"{tag}: {name}{site} {shapes} n_ops={len(ops)} {kw or ''}: "
             f"max_abs_err 0, ms {rec['ms']:.4f} plain_ms "
             f"{rec['plain_ms']:.4f} bound_ms {rec['bound_ms']:.4f}"
             + (f" library_ms {rec['library_ms']:.4f}"
                if name == "sort" else ""))
     say(f"{tag}: {len(calls)} kernel calls, each equal to its plain "
         f"version on the card ({len(timed)} distinct shapes timed)")
+    return per
 
 
 def phase_delta(torch, dev, ns_p50: float, p50, profile_dir=None) -> None:
@@ -1140,6 +1189,227 @@ def phase_tree(torch, hs) -> None:
         f"and gave the same root")
 
 
+def map_fleet(n_pairs: int, n_keys: int, writes: int, edits: int,
+              extra_keys: int, hide_every: int, seed: int = 1234):
+    """A map fleet as ``benchmarks.config6_map_fleet`` builds its own:
+    a base writing each of ``n_keys`` keys ``writes`` times, then
+    ``n_pairs`` replica pairs at sites of their own, each side writing
+    ``edits`` keys drawn from ``n_keys + extra_keys`` (new keys appear).
+    With ``hide_every``, every such write of the base and of each side
+    is followed by an id-caused ``hide`` of it (config 3's undo
+    tombstones); no ``h.show`` of a hide, which is outside the forest
+    domain. Pure-weaver handles; returns ``(base, pairs)``."""
+    import random
+
+    import cause_tpu_torch as ct
+    from cause_tpu_torch.collections.cmap import CausalMap
+
+    rng = random.Random(seed)
+    count = [0]
+
+    def write(h, key, value):
+        h = h.append(ct.K(key), value)
+        count[0] += 1
+        if hide_every and count[0] % hide_every == 0:
+            h = h.append((h.get_ts(), h.get_site_id(), 0), ct.hide)
+        return h
+
+    base = ct.cmap()
+    base = CausalMap(base.ct.evolve(site_id="sMAPBASE00000",
+                                    uuid="mapFleetSmokeUuid0000"))
+    for w in range(writes):
+        for i in range(n_keys):
+            base = write(base, f"k{i}", f"v{i}.{w}")
+    pairs = []
+    for p in range(n_pairs):
+        sides = []
+        for t in "AB":
+            h = CausalMap(base.ct.evolve(site_id=f"sM{t}{p:010d}"))
+            count[0] = 0
+            for e in range(edits):
+                h = write(h, f"k{rng.randrange(n_keys + extra_keys)}",
+                          f"{t}{p}.{e}")
+            sides.append(h)
+        pairs.append(tuple(sides))
+    return base, pairs
+
+
+def map_wave(torch, dev, tag: str, fleet_args, p50, card: str,
+             profile_dir=None):
+    """One map wave of phase 8 on the card: launch counts a dispatch
+    (6/1/1, times the dispatches the overflow retry made), no fallback
+    row; the same wave on the plain path bit-identical, every kernel
+    call of it held against its plain version and timed once a shape;
+    ``merged(i)`` against the pure merge; the wave's p50 beside its
+    marshal's and its dispatch's (``profile_dir``: and a profile of the
+    dispatch). Returns ``(base, pairs)``."""
+    import cause_tpu_torch as ct
+    from cause_tpu_torch import kernels
+    from cause_tpu_torch.weaver import mapw
+
+    t0 = time.perf_counter()
+    base, pairs = map_fleet(*fleet_args)
+    t1 = time.perf_counter()
+    kernels.reset_launches()
+    res = ct.merge_map_wave(pairs)
+    t2 = time.perf_counter()
+    counts = dict(kernels.launches)
+    n_disp = counts["fphase"]
+    expect_launches(counts, {k: v * n_disp for k, v in V5_LAUNCHES.items()},
+                    f"{tag} merge_map_wave ({n_disp} dispatches)")
+    if n_disp < 1 or res.fallback or not res.digest_valid.all():
+        fail(f"{tag}: {n_disp} dispatches, rows to the host merge "
+             f"{res.fallback} (overflowed or outside the forest domain)")
+    cap = res._meta["capacity"]
+    sizes = [len(h.ct.nodes) for pair in pairs for h in pair]
+    say(f"{tag}: {len(pairs)} pairs of maps of {min(sizes)}-{max(sizes)} "
+        f"nodes ({len(res._meta['key_rank'])} keys), cap {cap}, N "
+        f"{2 * cap} lanes a row, built in {t1 - t0:.3f} s; merge_map_wave "
+        f"{(t2 - t1) * 1e3:.3f} ms (host clock, first call), {n_disp} "
+        f"dispatch(es), launches {counts}, 0 rows to the host merge")
+    calls = []
+    with plain_path(record=calls):
+        res_p = ct.merge_map_wave(pairs)
+    for nm, g, w in (("rank", res._rank, res_p._rank),
+                     ("visible", res._visible, res_p._visible),
+                     ("digest", res.digest, res_p.digest)):
+        if not np.array_equal(g, w):
+            fail(f"{tag}: {nm} differs from the plain path")
+    per = check_recorded(torch, calls, tag)
+    checked = sorted({0, len(pairs) // 3, 2 * len(pairs) // 3,
+                      len(pairs) - 1})
+    for i in checked:
+        a, b = pairs[i]
+        want, got = a.merge(b), res.merged(i)
+        if (got.causal_to_edn() != want.causal_to_edn()
+                or got.ct.nodes != want.ct.nodes
+                or got.ct.weave != want.ct.weave):
+            fail(f"{tag}: merged({i}) differs from the pure merge")
+
+    def marshal():
+        lanes, meta = mapw.pair_rows([(a.ct.nodes, b.ct.nodes)
+                                      for a, b in pairs])
+        return (lanes, meta) + mapw.map_v5_inputs(lanes, meta["capacity"])
+
+    m_times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        lanes, meta, v5b, u = marshal()
+        m_times.append((time.perf_counter() - t) * 1e3)
+
+    def dispatch():
+        return mapw.batched_merge_map_weave_v5(lanes, cap, u_max=u, v5b=v5b,
+                                               device=dev)
+
+    (rank, _v, _c, ov), _u = dispatch()
+    if bool(ov.any()) or not np.array_equal(rank.cpu().numpy(), res._rank):
+        fail(f"{tag}: the bare dispatch overflowed or differs from the wave")
+    d_p50, d_all = p50(dispatch)
+    w_p50, w_all = p50(lambda: ct.merge_map_wave(pairs))
+    say(f"{tag}: rank, visible and digests bit-identical to the plain path; "
+        f"merged(i) for pairs {checked} equal the pure merge; wave p50 "
+        f"{w_p50:.3f} ms ({[round(t, 3) for t in w_all]}), its marshal "
+        f"(pair_rows + map_v5_inputs) p50 {float(np.median(m_times)):.3f} "
+        f"ms ({[round(t, 3) for t in m_times]}), the dispatch (upload + v5 "
+        f"at u_max = k_max = {u}) p50 {d_p50:.3f} ms "
+        f"({[round(t, 3) for t in d_all]}) (host clock, synchronized; "
+        f"{card}); kernels at one dispatch's calls: "
+        + "; ".join(f"{n} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, "
+                    f"plain {v['plain_ms']:.4f})" for n, v in per.items()))
+    if profile_dir:
+        profile_dispatch(torch, dispatch, profile_dir, d_p50,
+                         tag=f"map{len(pairs)}")
+    return base, pairs
+
+
+def phase_maps(torch, dev, p50, card: str, profile_dir=None) -> None:
+    """Phase 8: map fleets (the 256-pair document-service fleet and
+    config 6's own small wave) through ``merge_map_wave`` on the card,
+    one ``weaver="torch"`` map reweave and merge, and fleets of sets and
+    counters through ``merge_all``."""
+    import cause_tpu_torch as ct
+    from cause_tpu_torch import kernels
+    from cause_tpu_torch.collections import cmap as c_map
+    from cause_tpu_torch.collections.cmap import CausalMap
+    from cause_tpu_torch.weaver import torchw
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t) * 1e3
+
+    kernels.reset_launches()
+    base, pairs = map_wave(torch, dev, "[8 maps]", (
+        MAP_PAIRS, MAP_KEYS, MAP_WRITES, MAP_EDITS, MAP_KEYS // 32, 8), p50,
+        card, profile_dir)
+    map_wave(torch, dev, "[8 maps, config 6]",
+             (MAP_SMALL, 24, 1, 12, 4, 0), p50, card, profile_dir)
+    counts = dict(kernels.launches)
+
+    # one weaver="torch" map of the fleet's base size: reweave, merge
+    tb = base.ct.evolve(weaver="torch")
+    want = c_map.weave(base.ct).weave
+    kernels.reset_launches()
+    got, rw_ms = timed(lambda: torchw.refresh_map_weave(tb))
+    if got.weave != want:
+        fail("[8 maps] the torch reweave of the base differs from the pure "
+             "weaver's")
+    a, b = (CausalMap(h.ct.evolve(weaver="torch")) for h in pairs[0])
+    merged, mg_ms = timed(lambda: a.merge(b))
+    pure = pairs[0][0].merge(pairs[0][1])
+    if merged.ct.weave != pure.ct.weave or merged.ct.nodes != pure.ct.nodes:
+        fail("[8 maps] the torch map merge differs from the pure merge")
+    say(f"[8 maps] weaver='torch' map of {len(base.ct.nodes)} nodes: "
+        f"reweave {rw_ms:.3f} ms, merge of pair 0 {mg_ms:.3f} ms (host "
+        f"clock, synchronized; PyTorch ops on the card, launches "
+        f"{dict(kernels.launches)}), both equal the pure weaver's")
+
+    # fleets of 8 weaver="torch" sets and counters through merge_all
+    def fleet(make, edit, n=8):
+        h = make()
+        h = type(h)(h.ct.evolve(site_id="sSETBASE00000"))
+        h = edit(h, -1)
+        return [edit(type(h)(h.ct.evolve(site_id=f"sSR{i:010d}")), i)
+                for i in range(n)]
+
+    def set_edit(h, i):
+        if i < 0:
+            for j in range(2000):
+                h = h.add(f"s{j}")
+            return h
+        for j in range(20):
+            h = h.add(f"e{i}.{j}")
+        return h.discard(f"s{i}").discard(f"e{i}.0")
+
+    def counter_edit(h, i):
+        for j in range(2000 if i < 0 else 20):
+            h = h.increment(j % 7 - 2)
+        return h if i < 0 else h.undo_delta(h.deltas()[-1][0])
+
+    for name, make, edit in (
+            ("sets", lambda: ct.cset(weaver="torch"), set_edit),
+            ("counters", lambda: ct.ccounter(weaver="torch"), counter_edit)):
+        hs = fleet(make, edit)
+        kernels.reset_launches()
+        got, ms = timed(lambda: ct.merge_all(hs[0], *hs[1:]))
+        launched = dict(kernels.launches)
+        for k, v in launched.items():
+            counts[k] += v
+        pure = type(hs[0])(hs[0].ct.evolve(weaver="pure"))
+        for h in hs[1:]:
+            pure = pure.merge(type(h)(h.ct.evolve(weaver="pure")))
+        if got.causal_to_edn() != pure.causal_to_edn() \
+                or got.ct.nodes != pure.ct.nodes:
+            fail(f"[8 maps] merge_all of 8 torch {name} differs from the "
+                 f"pure fold")
+        say(f"[8 maps] merge_all of 8 weaver='torch' {name} "
+            f"({len(got.ct.nodes)} nodes): {ms:.3f} ms (host clock), "
+            f"launches {launched}, equal to the pure fold")
+    expect_launches(counts, tuple(V5_LAUNCHES), "[8 maps]")
+
+
 # --------------------------------------------------------------- main
 
 
@@ -1147,8 +1417,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile two north-star dispatches of each "
-                         "pipeline with torch.profiler: top device ops, "
-                         "the device's busy share, Chrome traces in DIR")
+                         "pipeline (and of the delta and map waves) with "
+                         "torch.profiler: top device ops, the device's "
+                         "busy share, Chrome traces in DIR")
     ap.add_argument("--phases", action="store_true",
                     help="also split K2's and K4's time at the north star "
                          "between load/store, scans and sorts, in both "
@@ -1449,6 +1720,9 @@ def main() -> int:
 
     # ------------------------------------------------ 7. tree
     phase_tree(torch, hs)
+
+    # ------------------------------------------------ 8. maps
+    phase_maps(torch, dev, p50, card, args.profile)
 
     # ------------------------------------------------ result
     recs = []

@@ -110,6 +110,29 @@ def test_handle_paths_follow_the_package_default(no_card):
     assert a.merge(b).causal_to_edn() == ["x", "y", "z"]
 
 
+def test_map_paths_follow_the_package_default(no_card):
+    """The map wave, the ``weaver="torch"`` map reweave and the map merge
+    refuse without a card unless asked for the CPU."""
+    from cause_tpu_torch.weaver import mapw, torchw
+
+    a = ct.cmap("x", 1, weaver="torch")
+    b = ct.CausalMap(a.ct.evolve(site_id=ct.new_site_id())).assoc("y", 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ct.merge_map_wave([(a, b)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torchw.refresh_map_weave(b.ct)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        a.merge(b)
+    lanes, meta = mapw.pair_rows([(a.ct.nodes, b.ct.nodes)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mapw.batched_merge_map_weave_v5(lanes, meta["capacity"])
+    assert ct.merge_map_wave([(a, b)], device="cpu").merged(0) \
+        .causal_to_edn() == {"x": 1, "y": 2}
+    assert torchw.refresh_map_weave(b.ct, device="cpu").weave == b.ct.weave
+    ct.use_device("cpu")
+    assert a.merge(b).causal_to_edn() == {"x": 1, "y": 2}
+
+
 def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     kernels.reset_launches()
     x = torch.arange(8, dtype=torch.int32).reshape(2, 4)
