@@ -35,6 +35,7 @@ __all__ = [
     "HIDE",
     "H_HIDE",
     "H_SHOW",
+    "SPECIALS",
     "is_special",
     "ROOT_ID",
     "ROOT_NODE",
@@ -134,6 +135,7 @@ K = Keyword
 HIDE = Special("hide")
 H_HIDE = Special("h.hide")
 H_SHOW = Special("h.show")
+SPECIALS = frozenset((HIDE, H_HIDE, H_SHOW))
 
 
 def is_special(v) -> bool:

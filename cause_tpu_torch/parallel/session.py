@@ -40,8 +40,14 @@ names one; on the card every wave runs the B1, B2 and B3 kernels. Not
 ported yet: the serve-facing window methods (``bucket_key``,
 ``window_pack``, ``abandon_frontier``, ``complete_window``,
 ``_flush_window``, ``pop_divergence``; ROADMAP A.12), and the telemetry
-and fault-injection hooks (A.13, A.16), which the reference runs only
-when they are enabled.
+hooks (A.13), which the reference runs only when they are enabled.
+
+**Fault injection.** With the chaos engine armed, each ``wave()``
+passes its seams first: a ``stall`` fault sleeps there, and a
+``budget_exhaust("session")`` fault drops the delta frontier exactly
+as a real window-budget exhaustion would, so that wave runs full width
+(bit-identical digests). Every dispatch runs through
+``recovery.run_dispatch``, where injected dispatch faults are retried.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import chaos as _chaos
 from ..benchgen import LANE_KEYS5, lanes_from_numpy, v5_token_budget
 from ..collections import shared as s
 from ..device import resolve_device
@@ -348,6 +355,10 @@ class FleetSession:
         self._views = views
         self.pairs = pairs
 
+    def _uuid(self) -> str:
+        """The fleet's document, named in the ladder's notes."""
+        return str(self.pairs[0][0].ct.uuid)
+
     # ------------------------------------------------------------------
     def wave(self):
         """One merge wave over the resident state. Returns the [B]
@@ -360,6 +371,17 @@ class FleetSession:
         into the resident weave. First contact, domain violations,
         window-budget overflow and every update()-level fallback run
         the full-width kernel instead, which re-establishes."""
+        if _chaos.enabled():
+            # the injectable seams: a stall fault sleeps here, a
+            # budget-exhaust fault drops the delta frontier exactly like
+            # a real window-budget exhaustion would — the declared
+            # ladder handles both, bit-identically
+            _chaos.stall_point("session")
+            if self._delta is not None \
+                    and _chaos.budget_exhaust("session"):
+                _recovery.step("session", "delta", "full",
+                               "budget-exhaustion", uuid=self._uuid())
+                self._delta = None
         if self._delta is not None:
             out = self._delta_wave()
             if out is not None:
@@ -377,7 +399,7 @@ class FleetSession:
             lambda: batched_merge_weave_v5(
                 *(self.dev[k] for k in LANE_KEYS5),
                 u_max=self.u_max, k_max=self.u_max, device=self.device,
-            ))
+            ), uuid=self._uuid())
         out = fetch_digest(replica_digest(self.dev["hi"], self.dev["lo"],
                                           r, v))
         self.last_rank = r
@@ -484,7 +506,8 @@ class FleetSession:
             "session",
             lambda: torchwd.batched_delta_weave(
                 *(t[k] for k in LANE_KEYS5), dstate["prefix_digest"], r0,
-                u_max=n_w, k_max=n_w, device=self.device))
+                u_max=n_w, k_max=n_w, device=self.device),
+            uuid=self._uuid())
         out = fetch_digest(digest)
         if bool(ovf.any()):  # pragma: no cover - unreachable at u = N_w
             self._delta = None

@@ -38,8 +38,11 @@ regime (the weave is a pure function of the node set).
 
 Round count: ceil(log2(n)) levels (odd survivor counts carry a bye to
 the next level). The device is the package default (``use_device``)
-unless ``device=`` names one. The telemetry and fault-injection hooks of
-the reference are not ported yet (ROADMAP A.13, A.16).
+unless ``device=`` names one. With the chaos engine armed, a
+``budget_exhaust("tree")`` fault bounces a delta level to full width
+exactly as an outgrown window does (the root is bit-identical), and
+injected dispatch faults are retried by ``recovery.run_dispatch``. The
+telemetry hooks of the reference are not ported yet (ROADMAP A.13).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import chaos as _chaos
 from ..benchgen import LANE_KEYS5, lanes_from_numpy
 from ..collections import shared as s
 from ..device import resolve_device
@@ -497,6 +501,13 @@ def _merge_tree_impl(handles, w_budget: Optional[int], device):
             # re-establish for the rest (the old state stays live: the
             # symbolic survivors still materialize through it)
             use_delta = 1 + wmax <= int(w_budget)
+        if use_delta and _chaos.enabled() \
+                and _chaos.budget_exhaust("tree"):
+            # injected window-budget exhaustion: the same ladder rung,
+            # the same (bit-identical) full-width bounce
+            _recovery.step("tree", "delta", "full", "budget-exhaustion",
+                           uuid=str(first.ct.uuid), level=level)
+            use_delta = False
         t0 = time.perf_counter()
         out = _delta_level(pairs, state, level, byes, device) \
             if use_delta else None

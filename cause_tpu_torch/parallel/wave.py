@@ -19,10 +19,12 @@ pair becomes a host ``CausalList`` again only on demand
 (``result.merged(i)``).
 
 Pairs outside the accelerated domain (ids beyond the PackSpec, rank
-generations that cannot be aligned) and rows that still overflow the
-doubled token budget fall back to the ordinary per-pair ``merge`` —
-same trees out, just slower. Not ported yet: the quarantine check
-(it needs the sync registry) and the ``mesh=`` sharding (a mesh
+generations that cannot be aligned), pairs with a replica the sync
+layer quarantined (``sync.is_quarantined``: a repeat payload offender
+must pass the host merge's full append-only validation, and a corrupt
+one lands in ``poisoned``) and rows that still overflow the doubled
+token budget fall back to the ordinary per-pair ``merge`` — same trees
+out, just slower. Not ported yet: the ``mesh=`` sharding (a mesh
 raises).
 
 The delta-native pieces the session and the merge tree share live here
@@ -550,10 +552,30 @@ def merge_wave(pairs: Sequence[Tuple[object, object]],
     for a, b in pairs:
         s.check_mergeable(a.ct, b.ct)
 
+    from .. import sync as _sync
+
+    quarantine_live = _sync.any_quarantined()
     views: List[Optional[Tuple[object, object]]] = []
     fallback = {}
     poisoned: dict = {}
     for i, (a, b) in enumerate(pairs):
+        if quarantine_live and (
+                _sync.is_quarantined(a.ct.site_id)
+                or _sync.is_quarantined(b.ct.site_id)):
+            # a quarantined replica is OUT of the device wave: its pair
+            # runs the host merge, whose full append-only body
+            # validation is what a repeat payload offender has to pass
+            # — a corrupt one lands in poisoned, never in the
+            # digest-only device path
+            _recovery.step("wave", "full", "host", "quarantined",
+                           uuid=str(a.ct.uuid), pair=i)
+            try:
+                fallback[i] = a.merge(b)
+            except s.CausalError as err:
+                err.info["pair"] = i
+                poisoned[i] = err
+            views.append(None)
+            continue
         # view_for returns None for off-domain ids: those take the
         # per-pair host merge below
         va = lanecache.view_for(a.ct)

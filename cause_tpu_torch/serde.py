@@ -1,11 +1,17 @@
-"""Serialization: tagged JSON round-trip of causal collections and plain
-values.
+"""Serialization: tagged JSON round-trip of causal collections, bases
+and plain values.
 
-Copy of ``cause_tpu.serde`` for lists, maps, sets and counters: the same
-tag scheme and the same bytes, so a collection encodes to the data the
-reference encodes it to. Only ``nodes`` is serialized per tree;
-decoding rebuilds yarns and the weave with the tree's weave function,
-so a decoded tree is also a proof of cache idempotency.
+Copy of ``cause_tpu.serde``: the same tag scheme and the same bytes, so
+a collection or a base encodes to the data the reference encodes it to.
+Only ``nodes`` is serialized per tree; decoding rebuilds yarns and the
+weave with the tree's weave function, so a decoded tree is also a proof
+of cache idempotency.
+
+The ``weaver`` field names the weave backend. The reference's device
+weaver is ``"jax"``; this package's is ``"torch"``, and decoding maps
+``"jax"`` to ``"torch"``, so a reference checkpoint of a device tree
+loads onto this package's device path. ``"pure"`` and ``"native"``
+decode as they are.
 
 Tag scheme (single-``~``-key JSON objects; plain scalars pass through):
 
@@ -13,17 +19,17 @@ Tag scheme (single-``~``-key JSON objects; plain scalars pass through):
 ``{"~k": name}``      Keyword
 ``{"~f": name}``      non-finite float (``nan`` / ``inf`` / ``-inf``)
 ``{"~s": name}``      Special (``hide`` / ``h.hide`` / ``h.show``)
+``{"~r": uuid}``      Ref to a nested collection
 ``{"~t": [...]}``     tuple
 ``{"~set": [...]}``   set; ``{"~fset": [...]}`` frozenset
 ``{"~d": [[k,v]..]}`` dict (keys can be any encodable value)
-``{"~causal": ...}``  CausalList / CausalMap / CausalSet / CausalCounter
+``{"~causal": ...}``  CausalList / CausalMap / CausalSet / CausalCounter /
+                      CausalBase
 ====================  =========================================
 
 Node ids and id-valued causes are stored as plain ``[ts, site, tx]``
 arrays: positionally unambiguous (map keys are hashable, so a raw
-Python list can never be a key). Bases (``{"~causal": "base"}``) and
-refs (``{"~r": uuid}``) raise a ``CausalError``: the base module is not
-ported yet (ROADMAP A.16).
+Python list can never be a key).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from __future__ import annotations
 import json
 from typing import Any, Optional
 
+from .cbase import CB, CausalBase, Ref
 from .collections import ccounter as c_counter
 from .collections import clist as c_list
 from .collections import cmap as c_map
@@ -55,10 +62,10 @@ __all__ = [
 _INF = float("inf")
 
 
-def _not_ported(what: str) -> s.CausalError:
-    return s.CausalError(
-        f"{what} is not ported yet (ROADMAP A.16): bases and refs do not "
-        "serialize", {"causes": {"not-ported"}, "what": what})
+def _weaver(name: str) -> str:
+    """A decoded ``weaver`` field: the reference's device weaver
+    (``"jax"``) is this package's (``"torch"``)."""
+    return "torch" if name == "jax" else name
 
 
 def _encode_id(nid) -> list:
@@ -79,8 +86,9 @@ def _decode_cause(d):
 
 
 def encode_node_items(nodes_map: dict) -> list:
-    """The on-wire node-triple encoding ``[id, cause, value]`` of tree
-    checkpoints (and, in the reference, sync frames)."""
+    """The on-wire node-triple encoding ``[id, cause, value]`` shared
+    by tree checkpoints and sync frames — one definition so the two
+    can never drift apart."""
     return [
         [_encode_id(nid), _encode_cause(cause), to_data(value)]
         for nid, (cause, value) in sorted(nodes_map.items())
@@ -114,15 +122,16 @@ def _decode_tree(d: dict) -> CausalTree:
     then restore the recorded clock (it may run ahead of the max node
     ts, e.g. after tombstone-only activity elsewhere in a base)."""
     kind = d["~causal"]
+    weaver = _weaver(d["weaver"])
     nodes = decode_node_items(d["nodes"])
     if kind == s.LIST_TYPE:
-        fresh, weave_fn = c_list.new_causal_tree(d["weaver"]), c_list.weave
+        fresh, weave_fn = c_list.new_causal_tree(weaver), c_list.weave
     elif kind == s.MAP_TYPE:
-        fresh, weave_fn = c_map.new_causal_tree(d["weaver"]), c_map.weave
+        fresh, weave_fn = c_map.new_causal_tree(weaver), c_map.weave
     elif kind == c_set.SET_TYPE:
-        fresh, weave_fn = c_set.new_causal_tree(d["weaver"]), c_list.weave
+        fresh, weave_fn = c_set.new_causal_tree(weaver), c_list.weave
     elif kind == c_counter.COUNTER_TYPE:
-        fresh, weave_fn = (c_counter.new_causal_tree(d["weaver"]),
+        fresh, weave_fn = (c_counter.new_causal_tree(weaver),
                            c_list.weave)
     else:
         raise s.CausalError("unknown causal tag", {"tag": kind})
@@ -132,8 +141,45 @@ def _decode_tree(d: dict) -> CausalTree:
     return ct.evolve(lamport_ts=max(ct.lamport_ts, d["lamport_ts"]))
 
 
+def _encode_base(cb: CB) -> dict:
+    return {
+        "~causal": "base",
+        "uuid": cb.uuid,
+        "site_id": cb.site_id,
+        "lamport_ts": cb.lamport_ts,
+        "weaver": cb.weaver,
+        "root_uuid": cb.root_uuid,
+        "first_undo_lamport_ts": cb.first_undo_lamport_ts,
+        "last_undo_lamport_ts": cb.last_undo_lamport_ts,
+        "last_redo_lamport_ts": cb.last_redo_lamport_ts,
+        "history": [[_encode_id(nid), uuid] for nid, uuid in cb.history],
+        "collections": [to_data(c) for c in cb.collections.values()],
+    }
+
+
+def _decode_base(d: dict) -> CausalBase:
+    collections = {}
+    for enc in d["collections"]:
+        coll = from_data(enc)
+        collections[coll.get_uuid()] = coll
+    cb = CB(
+        lamport_ts=d["lamport_ts"],
+        uuid=d["uuid"],
+        site_id=d["site_id"],
+        history=[((e[0][0], e[0][1], e[0][2]), e[1]) for e in d["history"]],
+        first_undo_lamport_ts=d["first_undo_lamport_ts"],
+        last_undo_lamport_ts=d["last_undo_lamport_ts"],
+        last_redo_lamport_ts=d["last_redo_lamport_ts"],
+        root_uuid=d["root_uuid"],
+        collections=collections,
+        weaver=_weaver(d["weaver"]),
+    )
+    return CausalBase(cb)
+
+
 def to_data(x) -> Any:
-    """Encode a value (a collection or plain data) to JSON-able tagged data.
+    """Encode a value (a collection, a base or plain data) to JSON-able
+    tagged data.
     Non-finite floats get a tag so the emitted JSON stays strict RFC
     8259."""
     if isinstance(x, float) and x != x:
@@ -146,10 +192,16 @@ def to_data(x) -> Any:
         return {"~k": x.name}
     if isinstance(x, Special):
         return {"~s": x.name}
+    if isinstance(x, Ref):
+        return {"~r": x.uuid}
     if isinstance(x, (CausalList, CausalMap, CausalSet, CausalCounter)):
         return _encode_tree(x.ct)
     if isinstance(x, CausalTree):
         return _encode_tree(x)
+    if isinstance(x, CausalBase):
+        return _encode_base(x.cb)
+    if isinstance(x, CB):
+        return _encode_base(x)
     if isinstance(x, tuple):
         return {"~t": [to_data(v) for v in x]}
     if isinstance(x, frozenset):
@@ -168,7 +220,7 @@ def to_data(x) -> Any:
 def from_data(d) -> Any:
     """Decode tagged data produced by ``to_data``. Decoded trees come
     back wrapped in their handles (CausalList / CausalMap / CausalSet /
-    CausalCounter)."""
+    CausalCounter), bases as CausalBase."""
     if d is None or isinstance(d, (bool, int, float, str)):
         return d
     if isinstance(d, list):
@@ -181,7 +233,7 @@ def from_data(d) -> Any:
         if "~s" in d:
             return Special(d["~s"])
         if "~r" in d:
-            raise _not_ported("a ref")
+            return Ref(d["~r"])
         if "~t" in d:
             return tuple(from_data(v) for v in d["~t"])
         if "~set" in d:
@@ -192,7 +244,7 @@ def from_data(d) -> Any:
             return {from_data(k): from_data(v) for k, v in d["~d"]}
         if "~causal" in d:
             if d["~causal"] == "base":
-                raise _not_ported("a base")
+                return _decode_base(d)
             ct = _decode_tree(d)
             handle = {
                 s.LIST_TYPE: CausalList,
@@ -205,7 +257,8 @@ def from_data(d) -> Any:
 
 
 def dumps(x, indent: Optional[int] = None) -> str:
-    """Serialize a collection or plain value to strict RFC-compliant JSON."""
+    """Serialize a collection, a base or a plain value to strict
+    RFC-compliant JSON."""
     return json.dumps(to_data(x), indent=indent, allow_nan=False)
 
 

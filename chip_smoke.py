@@ -8,7 +8,8 @@ holds each one against its plain PyTorch version on the card, drives the
 north-star merge wave (1024 divergent replica pairs of 10k-node lists)
 through the v5 pipeline and the fused v5f pipeline, the handle-level
 ``merge_wave`` API through both, the session, the merge tree and the
-map-fleet wave, and checks that the kernels really
+map-fleet wave, bases, sync rounds, the quarantined wave, the chaos
+ladder and compaction, and checks that the kernels really
 carried those paths (launch counts) and that the results are
 bit-identical to the plain path on the card, to each other and to the
 pure host weaver. Every comparison is exact: all outputs are integers or
@@ -96,9 +97,28 @@ Phases, one line each (times from CUDA events unless named host):
    then config 6's own wave (64 pairs, 24 keys, 12 writes a side) the
    same way; one ``weaver="torch"`` map of the base's size, reweave and
    merge against the pure weaver; fleets of 8 ``weaver="torch"`` sets
-   and counters through ``merge_all`` against the pure fold.
+   and counters through ``merge_all`` against the pure fold;
+9. bases and sync: ``sync_pair`` over phase 4's 32 ``weaver="torch"``
+   pairs (one B = 1 device reweave a side: 6/1/1 launches each), every
+   side equal to phase 4's ``merged(i)`` and the sides'
+   ``content_digest``s equal, pair 0's round on the plain versions with
+   every kernel call checked and timed, one ``sync_stream`` round over a
+   socket pair between two threads, and one direction's reweave
+   profiled (device kernels, busy share); a site quarantined in 2 pairs
+   (``merge_wave`` sends them to the per-pair merge and dispatches the
+   other 30, every ``merged(i)`` equal to phase 4's; the next sync round
+   takes the full bag and readmits it); the chaos ladder on the card (a
+   retried dispatch fault at the wave's seam, a session budget
+   exhaustion that runs one wave full width, a tree budget exhaustion
+   that bounces a level); a ``weaver="torch"`` base (a root map of a
+   10,000-element list, a set and a counter, two replicas of 500
+   transactions each, ``sync_base_pair``, ``undo``/``redo``, ``dumps`` ->
+   ``loads`` reweaving every list-shaped collection on the card) against
+   its ``weaver="pure"`` twin; ``gc.compact`` of a 10k-node list with a
+   hidden tail against the pure weave of its nodes, and a sync round
+   with its uncompacted peer.
 
-Phases 5-8 each reset the launch counts before they run and read them
+Phases 5-9 each reset the launch counts before they run and read them
 after: a phase that did not launch B1, B2 and B3 fails.
 
 Before the last line it prints the card's ``name, power.limit`` (as
@@ -129,6 +149,9 @@ REPS = 5          # timed north-star dispatches
 # phase 8's map fleet: pairs, keys, writes a key in the base, writes a side
 MAP_PAIRS, MAP_KEYS, MAP_WRITES, MAP_EDITS = 256, 1024, 4, 64
 MAP_SMALL = 64    # pairs of config 6's own wave (24 keys, 12 edits)
+# phase 9's base: list elements, transactions a replica, and the hidden
+# tail of its compaction
+BASE_LIST, BASE_TX, COMPACT_TAIL = 10_000, 500, 100
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 I32_MAX = int(np.iinfo(np.int32).max)
 
@@ -194,6 +217,22 @@ def cuda_ms(torch, fn, reps: int = 10, warm: int = 2) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def timed_ms(torch, fn):
+    """``(fn(), host ms)`` with the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, (time.perf_counter() - t) * 1e3
+
+
+def session_edit(pairs, rnd):
+    """Phase 6's round of edits: two appends on one side, one on the
+    other."""
+    return [(a.conj(f"e{rnd}.{i}a").extend([f"e{rnd}.{i}b"]),
+             b.conj(f"e{rnd}.{i}c")) for i, (a, b) in enumerate(pairs)]
 
 
 def max_err(torch, got, want) -> int:
@@ -1009,32 +1048,27 @@ def phase_delta(torch, dev, ns_p50: float, p50, profile_dir=None) -> None:
         del full, win, wargs, f_rank, f_vis, f_dig, ref, got, rf, vf
 
 
-def phase_session(torch, pairs, wave_digest, p50) -> None:
+def phase_session(torch, pairs, wave_digest, p50) -> list:
     """Phase 6: a FleetSession over the API fleet's pairs, on the card:
-    full wave, edit + update, delta wave, merged, checkpoint/restore."""
+    full wave, edit + update, delta wave, merged, checkpoint/restore.
+    Returns the pairs with their lane caches built (phase 9's session
+    starts from them)."""
     import cause_tpu_torch as ct
     from cause_tpu_torch import kernels
     from cause_tpu_torch.collections import clist as c_list
     from cause_tpu_torch.collections.clist import CausalList
     from cause_tpu_torch.parallel.wave import assemble_delta_window
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        return r, (time.perf_counter() - t) * 1e3
-
     # the API fleet's handles carry no lane cache (their base was woven
     # on the host), so every view would be rebuilt from the node dict;
     # one device reweave each gives them the cache an edited
     # weaver="torch" list keeps, which appends then extend in place
-    pairs, warm_ms = timed(lambda: [
+    pairs, warm_ms = timed_ms(torch, lambda: [
         tuple(CausalList(c_list.weave(h.ct)) for h in pair)
         for pair in pairs])
     kernels.reset_launches()
-    sess, up_ms = timed(lambda: ct.FleetSession(pairs))
-    d0, full_ms = timed(sess.wave)
+    sess, up_ms = timed_ms(torch, lambda: ct.FleetSession(pairs))
+    d0, full_ms = timed_ms(torch, sess.wave)
     expect_launches(dict(kernels.launches), V5_LAUNCHES, "[6 session] "
                     "first wave")
     if not np.array_equal(d0, wave_digest):
@@ -1047,28 +1081,24 @@ def phase_session(torch, pairs, wave_digest, p50) -> None:
         f"equal merge_wave's; frontier s={int(sess._delta['s'][0])} "
         f"w_cap={sess._delta['w_cap']}")
 
-    def edit(ps, rnd):
-        return [(a.conj(f"e{rnd}.{i}a").extend([f"e{rnd}.{i}b"]),
-                 b.conj(f"e{rnd}.{i}c")) for i, (a, b) in enumerate(ps)]
-
     # the first round of edits appends to a suffix that ends in a
     # tombstone, which restructures that tree's segments: update()
     # re-uploads and the wave runs full width, as the reference's does
     # (test_session_edit_after_tombstoned_tail_runs_full_once); the
     # second round extends plain chains and must ride the delta path
-    pairs1 = edit(pairs, 1)
+    pairs1 = session_edit(pairs, 1)
     sess.update(pairs1)
     path1 = "delta" if sess._delta is not None else "full"
     if not np.array_equal(sess.wave(), ct.merge_wave(pairs1).digest):
         fail("[6 session] round 1's digests differ from merge_wave's")
-    pairs2 = edit(pairs1, 2)
-    _, upd_ms = timed(lambda: sess.update(pairs2))
+    pairs2 = session_edit(pairs1, 2)
+    _, upd_ms = timed_ms(torch, lambda: sess.update(pairs2))
     if sess._delta is None:
         fail("[6 session] update() dropped the frontier: the next wave "
              "would run full width")
     resident = sess.last_rank
     kernels.reset_launches()
-    d1, delta_ms = timed(sess.wave)
+    d1, delta_ms = timed_ms(torch, sess.wave)
     counts = dict(kernels.launches)
     expect_launches(counts, V5_LAUNCHES, "[6 session] delta wave")
     if sess.last_rank is not resident:
@@ -1104,8 +1134,8 @@ def phase_session(torch, pairs, wave_digest, p50) -> None:
         got = sess.merged(i)
         if got.ct.weave != want.ct.weave or list(got) != list(want):
             fail(f"[6 session] merged({i}) differs from the pure merge")
-    ck, ck_ms = timed(sess.checkpoint)
-    restored, rs_ms = timed(lambda: ct.FleetSession.restore(ck))
+    ck, ck_ms = timed_ms(torch, sess.checkpoint)
+    restored, rs_ms = timed_ms(torch, lambda: ct.FleetSession.restore(ck))
     if restored._delta is None or not np.array_equal(
             restored._last_digest, sess._last_digest):
         fail("[6 session] restore lost the frontier or the digests")
@@ -1121,13 +1151,14 @@ def phase_session(torch, pairs, wave_digest, p50) -> None:
         f"equal the pure merge; checkpoint {ck_ms:.3f} ms, restore "
         f"{rs_ms:.3f} ms through its digest gate on the card, frontier "
         f"kept")
+    return pairs
 
 
-def phase_tree(torch, hs) -> None:
+def phase_tree(torch, hs):
     """Phase 7: the merge tree over the API fleet's replicas, per level;
     every kernel call of the tree against its plain version, the root
     against the plain path's and merge_many's, and merge_all's routing
-    (its launches are the tree's)."""
+    (its launches are the tree's). Returns the root."""
     import cause_tpu_torch as ct
     from cause_tpu_torch import kernels
     from cause_tpu_torch.parallel import tree as tree_mod
@@ -1187,6 +1218,7 @@ def phase_tree(torch, hs) -> None:
         f"the plain path's and merge_many's ({(t3 - t2) * 1e3:.3f} ms, "
         f"launches {flat_counts}); merge_all launched the tree's kernels "
         f"and gave the same root")
+    return root
 
 
 def map_fleet(n_pairs: int, n_keys: int, writes: int, edits: int,
@@ -1333,13 +1365,6 @@ def phase_maps(torch, dev, p50, card: str, profile_dir=None) -> None:
     from cause_tpu_torch.collections.cmap import CausalMap
     from cause_tpu_torch.weaver import torchw
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        return r, (time.perf_counter() - t) * 1e3
-
     kernels.reset_launches()
     base, pairs = map_wave(torch, dev, "[8 maps]", (
         MAP_PAIRS, MAP_KEYS, MAP_WRITES, MAP_EDITS, MAP_KEYS // 32, 8), p50,
@@ -1352,12 +1377,12 @@ def phase_maps(torch, dev, p50, card: str, profile_dir=None) -> None:
     tb = base.ct.evolve(weaver="torch")
     want = c_map.weave(base.ct).weave
     kernels.reset_launches()
-    got, rw_ms = timed(lambda: torchw.refresh_map_weave(tb))
+    got, rw_ms = timed_ms(torch, lambda: torchw.refresh_map_weave(tb))
     if got.weave != want:
         fail("[8 maps] the torch reweave of the base differs from the pure "
              "weaver's")
     a, b = (CausalMap(h.ct.evolve(weaver="torch")) for h in pairs[0])
-    merged, mg_ms = timed(lambda: a.merge(b))
+    merged, mg_ms = timed_ms(torch, lambda: a.merge(b))
     pure = pairs[0][0].merge(pairs[0][1])
     if merged.ct.weave != pure.ct.weave or merged.ct.nodes != pure.ct.nodes:
         fail("[8 maps] the torch map merge differs from the pure merge")
@@ -1393,7 +1418,7 @@ def phase_maps(torch, dev, p50, card: str, profile_dir=None) -> None:
             ("counters", lambda: ct.ccounter(weaver="torch"), counter_edit)):
         hs = fleet(make, edit)
         kernels.reset_launches()
-        got, ms = timed(lambda: ct.merge_all(hs[0], *hs[1:]))
+        got, ms = timed_ms(torch, lambda: ct.merge_all(hs[0], *hs[1:]))
         launched = dict(kernels.launches)
         for k, v in launched.items():
             counts[k] += v
@@ -1408,6 +1433,445 @@ def phase_maps(torch, dev, p50, card: str, profile_dir=None) -> None:
             f"({len(got.ct.nodes)} nodes): {ms:.3f} ms (host clock), "
             f"launches {launched}, equal to the pure fold")
     expect_launches(counts, tuple(V5_LAUNCHES), "[8 maps]")
+
+
+# ------------------------------------------------- 9. bases and sync
+
+
+@contextlib.contextmanager
+def launches_in():
+    """The kernel launches made inside the block (a dict filled on
+    exit), without resetting the counts of the phase around it."""
+    from cause_tpu_torch import kernels
+
+    before = dict(kernels.launches)
+    out = {}
+    yield out
+    out.update({k: kernels.launches[k] - before[k] for k in before})
+
+
+def bases_sync(torch, pairs, merged) -> dict:
+    """Phase 9, step 1: ``sync_pair`` over phase 4's pairs (one device
+    reweave a side), each side against phase 4's ``merged(i)``, the
+    sides' ``content_digest``s equal; pair 0's round on the plain path
+    with every kernel call checked; one ``sync_stream`` round over a
+    socket pair; the B = 1 reweave's kernels and busy share. Returns
+    ``check_recorded``'s per-kernel sums."""
+    import socket
+    import threading
+
+    import cause_tpu_torch as ct
+    from cause_tpu_torch import sync
+    from cause_tpu_torch.weaver import torchw
+
+    tag = "[9 bases] sync"
+    fallbacks0 = torchw.pure_fallbacks
+    ct.sync_pair(*pairs[-1])  # warm
+    synced, times = [], []
+    with launches_in() as counts:
+        for a, b in pairs:
+            out, ms = timed_ms(torch, lambda: ct.sync_pair(a, b))
+            synced.append(out)
+            times.append(ms)
+    expect_launches(counts, {k: 2 * len(pairs) * v
+                             for k, v in V5_LAUNCHES.items()}, tag)
+    if torchw.pure_fallbacks != fallbacks0:
+        fail(f"{tag}: a reweave went to the pure weaver")
+    t0 = time.perf_counter()
+    for i, (a2, b2) in enumerate(synced):
+        if a2.ct.weave != merged[i] or b2.ct.weave != merged[i]:
+            fail(f"{tag}: pair {i}'s synced weave differs from phase 4's "
+                 f"merged({i})")
+        if ct.content_digest(a2) != ct.content_digest(b2):
+            fail(f"{tag}: pair {i}'s sides digest differently")
+    check_ms = (time.perf_counter() - t0) * 1e3
+    say(f"{tag}: {len(pairs)} sync_pair rounds on weaver='torch' pairs "
+        f"(one device reweave a side): round p50 "
+        f"{float(np.median(times)):.3f} ms, min {min(times):.3f}, max "
+        f"{max(times):.3f} (host clock, synchronized); launches "
+        f"{counts}; every side equals phase 4's merged(i) and the sides' "
+        f"content_digests agree (checked in {check_ms:.0f} ms of host "
+        f"time)")
+    calls = []
+    with plain_path(record=calls):
+        pa, pb = ct.sync_pair(*pairs[0])
+    if pa.ct.weave != merged[0] or pb.ct.weave != merged[0]:
+        fail(f"{tag}: pair 0's round differs on the plain path")
+    per = check_recorded(torch, calls, f"{tag} pair 0 round")
+
+    # one round over a socket pair between two threads
+    a, b = pairs[1]
+    s1, s2 = socket.socketpair()
+    out, errs = {}, {}
+
+    def side(name, handle, sock):
+        try:
+            with sock, sock.makefile("rwb") as stream:
+                out[name] = sync.sync_stream(handle, stream)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errs[name] = e
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=side, args=("a", a, s1)),
+               threading.Thread(target=side, args=("b", b, s2))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    torch.cuda.synchronize()
+    st_ms = (time.perf_counter() - t0) * 1e3
+    if errs or any(t.is_alive() for t in threads):
+        fail(f"{tag}: the sync_stream round failed: {errs}")
+    if out["a"].ct.weave != synced[1][0].ct.weave \
+            or out["b"].ct.weave != synced[1][1].ct.weave:
+        fail(f"{tag}: the sync_stream round differs from its sync_pair")
+    say(f"{tag}: one sync_stream round over a socket pair (two threads, "
+        f"pair 1): {st_ms:.3f} ms (host clock), both sides equal the "
+        f"pair's sync_pair")
+
+    # the B = 1 reweave of one direction: all its device kernels
+    a, b = pairs[0]
+    sh = sync.shadow(a, sync.delta_nodes(b, sync.version_vector(a)))
+
+    def one():
+        return a.merge_many([sh])
+
+    one()
+    with launches_in() as ours:
+        _, wall = timed_ms(torch, one)
+    n_k, dev_ms = device_kernels(torch, one)
+    say(f"{tag}: one direction's reweave (B = 1, {len(a.ct.nodes)} + "
+        f"{len(sh.ct.nodes)} nodes): {wall:.3f} ms (host clock), "
+        f"{n_k:.0f} device kernels of which {sum(ours.values())} are the "
+        f"port's ({ours}), {dev_ms:.3f} ms of device time (profile): "
+        f"busy share {dev_ms / wall:.3f}")
+    return per
+
+
+def bases_quarantine(torch, pairs, res, merged) -> None:
+    """Phase 9, step 2: a quarantined site in 2 of the pairs sends them
+    to the per-pair merge; the rest dispatch as one batch; every
+    ``merged(i)`` equals phase 4's; the next sync round with the
+    quarantined replica takes the full bag and readmits it."""
+    import cause_tpu_torch as ct
+    from cause_tpu_torch import sync
+    from cause_tpu_torch.collections.clist import CausalList
+
+    tag = "[9 bases] quarantine"
+    q = pairs[0][0].ct.site_id
+    # pair 1's first replica relabelled to the quarantined site (its
+    # nodes, hence its merge, unchanged): the site stands in 2 pairs
+    qpairs = list(pairs)
+    qpairs[1] = (CausalList(pairs[1][0].ct.evolve(site_id=q)),
+                 pairs[1][1])
+    for _ in range(sync.QUARANTINE_AFTER):
+        sync.note_reject(q)
+    if not sync.is_quarantined(q):
+        fail(f"{tag}: {sync.QUARANTINE_AFTER} rejects did not quarantine")
+    with launches_in() as counts:
+        rq, ms = timed_ms(torch, lambda: ct.merge_wave(qpairs))
+    n = len(pairs)
+    if rq.fallback != [0, 1] or rq.poisoned:
+        fail(f"{tag}: fallback {rq.fallback}, poisoned {rq.poisoned}")
+    if rq.digest_valid.tolist() != [False, False] + [True] * (n - 2):
+        fail(f"{tag}: the device rows are not the other {n - 2} pairs")
+    if not np.array_equal(rq.digest[2:], res.digest[2:]):
+        fail(f"{tag}: the other pairs' digests differ from phase 4's")
+    # one dispatch of the n - 2 rows, one device merge a quarantined pair
+    expect_launches(counts, {k: 3 * v for k, v in V5_LAUNCHES.items()},
+                    tag)
+    for i in range(n):
+        if rq.merged(i).ct.weave != merged[i]:
+            fail(f"{tag}: merged({i}) differs from phase 4's")
+    # the road back in: pair 0's next round goes to the full bag
+    (a2, b2), s_ms = timed_ms(torch, lambda: ct.sync_pair(*pairs[0]))
+    if sync.is_quarantined(q):
+        fail(f"{tag}: the full-bag round did not readmit the site")
+    if a2.ct.weave != merged[0] or b2.ct.weave != merged[0]:
+        fail(f"{tag}: the full-bag round differs from phase 4's merge")
+    sync.quarantine_reset()
+    say(f"{tag}: site of pair 0 quarantined and standing in pairs 0 and "
+        f"1: merge_wave {ms:.3f} ms (host clock), pairs [0, 1] to the "
+        f"per-pair merge, the other {n - 2} in one dispatch (launches "
+        f"{counts}: that dispatch and one device merge a quarantined "
+        f"pair), every merged(i) equal to phase 4's; the next sync round "
+        f"took the full bag ({s_ms:.3f} ms) and readmitted the site")
+
+
+def bases_ladder(torch, pairs, res, cached, hs, tree_root) -> None:
+    """Phase 9, step 3: the chaos ladder's seams on the card — a retried
+    dispatch fault at the wave's seam, a session budget exhaustion (the
+    wave runs full width) and a tree budget exhaustion (a level bounces
+    to full width)."""
+    import cause_tpu_torch as ct
+    from cause_tpu_torch import chaos
+
+    tag = "[9 bases] ladder"
+
+    def arm(site, mode):
+        chaos.configure(plan={"seed": 9, "faults": [
+            {"family": "dispatch", "site": site, "mode": mode, "at": [1]}]})
+
+    arm("wave", "raise")
+    with launches_in() as counts:
+        r1, w_ms = timed_ms(torch, lambda: ct.merge_wave(pairs))
+    inj = chaos.injected()
+    chaos.reset()
+    if [(r["site"], r["mode"]) for r in inj] != [("wave", "raise")]:
+        fail(f"{tag}: injected {inj}")
+    if not np.array_equal(r1.digest, res.digest) or r1.fallback \
+            or not r1.digest_valid.all():
+        fail(f"{tag}: the retried wave differs from phase 4's")
+    # the fault fires before the dispatch: the retry is the one dispatch
+    expect_launches(counts, V5_LAUNCHES, f"{tag} wave")
+
+    sess = ct.FleetSession(cached)
+    sess.wave()
+    p1 = session_edit(cached, 1)
+    sess.update(p1)
+    sess.wave()
+    p2 = session_edit(p1, 2)
+    sess.update(p2)
+    if sess._delta is None:
+        fail(f"{tag}: no frontier before the exhausted session wave")
+    arm("session", "exhaust")
+    before = sess.last_rank
+    d_full, s_ms = timed_ms(torch, sess.wave)
+    inj = chaos.injected()
+    chaos.reset()
+    if [(r["site"], r["mode"]) for r in inj] != [("session", "exhaust")]:
+        fail(f"{tag}: injected {inj}")
+    if sess.last_rank is before:
+        fail(f"{tag}: the exhausted session wave did not run full width")
+    resident = sess.last_rank
+    d_delta, d_ms = timed_ms(torch, sess.wave)
+    if sess.last_rank is not resident:
+        fail(f"{tag}: the next session wave did not ride the delta path")
+    if not np.array_equal(d_full, d_delta) or not np.array_equal(
+            d_full, ct.merge_wave(p2).digest):
+        fail(f"{tag}: the exhausted wave's digests differ from the delta "
+             f"wave's")
+
+    arm("tree", "exhaust")
+    (root, rep), t_ms = timed_ms(torch, lambda: ct.merge_tree_report(hs))
+    inj = chaos.injected()
+    chaos.reset()
+    paths = [lv["path"] for lv in rep["levels"]]
+    want = ["full", "full"] + ["delta"] * (len(paths) - 2)
+    if paths != want or [r["site"] for r in inj] != ["tree"]:
+        fail(f"{tag}: tree levels {paths} (expected {want}), injected "
+             f"{inj}")
+    if root.ct.weave != tree_root.ct.weave \
+            or root.ct.nodes != tree_root.ct.nodes:
+        fail(f"{tag}: the bounced tree's root differs from phase 7's")
+    say(f"{tag}: a dispatch fault at the wave's seam, retried: merge_wave "
+        f"{w_ms:.3f} ms, digests equal phase 4's, launches {counts}, one "
+        f"record injected; a session budget exhaustion: that wave ran "
+        f"full width ({s_ms:.3f} ms), the next rode the delta path "
+        f"({d_ms:.3f} ms), digests equal; a tree budget exhaustion: "
+        f"levels {paths} in {t_ms:.3f} ms (host clock), root equal to "
+        f"phase 7's")
+
+
+def base_replicas(weaver: str):
+    """Phase 9, step 4's base: a root map holding a BASE_LIST-element
+    list (written in transactions of 1,000), a set and a counter, made
+    from a fixed uid seed (so a
+    ``weaver="pure"`` twin gets the same uuids), forked into two
+    replicas that each run BASE_TX transactions: an append to the list
+    (every 8th a hide of the previous value), every 100th a set member,
+    every 100th (another phase) a counter increment. The set's members
+    and the counter's deltas are root-caused siblings, one segment each:
+    kept few, they stay within the v5 rung's segment table (a quarter
+    of the capacity, 16 at least), which a tree past it leaves for the
+    pure weaver. Returns the two replicas after
+    ``sync_base_pair``, replica A after ``undo`` and ``redo``, and the
+    host time of the transactions."""
+    import cause_tpu_torch as ct
+    from cause_tpu_torch import ids
+
+    K = ct.K
+    ids._rng.seed(20261017)
+    cb = ct.transact(ct.base(weaver=weaver), [[None, None, {
+        K("doc"): list(range(1000)), K("tags"): {"t"},
+        K("votes"): ct.ccounter(1)}]])
+    ids._rng.seed()
+    root = ct.get_collection(cb)
+    lu, su, cu = (root[K(k)].uuid for k in ("doc", "tags", "votes"))
+    # the rest of the list in runs of 1,000: a node's tx index must fit
+    # the device's PackSpec (13 bits), or the list leaves its domain
+    for start in range(1000, BASE_LIST, 1000):
+        tail = list(ct.get_collection(cb, lu))[-1][0]
+        cb = ct.transact(cb, [[lu, tail, list(range(start, start + 1000))]])
+    tail = list(ct.get_collection(cb, lu))[-1][0]
+    t0 = time.perf_counter()
+    reps = []
+    for tag in ("A", "B"):
+        r = ct.CausalBase(cb.cb.evolve(site_id=f"site{tag}".ljust(13, "_")))
+        last = tail
+        for i in range(BASE_TX):
+            ts = r.cb.lamport_ts
+            if i % 8 == 7:
+                tx = [[lu, last, ct.hide]]
+            else:
+                tx = [[lu, last, 2 * i + (tag == "B")]]
+            if i % 100 == 0:
+                tx.append([su, None, {f"{tag}{i}"}])
+            if i % 100 == 50:
+                tx.append([cu, ct.root_id, 1])
+            r = ct.transact(r, tx)
+            if i % 8 != 7:
+                last = (ts, r.cb.site_id, 0)
+        reps.append(r)
+    tx_ms = (time.perf_counter() - t0) * 1e3
+    a, b = ct.sync_base_pair(*reps)
+    return a, b, ct.redo(ct.undo(a)), tx_ms
+
+
+def bases_base(torch) -> None:
+    """Phase 9, step 4: a ``weaver="torch"`` base and its pure twin
+    through the same transactions, ``sync_base_pair``, ``undo`` and
+    ``redo``; ``dumps`` -> ``loads`` of both torch replicas reweaves
+    every collection on the card; rendered values and per-collection
+    ``content_digest``s equal the pure twin's."""
+    import cause_tpu_torch as ct
+    from cause_tpu_torch.weaver import torchw
+
+    tag = "[9 bases] base"
+    fallbacks0 = torchw.pure_fallbacks
+
+    def digests(base):
+        return {u: ct.content_digest(h)
+                for u, h in base.cb.collections.items()}
+
+    with launches_in() as sync_counts:
+        (a, b, a_ur, tx_ms), t_ms = timed_ms(torch, lambda: base_replicas(
+            "torch"))
+    with launches_in() as load_counts:
+        texts, dump_ms = timed_ms(torch, lambda: [ct.dumps(x)
+                                                  for x in (a_ur, b)])
+        loaded, load_ms = timed_ms(torch, lambda: [ct.loads(t)
+                                                   for t in texts])
+    t0 = time.perf_counter()
+    pa, pb, pa_ur, p_tx_ms = base_replicas("pure")
+    oracle_ms = (time.perf_counter() - t0) * 1e3
+    if torchw.pure_fallbacks != fallbacks0:
+        fail(f"{tag}: a reweave went to the pure weaver")
+    if {h.ct.weaver for x in loaded for h in x.cb.collections.values()} \
+            != {"torch"}:
+        fail(f"{tag}: a loaded collection is not on the torch weaver")
+    for name, got, want in (("A", a_ur, pa_ur), ("B", b, pb),
+                            ("A loaded", loaded[0], pa_ur),
+                            ("B loaded", loaded[1], pb)):
+        if got.causal_to_edn() != want.causal_to_edn():
+            fail(f"{tag}: replica {name} renders differently from the "
+                 f"pure twin")
+        if digests(got) != digests(want):
+            fail(f"{tag}: replica {name}'s collections digest "
+                 f"differently from the pure twin's")
+    ea, eb = a.causal_to_edn(), b.causal_to_edn()
+    if ea != eb:
+        fail(f"{tag}: the synced replicas differ")
+    # the sync: the list, the set and the counter, one reweave a side
+    expect_launches(sync_counts, {k: 6 * v for k, v in
+                                  V5_LAUNCHES.items()}, f"{tag} sync")
+    # each load reweaves the list, the set and the counter on the card
+    expect_launches(load_counts, {k: 6 * v for k, v in
+                                  V5_LAUNCHES.items()}, f"{tag} loads")
+    doc = ea[ct.K("doc")]
+    say(f"{tag}: weaver='torch' base, root map of a {BASE_LIST}-element "
+        f"list, a set and a counter; 2 replicas x {BASE_TX} transactions "
+        f"({tx_ms:.0f} ms of host time), sync_base_pair, undo + redo on A: "
+        f"{t_ms:.3f} ms (launches {sync_counts}); list {len(doc)} "
+        f"values, set {len(ea[ct.K('tags')])} members, counter "
+        f"{ea[ct.K('votes')]}; dumps {dump_ms:.3f} ms, loads {load_ms:.3f} "
+        f"ms (every list-shaped collection reweaved on the card: launches "
+        f"{load_counts}); renders and per-collection content_digests equal "
+        f"the weaver='pure' twin's ({oracle_ms:.0f} ms of host time). Cut: "
+        f"{BASE_TX} transactions a replica, not 1,000 (the pure twin's "
+        f"replay and incremental sync)")
+
+
+def bases_compaction(torch, pairs, merged) -> None:
+    """Phase 9, step 5: ``gc.compact`` of a 10k-node ``weaver="torch"``
+    list with a hidden tail; the compacted tree's device reweave against
+    the pure weave of its nodes; a sync round with an uncompacted peer
+    converges, on phase 4's nodes equal to phase 4's merge."""
+    import cause_tpu_torch as ct
+
+    tag = "[9 bases] compaction"
+    a, b = pairs[2]
+    visible = [n[0] for n in a]
+    ah = a
+    for nid in reversed(visible[-COMPACT_TAIL:]):
+        ah = ah.append(nid, ct.hide)
+    out, c_ms = timed_ms(torch, lambda: ct.compact(ah))
+    st = ct.compact_stats(ah, out)
+    if out is ah or st["dropped"] < 2 * COMPACT_TAIL:
+        fail(f"{tag}: compaction dropped {st['dropped']} nodes")
+    keep = out.ct.nodes
+    # the pure weave of the compacted nodes: ah's weave (the pure
+    # weaver's, spliced on the host) without the dropped tail
+    if out.ct.weave != [n for n in ah.ct.weave if n[0] in keep]:
+        fail(f"{tag}: the compacted tree's device reweave differs from "
+             f"the pure weave of its nodes")
+    if out.causal_to_edn() != ah.causal_to_edn():
+        fail(f"{tag}: compaction changed the rendered list")
+    (a2, b2), s_ms = timed_ms(torch, lambda: ct.sync_pair(out, b))
+    if a2.ct.weave != b2.ct.weave:
+        fail(f"{tag}: the sync round with the uncompacted peer diverged")
+    full = ah.merge(b)
+    if a2.ct.weave != [n for n in full.ct.weave if n[0] in a2.ct.nodes] \
+            or a2.causal_to_edn() != full.causal_to_edn():
+        fail(f"{tag}: the synced pair differs from the merge of the "
+             f"uncompacted pair")
+    p4 = {n[0] for n in merged[2]}
+    if [n for n in a2.ct.weave if n[0] in p4] != \
+            [n for n in merged[2] if n[0] in a2.ct.nodes]:
+        fail(f"{tag}: on phase 4's nodes the synced pair differs from "
+             f"phase 4's merge")
+    say(f"{tag}: {len(ah.ct.nodes)}-node weaver='torch' list with its "
+        f"last {COMPACT_TAIL} values hidden: compact {c_ms:.3f} ms (host "
+        f"clock, one device reweave of the survivors), {st}; its weave "
+        f"equals the pure weave of its nodes; sync_pair with the "
+        f"uncompacted peer {s_ms:.3f} ms: both sides equal, the merge of "
+        f"the uncompacted pair without the dropped nodes, and phase 4's "
+        f"merge on its nodes")
+
+
+def phase_bases(torch, pairs, res, cached, hs, tree_root) -> tuple:
+    """Phase 9: bases, sync and compaction on the card (steps 1-5).
+    Returns the phase's launch counts and ``check_recorded``'s sums."""
+    from cause_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    merged = [res.merged(i).ct.weave for i in range(len(pairs))]
+    say(f"[9 bases] phase 4's merged(i) for {len(pairs)} pairs: "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host clock)")
+    kernels.reset_launches()
+    steps = {}
+    per = {}
+    for name, fn in (
+            ("sync", lambda: per.update(bases_sync(torch, pairs, merged))),
+            ("quarantine", lambda: bases_quarantine(torch, pairs, res,
+                                                    merged)),
+            ("ladder", lambda: bases_ladder(torch, pairs, res, cached, hs,
+                                            tree_root)),
+            ("base", lambda: bases_base(torch)),
+            ("compaction", lambda: bases_compaction(torch, pairs, merged))):
+        t = time.perf_counter()
+        fn()
+        steps[name] = time.perf_counter() - t
+    counts = dict(kernels.launches)
+    expect_launches(counts, tuple(V5_LAUNCHES), "[9 bases]")
+    say("[9 bases] kernel sums over pair 0's round, one call a shape "
+        "(CUDA events, mean of 10): " + "; ".join(
+            f"{n} {v['ms']:.4f} ms, plain {v['plain_ms']:.4f}, bound "
+            f"{v['bound_ms']:.6f}" for n, v in per.items()))
+    say("[9 bases] steps: " + "; ".join(
+        f"{name} {sec:.3f} s" for name, sec in steps.items())
+        + f" (host clock); launches over the phase {counts}")
+    return counts, per
 
 
 # --------------------------------------------------------------- main
@@ -1716,13 +2180,17 @@ def main() -> int:
     phase_delta(torch, dev, k_p50, p50, args.profile)
 
     # ------------------------------------------------ 6. session
-    phase_session(torch, pairs, res.digest, p50)
+    cached = phase_session(torch, pairs, res.digest, p50)
 
     # ------------------------------------------------ 7. tree
-    phase_tree(torch, hs)
+    tree_root = phase_tree(torch, hs)
 
     # ------------------------------------------------ 8. maps
     phase_maps(torch, dev, p50, card, args.profile)
+
+    # ------------------------------------------------ 9. bases and sync
+    bases_counts, bases_per = phase_bases(torch, pairs, res, cached, hs,
+                                          tree_root)
 
     # ------------------------------------------------ result
     recs = []
@@ -1737,6 +2205,10 @@ def main() -> int:
             "ms": p["ms"], "plain_ms": p["plain_ms"],
             "bound_ms": p["bound_ms"], "bound_by": "bytes",
             "library_ms": p["library_ms"] if name == "sort" else None,
+            # phase 9's run (bases, sync, compaction) and its calls'
+            # kernel time at their own shapes
+            "bases_sync_launches": bases_counts[name],
+            "bases_sync_ms": bases_per.get(name, {}).get("ms"),
         })
     say(f"total {time.perf_counter() - t_start:.1f} s (host clock)")
     print(card, flush=True)

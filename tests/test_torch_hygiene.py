@@ -4,8 +4,10 @@
   or anything of the JAX package (``cause_tpu``), not even a module of
   it that is JAX-free: the port keeps its own copies.
 - Without a CUDA card, every device entry point called without
-  ``device="cpu"`` raises, and the kernel wrappers refuse CPU tensors:
-  nothing carries on quietly on the CPU.
+  ``device="cpu"`` raises — the batched programs, the waves, the
+  session, and the routes that reach the device through a base, a sync
+  round, a compaction or a load — and the kernel wrappers refuse CPU
+  tensors: nothing carries on quietly on the CPU.
 - The kernels are built and loaded only on first launch, never at
   import time, and each wrapper counts only its own launches.
 """
@@ -131,6 +133,40 @@ def test_map_paths_follow_the_package_default(no_card):
     assert torchw.refresh_map_weave(b.ct, device="cpu").weave == b.ct.weave
     ct.use_device("cpu")
     assert a.merge(b).causal_to_edn() == {"x": 1, "y": 2}
+
+
+def test_base_sync_and_compaction_follow_the_package_default(no_card):
+    """The routes that reach the device through a base, a sync round, a
+    compaction and a load refuse without a card unless asked for the
+    CPU: ``sync_pair`` and ``sync_base_pair`` between ``weaver="torch"``
+    replicas, ``compact`` (its reweave), and ``loads`` of a
+    ``weaver="torch"`` base (every collection reweaves)."""
+    ct.use_device("cpu")
+    cb = ct.transact(ct.base(weaver="torch"), [[None, None, {
+        ct.K("l"): list("abcd"), ct.K("s"): {"x"}}]])
+    ra = ct.CausalBase(cb.cb.evolve(site_id="siteA________"))
+    rb = ct.CausalBase(cb.cb.evolve(site_id="siteB________"))
+    lu = next(u for u, h in cb.cb.collections.items()
+              if isinstance(h, ct.CausalList))
+    ra = ct.transact(ra, [[lu, ct.root_id, "A"]])
+    rb = ct.transact(rb, [[lu, ct.root_id, "B"]])
+    la, lb = ct.get_collection(ra, lu), ct.get_collection(rb, lu)
+    hidden = la.append(list(la)[-1][0], ct.hide)
+    text = ct.dumps(ra)
+    ct.use_device("cuda")
+    for call in (lambda: ct.sync_pair(la, lb),
+                 lambda: ct.sync_base_pair(ra, rb),
+                 lambda: ct.compact(hidden),
+                 lambda: ct.loads(text)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    ct.use_device("cpu")
+    a2, b2 = ct.sync_pair(la, lb)
+    assert a2.ct.weave == b2.ct.weave
+    sa, sb = ct.sync_base_pair(ra, rb)
+    assert sa.causal_to_edn() == sb.causal_to_edn()
+    assert ct.compact(hidden).causal_to_edn() == hidden.causal_to_edn()
+    assert ct.loads(text).causal_to_edn() == ra.causal_to_edn()
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():

@@ -8,8 +8,8 @@ plain versions). Twin fleets, built in both packages with the same site
 ids and uuids, hold the port's ``weaver="torch"`` merges, ``merge_many``
 and ``merge_all`` to the reference's ``weaver="jax"`` and to the pure
 fold, and the port's serde bytes to the reference's. The base cases of
-the reference file (``:163``, ``:228``) wait for the base module
-(ROADMAP A.16); the spec checks for the port's spec module (A.16).
+the reference file (``:163``, ``:228``) and its spec checks are in
+``tests/test_torch_base.py``.
 """
 
 import pytest
