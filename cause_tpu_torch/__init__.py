@@ -32,6 +32,11 @@ beneath them (``batched_merge_weave_v5``, ``batched_merge_weave_v5f``,
 phases (K1, K2, K4: B4-B6) are CUDA kernels (``csrc/``, built with nvcc
 on first use). The fault-injection engine (``chaos``) and the recovery
 ladder (``parallel.recovery``) drive the same seams as the reference's.
+Beside the facade, as in the reference, sit the serving plane
+(``cause_tpu_torch.serve``: admission, the write-ahead log, residency,
+the batched tick and ``SyncService``), its network transport
+(``cause_tpu_torch.net``) and the native host weaver
+(``weaver="native"``, built with g++ on first use).
 
 Device entry points take ``device=`` and default to ``"cuda"``; the
 handle-level paths run on the package default, which only

@@ -70,6 +70,10 @@ def weave(ct: CausalTree, node=None, more_consecutive_nodes_in_same_tx=None) -> 
             from ..weaver import torchw
 
             return torchw.refresh_list_weave(ct)
+        if ct.weaver == "native":
+            from ..weaver import nativew
+
+            return nativew.refresh_list_weave(ct)
         w = []
         for nid in sorted(ct.nodes):
             w = pure.weave_node(w, node_from_kv((nid, ct.nodes[nid])))

@@ -7,8 +7,8 @@ last-writer-wins value; id-caused nodes (hide/show of one specific
 write) weave under that write, enabling undo by id (map.cljc:21-45).
 
 ``weaver="torch"`` runs full rebuilds and merges as one forest
-linearization on the device (``weaver.torchw``); ``"native"`` runs the
-pure path until the native weaver is ported.
+linearization on the device (``weaver.torchw``); ``"native"`` runs them
+through the C++ host linearizer (``weaver.nativew``).
 """
 
 from __future__ import annotations
@@ -101,6 +101,10 @@ def weave(ct: CausalTree, node=None, more_nodes=None) -> CausalTree:
     folds all nodes in sorted id order.
     """
     if node is None:
+        if ct.weaver == "native":
+            from ..weaver import nativew
+
+            return nativew.refresh_map_weave(ct)
         if ct.weaver == "torch":
             from ..weaver import torchw
 
@@ -263,6 +267,10 @@ class CausalMap:
             from ..weaver import torchw
 
             return CausalMap(torchw.merge_map_trees(self.ct, other.ct))
+        if self.ct.weaver == "native":
+            from ..weaver import nativew
+
+            return CausalMap(nativew.merge_trees(self.ct, other.ct))
         return CausalMap(s.merge_trees(weave, self.ct, other.ct))
 
     def merge_many(self, others) -> "CausalMap":

@@ -82,6 +82,10 @@ class ListTreeHandle:
             from ..weaver import torchw
 
             return type(self)(torchw.merge_list_trees(self.ct, other.ct))
+        if self.ct.weaver == "native":
+            from ..weaver import nativew
+
+            return type(self)(nativew.merge_trees(self.ct, other.ct))
         return type(self)(_s.merge_trees(self._weave_fn(), self.ct, other.ct))
 
     def merge_many(self, others):

@@ -35,12 +35,20 @@ update-level fallback run the full kernel and re-establish.
 pair to one state through the merge reduction tree (``parallel.tree``),
 or the flat fold behind ``converge(tree=False)``.
 
+**Batched serving.** The assemble → dispatch → splice pipeline of the
+delta wave is also factored into hooks (``bucket_key``,
+``window_pack``, ``complete_window``, ``abandon_frontier``,
+``pop_divergence``) so that ``serve.batch.BatchScheduler`` can stack
+MANY sessions' windows as rows of ONE dispatch per pow2 bucket. A
+session it drives (``defer_device``) keeps its resident lanes behind
+the host views while a frontier lives (the window is assembled from
+the views alone), and holds its rows of the bucket output on the device
+until something reads the resident weave (``_flush_window``).
+
 The device is the package default (``use_device``) unless ``device=``
-names one; on the card every wave runs the B1, B2 and B3 kernels. Not
-ported yet: the serve-facing window methods (``bucket_key``,
-``window_pack``, ``abandon_frontier``, ``complete_window``,
-``_flush_window``, ``pop_divergence``; ROADMAP A.12), and the telemetry
-hooks (A.13), which the reference runs only when they are enabled.
+names one; on the card every wave runs the B1, B2 and B3 kernels. The
+telemetry hooks, which the reference runs only when they are enabled,
+come with the telemetry port.
 
 **Fault injection.** With the chaos engine armed, each ``wave()``
 passes its seams first: a ``stall`` fault sleeps there, and a
@@ -156,12 +164,25 @@ class FleetSession:
         self._delta_enabled = bool(delta)
         self._delta = None
         self._delta_failures = 0
+        # what the LAST update shipped (delta lanes against a full
+        # re-upload): the divergence evidence pop_divergence hands out
+        self._last_delta_lanes = 0
+        self._last_update_full = False
         # the last wave's fetched digests: checkpoint() serializes
         # them and restore() gates on recomputing them bit-identically
         self._last_digest = None
         self._full_upload(pairs)
 
     _DELTA_FAILURE_LIMIT = 3
+
+    # Batched-serving state (see window_pack/complete_window): the last
+    # bucket dispatch's unspliced window output, the deferred
+    # device-lane mode flag, and whether the resident lanes are behind
+    # the host views. Class-level defaults, so restored sessions get
+    # the unbatched behaviour.
+    _pending_window = None
+    _dev_stale = False
+    defer_device = False
 
     # ------------------------------------------------------------------
     def _collect_views(self, pairs):
@@ -216,9 +237,14 @@ class FleetSession:
         ]
         self._gen = views[0][0].interner.generation
         self.pairs = list(pairs)
-        # the delta-wave capability drops until the next full wave
+        # a full upload is the session's O(doc) degradation: the
+        # delta-wave capability drops until the next full wave
         # re-establishes the resident frontier
+        self._last_delta_lanes = 0
+        self._last_update_full = True
         self._delta = None
+        self._dev_stale = False
+        self._pending_window = None
 
     # ------------------------------------------------------------------
     def update(self, pairs: Sequence[Tuple[object, object]]):
@@ -304,9 +330,21 @@ class FleetSession:
                     self._delta = None
                     break
 
-        deltas = {c: np.full((B, 2, d_max), _PAD[c],
-                             bool if c == "valid" else np.int32)
-                  for c in _LANE_COLS}
+        # Batched serving defers the resident lane splice: with a live
+        # frontier the delta wave assembles its window from host views
+        # only, so the device lanes can stay behind until the next
+        # full-width wave (which re-uploads). Without a live frontier
+        # the next wave is full width and needs current lanes — stale
+        # residents take the full upload instead of a splice onto lanes
+        # that no longer match the bookkeeping.
+        defer = self.defer_device and self._delta is not None
+        if not defer and self._dev_stale:
+            return self._full_upload(pairs)
+        deltas = None
+        if not defer:
+            deltas = {c: np.full((B, 2, d_max), _PAD[c],
+                                 bool if c == "valid" else np.int32)
+                      for c in _LANE_COLS}
         for r, (va, vb) in enumerate(views):
             segs_a, segs_b = va.segments(), vb.segments()
             ka = int(segs_a["sg_len"].shape[0])
@@ -318,7 +356,7 @@ class FleetSession:
                 d = v.n - n0
                 starts[r, t] = n0
                 counts[r, t] = d
-                if d:
+                if d and not defer:
                     sl = slice(n0, v.n)
                     deltas["hi"][r, t, :d] = a.ts[sl]
                     deltas["lo"][r, t, :d] = a.spec.pack_lo(
@@ -339,19 +377,28 @@ class FleetSession:
             self._uploaded_rol[r] = (
                 segs_a["run_of_lane"], segs_b["run_of_lane"]
             )
-            # small per-row tables, rebuilt on the host every wave
-            row, _bases = concat_seg_tables(
-                [(segs_a, int(self._uploaded_n[r, 0])),
-                 (segs_b, int(self._uploaded_n[r, 1]))],
-                cap, s_max,
-            )
-            for k in SEG_LANE_KEYS:
-                tables[k].append(row[k])
+            if not defer:
+                # small per-row tables, rebuilt on the host every wave
+                row, _bases = concat_seg_tables(
+                    [(segs_a, int(self._uploaded_n[r, 0])),
+                     (segs_b, int(self._uploaded_n[r, 1]))],
+                    cap, s_max,
+                )
+                for k in SEG_LANE_KEYS:
+                    tables[k].append(row[k])
 
-        _apply_deltas(self.dev, deltas, starts, counts, b_shift, old_nb)
-        for k in SEG_LANE_KEYS:
-            self.dev[k] = torch.as_tensor(np.stack(tables[k])).to(
-                device=self.device, dtype=self.dev[k].dtype)
+        if defer:
+            # the resident lanes stay behind until the next full-width
+            # wave re-uploads (see _full_wave)
+            self._dev_stale = True
+        else:
+            _apply_deltas(self.dev, deltas, starts, counts, b_shift,
+                          old_nb)
+            for k in SEG_LANE_KEYS:
+                self.dev[k] = torch.as_tensor(np.stack(tables[k])).to(
+                    device=self.device, dtype=self.dev[k].dtype)
+        self._last_delta_lanes = int(counts.sum())
+        self._last_update_full = False
         self._views = views
         self.pairs = pairs
 
@@ -394,6 +441,13 @@ class FleetSession:
         ranks."""
         from ..weaver.torchw5 import batched_merge_weave_v5
 
+        # a full wave recomputes every lane's rank, superseding any
+        # unspliced window output; and it reads the resident lanes, so a
+        # deferred-splice session re-uploads from the current views
+        # first (the O(doc) cost the batched path deferred)
+        self._pending_window = None
+        if self._dev_stale:
+            self._full_upload(self.pairs)
         r, v, _c, ov = _recovery.run_dispatch(
             "session",
             lambda: batched_merge_weave_v5(
@@ -498,6 +552,10 @@ class FleetSession:
         dstate = self._delta
         wcap = dstate["w_cap"]
         n_w = 2 * wcap
+        # this wave's window covers a superset of any pending one's
+        # lanes (same frontier, counts grow monotonically), so its
+        # splice below supersedes the unflushed output bit for bit
+        self._pending_window = None
         lanes, starts, counts = assemble_delta_window(
             self._views, dstate["s"], dstate["anchor"], wcap, n_w)
         r0 = dstate["s"].astype(np.int32) - 1
@@ -517,6 +575,109 @@ class FleetSession:
         self.last_overflow = ovf
         self._last_digest = out
         return out
+
+    # ------------------------------------------ batched-serving hooks
+    #
+    # The assemble → dispatch → splice pipeline of _delta_wave, factored
+    # so an external scheduler (serve.batch.BatchScheduler) can stack
+    # MANY sessions' windows as rows of ONE dispatch per pow2 bucket:
+    # window_pack() hands out the host-side window spec,
+    # complete_window() absorbs this session's rows of the bucket
+    # dispatch's output, and the rank/visibility splice is deferred
+    # (_flush_window) until something reads the resident weave.
+
+    @property
+    def bucket_key(self) -> int:
+        """The pow2 batch-bucket key: the established window budget, or
+        0 when the next wave must run full width (no frontier)."""
+        return int(self._delta["w_cap"]) if self._delta is not None \
+            else 0
+
+    def window_pack(self):
+        """The host-side delta-window spec _delta_wave would assemble,
+        for an external batch scheduler: the current views, the frozen
+        frontier arrays and the pow2 window budget (the bucket key).
+        None when no frontier is established — the caller falls back
+        to :meth:`wave` (full-width re-establish)."""
+        if self._delta is None:
+            return None
+        dstate = self._delta
+        return {
+            "views": self._views,
+            "s": dstate["s"],
+            "anchor": dstate["anchor"],
+            "prefix_digest": dstate["prefix_digest"],
+            "w_cap": int(dstate["w_cap"]),
+            "rows": len(self.pairs),
+        }
+
+    def abandon_frontier(self, reason: str):
+        """Drop the delta frontier: the batched scheduler's per-tenant
+        fallback rung (bucket window overflow, injected budget
+        exhaustion). The next wave runs full width and re-establishes —
+        this tenant alone pays the slow path, its bucket-mates stay
+        fast. ``reason`` names the ladder step for the telemetry
+        port."""
+        if self._delta is None:
+            return
+        _recovery.step("serve", "batch", "full", reason, uuid=self._uuid())
+        self._delta = None
+
+    def complete_window(self, rank_w, vis_w, digest, starts, counts):
+        """Absorb this session's rows of a bucket dispatch's output:
+        ``rank_w``/``vis_w`` the ``[rows, 2*w_cap]`` window tensors (left
+        on the device), ``digest`` the rows' host uint32 digests,
+        ``starts``/``counts`` the window's ``[rows, 2]`` splice
+        coordinates. The digests are bit-identical to what _delta_wave
+        would have returned — same window assembly, same program, same
+        budget — so they become the checkpointable wave output directly;
+        the rank/visibility splice is deferred to :meth:`_flush_window`
+        (checkpoint/merged) because the next wave's window covers a
+        superset of these lanes anyway."""
+        dstate = self._delta
+        if dstate is None:
+            raise s.CausalError(
+                "complete_window without an established frontier",
+                {"causes": {"no-frontier"}},
+            )
+        out = np.asarray(digest)
+        self._pending_window = {
+            "rank_w": rank_w.to(self.device),
+            "vis_w": vis_w.to(self.device),
+            "starts": np.asarray(starts, np.int32),
+            "counts": np.asarray(counts, np.int32),
+            "r0": dstate["s"].astype(np.int32) - 1,
+        }
+        self._last_digest = out
+        return out
+
+    def _flush_window(self):
+        """Splice the pending window output into the resident
+        rank/visibility tensors (``torchwd.splice_ranks``, in place).
+        Deferred from complete_window: in the batched steady state many
+        waves pass between materializations, and each window supersedes
+        the last, so the splice runs once per read instead of once per
+        wave."""
+        pw = self._pending_window
+        if pw is None:
+            return
+        self._pending_window = None
+        from ..weaver import torchwd
+
+        torchwd.splice_ranks(self.last_rank, self.last_visible,
+                             pw["rank_w"], pw["vis_w"], pw["starts"],
+                             pw["counts"], pw["r0"])
+
+    def pop_divergence(self):
+        """(delta_lanes, full_bag) shipped since the last read — the
+        divergence evidence, reset on read. The batched scheduler drains
+        every bucket member (the reference sums them onto the bucket's
+        ``wave.cost`` event)."""
+        d = int(self._last_delta_lanes)
+        f = 1 if self._last_update_full else 0
+        self._last_delta_lanes = 0
+        self._last_update_full = False
+        return d, f
 
     def converge(self, tree: bool = True,
                  w_budget: Optional[int] = None):
@@ -538,6 +699,7 @@ class FleetSession:
     def merged(self, i: int):
         """Materialize pair ``i``'s converged tree (host handle) from
         the last wave."""
+        self._flush_window()
         res = WaveResult(
             self.pairs, self._views, self.capacity,
             self.last_rank.cpu().numpy(), self.last_visible.cpu().numpy(),
@@ -566,6 +728,7 @@ class FleetSession:
                 "the last wave also invalidates it)",
                 {"causes": {"no-wave"}},
             )
+        self._flush_window()
         ck = {
             "~causal_session": self.CHECKPOINT_VERSION,
             "d_max": int(self.d_max),
@@ -648,6 +811,8 @@ class FleetSession:
         obj._delta_enabled = bool(data["delta_enabled"])
         obj._delta = None
         obj._delta_failures = 0
+        obj._last_delta_lanes = 0
+        obj._last_update_full = False
         obj._last_digest = None
         for a, b in pairs:
             s.check_mergeable(a.ct, b.ct)

@@ -9,7 +9,8 @@ north-star merge wave (1024 divergent replica pairs of 10k-node lists)
 through the v5 pipeline and the fused v5f pipeline, the handle-level
 ``merge_wave`` API through both, the session, the merge tree and the
 map-fleet wave, bases, sync rounds, the quarantined wave, the chaos
-ladder and compaction, and checks that the kernels really
+ladder and compaction, a served fleet of 32 tenants behind the
+network transport, and checks that the kernels really
 carried those paths (launch counts) and that the results are
 bit-identical to the plain path on the card, to each other and to the
 pure host weaver. Every comparison is exact: all outputs are integers or
@@ -117,9 +118,33 @@ Phases, one line each (times from CUDA events unless named host):
    its ``weaver="pure"`` twin; ``gc.compact`` of a 10k-node list with a
    hidden tail against the pure weave of its nodes, and a sync round
    with its uncompacted peer.
+10. serve: a served document fleet: 32 tenants, each a pair of
+   ``weaver="torch"`` replicas of a fresh 10,000-element list (written
+   in runs of 1,000), in a ``SyncService(batched=True)`` with
+   ``ResidencyManager(capacity=16)`` (half the fleet spilled and
+   restored under traffic), ``d_max=64`` and a WAL with
+   ``fsync="batch"``, fronted by a ``ReplicationServer`` on loopback
+   that 8 ``NetClient``s (4 tenants each) feed per-site deltas over
+   the sockets: 6 rounds of zipf-hot offers (alpha 1.2, 1-16 ops a
+   site), one tenant bursting 200 ops so it alone falls back to a
+   full-width wave, each round ticked with the service's default drain
+   (``d_max`` ops a tick) until its queue is empty; each tick's
+   launches equal 6/1/1 times its bucket dispatches, full-width
+   fallbacks, side applies and restores' reweaves; one bucket re-dispatched
+   by the scheduler's own code on the kernels and on the plain path,
+   every kernel call held against its plain version and timed
+   (``torch.sort`` beside B1), and a one-tenant bucket's dispatch p50
+   (the controller's floor); the same journal round by round through
+   ``batched=False`` with equal digests; 4 tenants' ``materialize()``
+   against the pure weaver's merge of their journals; evict/restore
+   cycles with flat ``memory_allocated``; ``drain()`` ->
+   ``SyncService.restore()`` with every ``converged_digest``
+   bit-identical; the scrubber over the WAL and the checkpoint; the
+   native weaver built and a 10k-node merge equal to the pure merge.
 
-Phases 5-9 each reset the launch counts before they run and read them
-after: a phase that did not launch B1, B2 and B3 fails.
+Phases 5-10 each reset the launch counts before they run (phase 10
+reads them tick by tick) and read them after: a phase that did not
+launch B1, B2 and B3 fails.
 
 Before the last line it prints the card's ``name, power.limit`` (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -152,6 +177,16 @@ MAP_SMALL = 64    # pairs of config 6's own wave (24 keys, 12 edits)
 # phase 9's base: list elements, transactions a replica, and the hidden
 # tail of its compaction
 BASE_LIST, BASE_TX, COMPACT_TAIL = 10_000, 500, 100
+# phase 10's served fleet: tenants (each a pair of replicas of a list of
+# SERVE_LIST values written in runs of SERVE_RUN), residency capacity,
+# the delta budget, rounds of offered load, clients, zipf-hot offers a
+# round, the burst (ops, round, tenant), tenants held against the pure
+# weaver, the seed
+SERVE_TENANTS, SERVE_LIST, SERVE_RUN = 32, 10_000, 1_000
+SERVE_CAPACITY, SERVE_DMAX, SERVE_ROUNDS, SERVE_CLIENTS = 16, 64, 6, 8
+SERVE_OFFERS, SERVE_BURST, SERVE_BURST_ROUND, SERVE_BURST_TENANT = \
+    24, 200, 2, 31
+SERVE_ORACLE, SERVE_SEED = 4, 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 I32_MAX = int(np.iinfo(np.int32).max)
 
@@ -927,6 +962,8 @@ def check_recorded(torch, calls, tag: str) -> dict:
         timed.add(key)
         tot = per.setdefault(name, {"ms": 0.0, "plain_ms": 0.0,
                                     "bound_ms": 0.0})
+        if name == "sort":
+            tot.setdefault("library_ms", 0.0)
         for k in tot:
             tot[k] += rec[k]
         shapes = "x".join(str(d) for d in ops[0].shape)
@@ -938,6 +975,15 @@ def check_recorded(torch, calls, tag: str) -> dict:
     say(f"{tag}: {len(calls)} kernel calls, each equal to its plain "
         f"version on the card ({len(timed)} distinct shapes timed)")
     return per
+
+
+def kernel_sums_line(per) -> str:
+    """``check_recorded``'s per-kernel sums as one line's text."""
+    return "; ".join(
+        f"{n} {v['ms']:.4f} ms, plain {v['plain_ms']:.4f}, bound "
+        f"{v['bound_ms']:.6f}" + (f", torch.sort {v['library_ms']:.4f}"
+                                  if "library_ms" in v else "")
+        for n, v in per.items())
 
 
 def phase_delta(torch, dev, ns_p50: float, p50, profile_dir=None) -> None:
@@ -1190,7 +1236,9 @@ def phase_tree(torch, hs):
     if strip(p_rep) != strip(rep) or p_root.ct.weave != root.ct.weave \
             or p_root.ct.nodes != root.ct.nodes:
         fail("[7 tree] the tree's levels or root differ on the plain path")
-    check_recorded(torch, calls, "[7 tree]")
+    per = check_recorded(torch, calls, "[7 tree]")
+    say("[7 tree] kernel sums over the tree's calls, one call a shape "
+        "(CUDA events, mean of 10): " + kernel_sums_line(per))
     t2 = time.perf_counter()
     flat = hs[0].merge_many(hs[1:])
     t3 = time.perf_counter()
@@ -1874,6 +1922,505 @@ def phase_bases(torch, pairs, res, cached, hs, tree_root) -> tuple:
     return counts, per
 
 
+# ------------------------------------------------------------ 10. serve
+
+
+def serve_site(tag: str, i: int) -> str:
+    """A fixed 13-character site id."""
+    return f"s{tag}{i:0{12 - len(tag)}d}"
+
+
+
+def serve_tenant(i: int):
+    """Tenant ``i``: a fresh ``weaver="torch"`` list of SERVE_LIST values
+    written in runs of SERVE_RUN (one transaction each, inside the
+    PackSpec's tx bits), woven, as a replica pair of two sites with one
+    divergent op each. A fresh clist per tenant: ``evolve()`` keeps the
+    uuid, and the service keys tenants by it."""
+    import cause_tpu_torch as ct
+    from cause_tpu_torch.collections import clist as cl
+
+    h = cl.CausalList(ct.clist(weaver="torch").ct.evolve(
+        site_id=serve_site("T", i), uuid=f"serve-tenant-{i:04d}"))
+    for k in range(SERVE_LIST // SERVE_RUN):
+        h = h.extend([f"t{i}.{k}.{j}" for j in range(SERVE_RUN)])
+    base = cl.CausalList(cl.weave(h.ct))
+    base.ct.lanes.segments()
+    a = cl.CausalList(base.ct.evolve(site_id=serve_site("A", i))).conj("A")
+    b = cl.CausalList(base.ct.evolve(site_id=serve_site("B", i))).conj("B")
+    return a, b, base.ct.weave[-1][0]
+
+
+class ServeProducer:
+    """One tenant's producer state on its client: two foreign sites
+    whose deltas land on opposite sides of the pair (the service routes
+    a foreign site by ``crc32(site) & 1``), each a chain of ops appended
+    after its side's tail (as ``conj`` appends), with lamport stamps
+    above every id the document holds, so every op is a lane append on
+    its side and the pair stays inside the delta window's domain."""
+
+    def __init__(self, i: int, tenant):
+        import zlib
+
+        a, b, _tail = tenant
+        self.uuid = str(a.ct.uuid)
+        self.sites = []
+        j = 0
+        while len(self.sites) < 2:
+            st = f"c{i:03d}x{j:08d}"
+            if zlib.crc32(st.encode()) & 1 == len(self.sites):
+                self.sites.append(st)
+            j += 1
+        # each side's tail: its replica's divergent op, the newest id
+        self.last = {st: max(h.ct.nodes)
+                     for st, h in zip(self.sites, (a, b))}
+        self.ts = max(n[0] for n in a.ct.nodes) + 1
+        self.minted = 0
+
+    def mint(self, site: str, n: int):
+        ops = []
+        for _ in range(n):
+            self.ts += 1
+            nid = (self.ts, site, 0)
+            ops.append((nid, self.last[site], f"{site}.{self.ts}"))
+            self.last[site] = nid
+        self.minted += n
+        return ops
+
+
+def serve_offer(clients, owner, producers, rng, weights, rnd: int,
+                burst: bool):
+    """One round's offered load: SERVE_OFFERS zipf-hot draws (alpha 1.2)
+    of a tenant, one of its two sites and 1-16 ops, queued on the
+    tenant's client, plus one 200-op batch for the burst tenant; every
+    client pumped until its outbound queue is empty (acked: journaled
+    and queued in the service)."""
+    for _ in range(SERVE_OFFERS):
+        t = rng.choices(range(len(producers)), weights=weights)[0]
+        p = producers[t]
+        st = p.sites[rng.randrange(2)]
+        if not clients[owner[t]].queue_ops(p.uuid, st,
+                                           p.mint(st, rng.randint(1, 16))):
+            fail(f"[10 serve] round {rnd}: the client shed an offer")
+    if burst:
+        p = producers[SERVE_BURST_TENANT]
+        clients[owner[SERVE_BURST_TENANT]].queue_ops(
+            p.uuid, p.sites[0], p.mint(p.sites[0], SERVE_BURST))
+    deadline = time.monotonic() + 60.0
+    for cl in clients:
+        while cl.outbound_depth and time.monotonic() < deadline:
+            cl.pump()
+        if cl.outbound_depth:
+            fail(f"[10 serve] round {rnd}: client {cl.client_id} could "
+                 f"not ship its ops: {cl.status()}")
+
+
+def serve_side_applies(entries) -> int:
+    """The device reweaves a tick's apply step runs over the entries it
+    drained: ``sync.apply_delta`` merges each touched side's coalesced
+    delta into its ``weaver="torch"`` handle through one B = 1
+    ``merge_many`` (6/1/1 launches), and every producer site here is
+    foreign, so the service routes it to side ``crc32(site) & 1``."""
+    import zlib
+
+    return len({(e.uuid, zlib.crc32(e.site.encode()) & 1)
+                for e in entries})
+
+
+class ServeTicker:
+    """Ticks a service as it ticks itself: ``tick()`` with its default
+    drain, at most ``d_max`` ops a tick (``SyncService.run``), until the
+    queue is empty. Records what each tick drained (the queue's
+    ``drain``) and, when batched, how many tenants the scheduler sent
+    to a full-width wave (its ``wave_fleet``), so every tick's launches
+    can be held to 6/1/1 times its dispatches: bucket dispatches (or,
+    unbatched, one wave a touched tenant), full-width fallbacks, side
+    applies and two serde reweaves a restore."""
+
+    def __init__(self, svc):
+        self.svc = svc
+        self.drained = []
+        self.fallbacks = 0
+        real_drain = svc.queue.drain
+
+        def drain(*args, **kw):
+            out = real_drain(*args, **kw)
+            self.drained.append(out)
+            return out
+
+        svc.queue.drain = drain
+        if svc.batched:
+            sched = svc._scheduler
+            real_wave = sched.wave_fleet
+
+            def wave_fleet(sessions):
+                out = real_wave(sessions)
+                self.fallbacks += sched.last_fallbacks
+                return out
+
+            sched.wave_fleet = wave_fleet
+
+    def until_empty(self, torch, tag: str) -> list:
+        """Tick until the queue is empty; each tick's launches checked.
+        Returns one dict a tick: its summary, host ms (synchronized),
+        fallbacks, side applies, restores and launches."""
+        svc = self.svc
+        out = []
+        while svc.queue.depth:
+            r0, f0 = svc.residency.stats["restores"], self.fallbacks
+            with launches_in() as counts:
+                summary, ms = timed_ms(torch, svc.tick)
+            t = {"summary": summary, "ms": ms,
+                 "fallbacks": self.fallbacks - f0,
+                 "applies": serve_side_applies(self.drained[-1]),
+                 "restores": svc.residency.stats["restores"] - r0,
+                 "counts": counts}
+            waves = (summary["buckets"] + t["fallbacks"] if svc.batched
+                     else summary["tenants"])
+            # a restore decodes its two replicas, and serde reweaves a
+            # weaver="torch" tree on the device: two B = 1 dispatches
+            dispatches = waves + t["applies"] + 2 * t["restores"]
+            expect_launches(counts, {n: dispatches * v for n, v
+                                     in V5_LAUNCHES.items()},
+                            f"{tag} tick ({summary['ops']} ops, "
+                            f"{summary['buckets']} buckets, "
+                            f"{t['fallbacks']} full-width fallbacks, "
+                            f"{t['applies']} side applies, "
+                            f"{t['restores']} restores)")
+            out.append(t)
+        return out
+
+
+def serve_service(root: str, batched: bool):
+    from cause_tpu_torch.serve import (IngestQueue, ResidencyManager,
+                                       SyncService, WriteAheadLog)
+
+    wal = WriteAheadLog(os.path.join(root, "wal"), fsync="batch")
+    q = IngestQueue(max_ops=1 << 16, defer_frac=1.0, journal=wal)
+    return SyncService(q, residency=ResidencyManager(
+        capacity=SERVE_CAPACITY), checkpoint_dir=os.path.join(root, "ckpt"),
+        d_max=SERVE_DMAX, batched=batched)
+
+
+def serve_bucket_check(torch, dev, svc):
+    """The largest resident bucket of the service, re-dispatched by the
+    scheduler's own bucket code: once on the kernels (6/1/1 launches,
+    the digests the tick gave), once on the plain path with every
+    kernel call recorded and held against its plain version
+    (``check_recorded``); then a one-tenant bucket's dispatch p50, the
+    controller's dispatch floor. Returns the per-kernel sums, the
+    bucket's shape and the floor."""
+    from cause_tpu_torch.serve import BatchScheduler
+    from cause_tpu_torch.weaver.arrays import next_pow2
+
+    tag = "[10 serve] bucket"
+    buckets = {w: u for w, u in svc.residency.buckets().items() if w}
+    if not buckets:
+        fail(f"{tag}: no resident tenant holds a delta frontier")
+    wcap = max(buckets, key=lambda w: (len(buckets[w]), w))
+    uuids = buckets[wcap]
+    sessions = [svc.residency.get(u) for u in uuids]
+    want = {u: s._last_digest.copy() for u, s in zip(uuids, sessions)}
+    sched = BatchScheduler()
+
+    def dispatch(group_uuids):
+        group = [(u, svc.residency.get(u), None) for u in group_uuids]
+        group = [(u, s, s.window_pack()) for u, s, _ in group]
+        digests, fallback = {}, []
+        sched._wave_bucket(wcap, group, digests, fallback, dev)
+        if fallback:
+            fail(f"{tag}: a row overflowed the bucket's window")
+        return digests
+
+    with launches_in() as counts:
+        got = dispatch(uuids)
+        torch.cuda.synchronize()
+    expect_launches(counts, V5_LAUNCHES, f"{tag} w_cap={wcap}")
+    for u in uuids:
+        if not np.array_equal(got[u], want[u]):
+            fail(f"{tag}: tenant {u}'s digest differs from its tick's")
+    calls = []
+    with plain_path(record=calls):
+        got_plain = dispatch(uuids)
+    for u in uuids:
+        if not np.array_equal(got_plain[u], want[u]):
+            fail(f"{tag}: tenant {u}'s plain-path digest differs")
+    per = check_recorded(torch, calls, f"{tag} w_cap={wcap} x "
+                                       f"{len(uuids)} tenants")
+    one = uuids[:1]
+    dispatch(one)  # warm
+    times = [timed_ms(torch, lambda: dispatch(one))[1] for _ in range(10)]
+    floor = float(np.median(times))
+    say(f"{tag}: one-tenant bucket (w_cap={wcap}, 1 row padded to "
+        f"{next_pow2(1)}) dispatch p50 "
+        f"{floor:.3f} ms, min {min(times):.3f}, max {max(times):.3f} "
+        f"(host clock, synchronized, 10 reps): the controller's dispatch "
+        f"floor on this card")
+    return per, (wcap, len(uuids)), floor
+
+
+def serve_residency_cycles(torch, svc, uuids):
+    """Evict/restore cycles with the residents at capacity: two disjoint
+    groups of SERVE_CAPACITY tenants made resident in turn, three
+    times; ``torch.cuda.memory_allocated()`` read with each group
+    resident must not grow from one cycle to the next, and evicting
+    every resident must hand its tensors back."""
+    tag = "[10 serve] residency"
+    groups = [uuids[:SERVE_CAPACITY], uuids[SERVE_CAPACITY:
+                                            2 * SERVE_CAPACITY]]
+    import gc
+
+    mem = []
+    t0 = time.perf_counter()
+    r0, e0 = (svc.residency.stats["restores"],
+              svc.residency.stats["evictions"])
+    for _cycle in range(3):
+        for g in groups:
+            svc.residency.get_many(g)
+            gc.collect()
+            torch.cuda.synchronize()
+            mem.append(torch.cuda.memory_allocated())
+    wall = time.perf_counter() - t0
+    first, last = mem[0::2], mem[1::2]
+    if any(m > first[0] for m in first) or any(m > last[0] for m in last):
+        fail(f"{tag}: memory_allocated grew across evict/restore cycles: "
+             f"{mem}")
+    for u in svc.residency.resident():
+        svc.residency.evict(u)
+    gc.collect()
+    torch.cuda.synchronize()
+    empty = torch.cuda.memory_allocated()
+    if empty >= min(mem):
+        fail(f"{tag}: evicting every resident released nothing "
+             f"({empty} bytes allocated, {min(mem)} with residents)")
+    say(f"{tag}: 3 cycles of two {SERVE_CAPACITY}-tenant groups "
+        f"({svc.residency.stats['restores'] - r0} restores, "
+        f"{svc.residency.stats['evictions'] - e0} evictions, "
+        f"{wall:.3f} s host clock): memory_allocated with each group "
+        f"resident {mem} bytes, flat; {empty} bytes with none resident")
+
+
+def serve_oracle(svc, pairs, journal, uuids):
+    """``materialize()`` of the given tenants against the pure weaver:
+    the initial pair merged, then every journal record of the tenant
+    applied, all on ``weaver="pure"``."""
+    from cause_tpu_torch import serde, sync
+    from cause_tpu_torch.collections.clist import CausalList
+
+    for u in uuids:
+        a, b = pairs[u]
+        oracle = CausalList(a.ct.evolve(weaver="pure", lanes=None)).merge(
+            CausalList(b.ct.evolve(weaver="pure", lanes=None)))
+        for e in journal:
+            if e["uuid"] == u:
+                oracle = sync.apply_delta(
+                    oracle, serde.decode_node_items(e["items"]))
+        got = svc.materialize(u)
+        if got.ct.weave != oracle.ct.weave or list(got) != list(oracle):
+            fail(f"[10 serve] tenant {u} differs from the pure weaver's "
+                 f"merge of its journal")
+
+
+def phase_serve(torch, dev, card: str) -> tuple:
+    """Phase 10: a served document fleet on the card. Returns the launch
+    counts of the six rounds' ticks and the bucket dispatch's per-kernel
+    sums."""
+    import random
+    import tempfile
+
+    import cause_tpu_torch as ct
+    from cause_tpu_torch import kernels
+    from cause_tpu_torch.collections.clist import CausalList
+    from cause_tpu_torch.net import NetClient, ReplicationServer
+    from cause_tpu_torch.serve import SyncService, scrub
+    from cause_tpu_torch.weaver import nativew
+
+    tag = "[10 serve]"
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="serve-smoke-")
+    root = tmp.name
+    t0 = time.perf_counter()
+    tenants = [serve_tenant(i) for i in range(SERVE_TENANTS)]
+    t1 = time.perf_counter()
+    svc = serve_service(os.path.join(root, "batched"), batched=True)
+    uuids, pairs = [], {}
+    with launches_in() as add_counts:
+        for a, b, _tail in tenants:
+            uuids.append(svc.add_tenant(a, b))
+            pairs[uuids[-1]] = (a, b)
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    expect_launches(add_counts, {k: SERVE_TENANTS * v
+                                 for k, v in V5_LAUNCHES.items()},
+                    f"{tag} add_tenant")
+    say(f"{tag} {SERVE_TENANTS} tenants of {SERVE_LIST} elements built in "
+        f"{t1 - t0:.3f} s; add_tenant (first full wave each, B = 1, "
+        f"capacity {svc.residency.get(uuids[-1]).capacity}) "
+        f"{(t2 - t1) * 1e3:.3f} ms in all (host clock); "
+        f"{len(svc.residency.resident())} resident, "
+        f"{len(svc.residency.spilled())} spilled")
+
+    srv = ReplicationServer(svc).start()
+    owner = {t: t // (SERVE_TENANTS // SERVE_CLIENTS)
+             for t in range(SERVE_TENANTS)}
+    clients = [NetClient("127.0.0.1", srv.port,
+                         [uuids[t] for t in range(SERVE_TENANTS)
+                          if owner[t] == c], client_id=f"smoke-{c}",
+                         read_timeout_s=30.0)
+               for c in range(SERVE_CLIENTS)]
+    producers = [ServeProducer(i, tenants[i]) for i in range(SERVE_TENANTS)]
+    rng = random.Random(SERVE_SEED)
+    weights = [1.0 / ((i + 1) ** 1.2) for i in range(SERVE_TENANTS)]
+    rng.shuffle(weights)  # the hot head is not tenant 0..k
+    ticker = ServeTicker(svc)
+    rounds = []
+    boundaries = [svc.queue.journal._seq]
+    kernels.reset_launches()
+    try:
+        for k in range(SERVE_ROUNDS):
+            serve_offer(clients, owner, producers, rng, weights, k,
+                        burst=(k == SERVE_BURST_ROUND))
+            boundaries.append(svc.queue.journal._seq)
+            ticks = ticker.until_empty(torch, f"{tag} round {k}")
+            rounds.append(ticks)
+            for t in ticks:
+                sm = t["summary"]
+                say(f"{tag} round {k}: tick of {sm['ops']} "
+                    f"ops, {sm['tenants']} tenants, {sm['buckets']} bucket "
+                    f"dispatches ({sm['batch_rows']} rows), "
+                    f"{t['fallbacks']} full-width fallbacks, "
+                    f"{t['applies']} B = 1 side applies, {t['restores']} "
+                    f"restores; {t['ms']:.3f} ms (host clock, "
+                    f"synchronized); launches {t['counts']}")
+        # one more round of the same load under torch.profiler: the
+        # device time its ticks hold (not among the timed ticks)
+        serve_offer(clients, owner, producers, rng, weights, SERVE_ROUNDS,
+                    burst=False)
+        boundaries.append(svc.queue.journal._seq)
+        prof_ticks = []
+        (n_k, dev_ms), prof_ms = timed_ms(torch, lambda: device_kernels(
+            torch, lambda: prof_ticks.extend(
+                ticker.until_empty(torch, f"{tag} profiled round")),
+            reps=1))
+    finally:
+        for cl in clients:
+            cl.close()
+        srv.stop()
+    ticks = [t for r in rounds for t in r]
+    tick_ms = [t["ms"] for t in ticks]
+    tick_counts = {n: sum(t["counts"][n] for t in ticks)
+                   for n in kernels.SOURCES}
+    say(f"{tag} a profiled round: {len(prof_ticks)} ticks, {n_k:.0f} "
+        f"device kernels, {dev_ms:.3f} ms of device time (profile) in "
+        f"{prof_ms:.3f} ms (host clock, profiler on): busy share "
+        f"{dev_ms / prof_ms:.4f}")
+    if not sum(t["fallbacks"] for t in rounds[SERVE_BURST_ROUND]):
+        fail(f"{tag}: the burst tenant's window never overflowed")
+    if not any(t["summary"]["buckets"] > 1 for t in ticks):
+        fail(f"{tag}: no tick dispatched more than one bucket")
+    say(f"{tag} ticks (default drain, d_max = {SERVE_DMAX} ops): p50 "
+        f"{float(np.median(tick_ms)):.3f} ms, p99 "
+        f"{float(np.percentile(tick_ms, 99)):.3f} ms over {len(tick_ms)} "
+        f"ticks of {SERVE_ROUNDS} rounds (host clock, synchronized): "
+        f"{[round(t, 3) for t in tick_ms]}; ticks a round "
+        f"{[len(r) for r in rounds]}; bucket dispatches a tick "
+        f"{[t['summary']['buckets'] for t in ticks]}, touched tenants a "
+        f"tick {[t['summary']['tenants'] for t in ticks]}, full-width "
+        f"fallbacks a tick {[t['fallbacks'] for t in ticks]}, B = 1 side "
+        f"applies a tick {[t['applies'] for t in ticks]}, restores a tick "
+        f"{[t['restores'] for t in ticks]}; residency "
+        f"{svc.residency.stats}")
+    journal = list(svc.queue.journal.iter_from(0))
+    if len(journal) != boundaries[-1]:
+        fail(f"{tag}: the WAL replays {len(journal)} records of "
+             f"{boundaries[-1]}")
+    per, bucket_shape, floor = serve_bucket_check(torch, dev, svc)
+    before = {u: svc.converged_digest(u) for u in uuids}
+
+    # the same journal, round by round, through the per-tenant path
+    svc_u = serve_service(os.path.join(root, "unbatched"), batched=False)
+    for u in uuids:
+        svc_u.add_tenant(*pairs[u])
+    ticker_u = ServeTicker(svc_u)
+    ticks_u = []
+    for k in range(len(boundaries) - 1):
+        for e in journal:
+            if boundaries[k] < e["seq"] <= boundaries[k + 1]:
+                adm = svc_u.queue.offer(e["uuid"], e["site"], e["items"])
+                if not adm.admitted:
+                    fail(f"{tag}: the per-tenant arm refused an op")
+        ticks_u += ticker_u.until_empty(torch, f"{tag} per-tenant round {k}")
+    for u in uuids:
+        if svc_u.converged_digest(u) != before[u]:
+            fail(f"{tag}: tenant {u}: batched and per-tenant ticks "
+                 f"digest differently")
+    counts_u = {n: sum(t["counts"][n] for t in ticks_u)
+                for n in kernels.SOURCES}
+    say(f"{tag} the journal replayed round by round through "
+        f"batched=False: every tenant's digest equal ({len(ticks_u)} "
+        f"ticks, {sum(t['summary']['tenants'] for t in ticks_u)} "
+        f"per-tenant waves, launches {counts_u})")
+
+    burst_uuid = uuids[SERVE_BURST_TENANT]
+    sample = [burst_uuid] + rng.sample(
+        [u for u in uuids if u != burst_uuid], SERVE_ORACLE - 1)
+    t0 = time.perf_counter()
+    serve_oracle(svc, pairs, journal, sample)
+    say(f"{tag} materialize() of {len(sample)} tenants (the burst tenant "
+        f"among them) equals the pure weaver's merge of its journal "
+        f"({time.perf_counter() - t0:.3f} s host clock)")
+
+    serve_residency_cycles(torch, svc, uuids)
+
+    manifest, drain_ms = timed_ms(torch, svc.drain)
+    svc2, restore_ms = timed_ms(torch, lambda: SyncService.restore(
+        manifest))
+    after = {u: svc2.converged_digest(u) for u in uuids}
+    if after != before:
+        bad = [u for u in uuids if after[u] != before[u]]
+        fail(f"{tag}: drain -> restore changed digests of {bad}")
+    say(f"{tag} drain {drain_ms:.3f} ms, restore ({SERVE_TENANTS} "
+        f"sessions through the digest gate, journal replay above each "
+        f"watermark) "
+        f"{restore_ms:.3f} ms (host clock): every converged_digest "
+        f"bit-identical")
+    rep_w = scrub.scrub_wal(os.path.join(root, "batched", "wal"))
+    rep_c = scrub.scrub_checkpoints(os.path.dirname(manifest))
+    if not rep_w["clean"] or rep_c["errors"]:
+        fail(f"{tag}: scrub found damage: wal {rep_w}, checkpoints "
+             f"{rep_c}")
+    say(f"{tag} scrub: WAL clean ({rep_w['records']} records, "
+        f"{len(rep_w['segments'])} segments), checkpoints clean "
+        f"({rep_c['packs_ok']} packs)")
+
+    if not nativew.available():
+        fail(f"{tag}: the native weaver did not build")
+    a, b = pairs[uuids[0]]
+    na = CausalList(a.ct.evolve(weaver="native", lanes=None))
+    nb = CausalList(b.ct.evolve(weaver="native", lanes=None))
+    t0 = time.perf_counter()
+    nat = na.merge(nb)
+    nat_ms = (time.perf_counter() - t0) * 1e3
+    pure = CausalList(a.ct.evolve(weaver="pure", lanes=None)).merge(
+        CausalList(b.ct.evolve(weaver="pure", lanes=None)))
+    if nat.ct.weave != pure.ct.weave:
+        fail(f"{tag}: the native merge differs from the pure merge")
+    say(f"{tag} native weaver built; a {len(nat.ct.nodes)}-node merge "
+        f"({nat_ms:.3f} ms host clock) equals the pure merge")
+    ct.use_device(dev)
+    svc2.close()
+    svc_u.close()
+    tmp.cleanup()
+    say(f"{tag} bucket dispatch checked at w_cap={bucket_shape[0]} x "
+        f"{bucket_shape[1]} tenants; one-tenant floor {floor:.3f} ms; "
+        f"restore {restore_ms:.3f} ms; kernel sums over the bucket's "
+        f"calls, one call a shape (CUDA events, mean of 10): "
+        + kernel_sums_line(per)
+        + f"; phase {time.perf_counter() - t_phase:.1f} s (host clock); "
+        f"{card}")
+    return tick_counts, per
+
+
 # --------------------------------------------------------------- main
 
 
@@ -2192,6 +2739,10 @@ def main() -> int:
     bases_counts, bases_per = phase_bases(torch, pairs, res, cached, hs,
                                           tree_root)
 
+    # ------------------------------------------------ 10. serve
+    del res, cached, hs, tree_root, pairs
+    serve_counts, serve_per = phase_serve(torch, dev, card)
+
     # ------------------------------------------------ result
     recs = []
     for name in kernels.SOURCES:
@@ -2209,6 +2760,13 @@ def main() -> int:
             # kernel time at their own shapes
             "bases_sync_launches": bases_counts[name],
             "bases_sync_ms": bases_per.get(name, {}).get("ms"),
+            # phase 10's ticks of six rounds, and one bucket dispatch's
+            # calls at their own shapes
+            "serve_launches": serve_counts[name],
+            "serve_ms": serve_per.get(name, {}).get("ms"),
+            "serve_plain_ms": serve_per.get(name, {}).get("plain_ms"),
+            "serve_bound_ms": serve_per.get(name, {}).get("bound_ms"),
+            "serve_library_ms": serve_per.get(name, {}).get("library_ms"),
         })
     say(f"total {time.perf_counter() - t_start:.1f} s (host clock)")
     print(card, flush=True)

@@ -5,9 +5,14 @@
   it that is JAX-free: the port keeps its own copies.
 - Without a CUDA card, every device entry point called without
   ``device="cpu"`` raises — the batched programs, the waves, the
-  session, and the routes that reach the device through a base, a sync
-  round, a compaction or a load — and the kernel wrappers refuse CPU
-  tensors: nothing carries on quietly on the CPU.
+  session, the routes that reach the device through a base, a sync
+  round, a compaction or a load, and the serving plane (a tenant's
+  first wave, a service or residency restore, the bucket dispatch) —
+  and the kernel wrappers refuse CPU tensors: nothing carries on
+  quietly on the CPU. The serving plane's host side (admission, the
+  journal, the controller, the scrubber, the wire, the native weaver)
+  holds no tensor code: its modules import no torch themselves (the
+  package facade does).
 - The kernels are built and loaded only on first launch, never at
   import time, and each wrapper counts only its own launches.
 """
@@ -167,6 +172,76 @@ def test_base_sync_and_compaction_follow_the_package_default(no_card):
     assert sa.causal_to_edn() == sb.causal_to_edn()
     assert ct.compact(hidden).causal_to_edn() == hidden.causal_to_edn()
     assert ct.loads(text).causal_to_edn() == ra.causal_to_edn()
+
+
+def test_serving_plane_follows_the_package_default(no_card, tmp_path):
+    """The serving plane's device entry points refuse without a card
+    unless the CPU was asked for: ``SyncService.add_tenant`` (its first
+    wave), ``SyncService.restore`` (every tenant's session),
+    ``ResidencyManager.get`` of a spilled tenant (a session restore) and
+    ``BatchScheduler.wave_fleet`` (the bucket dispatch)."""
+    from cause_tpu_torch.serve import (BatchScheduler, IngestJournal,
+                                       IngestQueue, ResidencyManager,
+                                       SyncService)
+
+    def pair(tag):
+        b = ct.CausalList(ct.clist(weaver="torch").ct.evolve(
+            site_id=f"s{tag}BASE000000"))
+        b = b.extend(["w"] * 12)
+        return (ct.CausalList(b.ct.evolve(site_id=f"s{tag}A0000000000"))
+                .conj("A"),
+                ct.CausalList(b.ct.evolve(site_id=f"s{tag}B0000000000"))
+                .conj("B"))
+
+    def service(root):
+        root.mkdir(exist_ok=True)
+        q = IngestQueue(journal=IngestJournal(str(root / "wal.jsonl")))
+        return SyncService(q, residency=ResidencyManager(capacity=1),
+                           checkpoint_dir=str(root / "ckpt"), d_max=16)
+
+    ct.use_device("cpu")
+    svc = service(tmp_path / "one")
+    u1 = svc.add_tenant(*pair("P"))
+    u2 = svc.add_tenant(*pair("Q"))  # capacity 1: spills u1
+    assert svc.residency.spilled() == [u1]
+    manifest = svc.drain()
+    sess = svc.residency.get(u2)
+    a, b = pair("R")
+    ct.use_device("cuda")
+    for call in (lambda: service(tmp_path / "two").add_tenant(a, b),
+                 lambda: SyncService.restore(manifest),
+                 lambda: svc.residency.get(u1),
+                 lambda: BatchScheduler().wave_fleet({u2: sess})):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    ct.use_device("cpu")
+    restored = SyncService.restore(manifest)
+    assert restored.converged_digest(u1) == svc.converged_digest(u1)
+    assert BatchScheduler().wave_fleet({u2: sess})[u2].tolist() == \
+        sess._last_digest.tolist()
+
+
+HOST_ONLY = ["serve/__init__.py", "serve/__main__.py", "serve/ingest.py",
+             "serve/wal.py", "serve/controller.py", "serve/scrub.py",
+             "net/__init__.py", "net/transport.py", "net/session.py",
+             "net/server.py", "native/__init__.py"]
+
+
+@pytest.mark.parametrize("rel", HOST_ONLY)
+def test_host_side_serving_modules_hold_no_tensor_code(rel):
+    """Admission, the journal, the controller, the scrubber, the wire
+    and the native weaver are host work: none of them imports torch
+    itself, so the ingest and connection threads reach the card only
+    through the ticking thread's session calls. This reads each
+    module's own imports; ``import cause_tpu_torch`` does load torch."""
+    tree = ast.parse((ROOT / "cause_tpu_torch" / rel).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert not [n for n in names if n.split(".")[0] == "torch"]
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
