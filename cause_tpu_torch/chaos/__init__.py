@@ -35,8 +35,8 @@ Off-invariance: with ``CAUSE_TPU_CHAOS`` unset (or ``0``),
 state is kept, no plan file is read and nothing is logged. Enable with
 ``CAUSE_TPU_CHAOS=<plan.json path>`` (or an inline JSON object), or
 programmatically with :func:`configure` for tests. The injected-fault
-log (:func:`injected`, :func:`chaos_report`) is the evidence; the
-telemetry events of the reference come with the telemetry port.
+log (:func:`injected`, :func:`chaos_report`) and, with telemetry on,
+one ``chaos.inject`` event a firing are the evidence.
 
 Stdlib-only.
 """
@@ -307,6 +307,14 @@ def _record(f: _Fault, site: str, **details) -> None:
             st.dropped += 1
         else:
             st.log.append(rec)
+    # evidence in the ledgered stream — through obs, so chaos-without
+    # -obs still injects (detection evidence is the recovery side's
+    # job) and obs-off keeps its zero-records contract
+    from .. import obs
+
+    if obs.enabled():
+        obs.counter(f"chaos.injected.{f.family}").inc()
+        obs.event("chaos.inject", **rec)
 
 
 # ------------------------------------------------------------- hooks

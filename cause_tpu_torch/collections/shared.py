@@ -26,6 +26,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from .. import obs
 from .. import pstore
 from .. import util as u
 from ..ids import (
@@ -220,6 +221,21 @@ def insert(weave_fn: WeaveFn, ct: CausalTree, node, more_nodes_in_tx=None) -> Ca
                 {"causes": {"cause-must-exist"}},
             )
         seen.add(nd[0])
+    if obs.enabled():
+        # convergence-lag provenance: every local mutation funnels
+        # through here (conj/cons/extend/insert all land on this
+        # validated path), so this is the one host-side stamp point —
+        # site and lamport ride in the node id, the monotonic clock is
+        # captured inside op_created, all outside any trace
+        op_ids = [nd[0] for nd in nodes]
+        obs.lag.op_created(ct.uuid, op_ids)
+        # distributed-trace mint: the same funnel is where a
+        # locally-created batch gets its causal identity; ops already
+        # bound (a replayed run) keep their original trace
+        tr = obs.xtrace.new_trace()
+        obs.xtrace.hop("mint", tr, parent="", source="funnel",
+                       uuid=str(ct.uuid), ops=len(nodes))
+        obs.xtrace.bind_ops(tr, op_ids)
     # a non-chaining same-tx run is the one input whose INCREMENTAL
     # weave (contiguous splice at the run head's cause — the
     # runs-stick-together rule) differs from a from-scratch rebuild
@@ -285,6 +301,12 @@ def ensure_weave(weave_fn: WeaveFn, ct: CausalTree) -> CausalTree:
     object.__setattr__(ct, "weave_tail", None)
     if fresh.lanes is not None:
         object.__setattr__(ct, "lanes", fresh.lanes)
+    if obs.enabled():
+        # semantic layer: each paid materialization records weave
+        # length vs live values + tombstone ratio — the read-side cost
+        # the lazy fleet-editing mode defers, and the quantity GC
+        # exists to reclaim
+        obs.semantic.lazy_materialized(ct)
     return ct
 
 

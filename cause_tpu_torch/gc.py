@@ -78,6 +78,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Set
 
+from . import obs
 from .collections import shared as s
 from .collections.clist import hide_q, weave as list_weave
 from .collections.cmap import BLANK, active_node, weave as map_weave
@@ -263,6 +264,10 @@ def compact(handle, stable_vv: Optional[dict] = None):
     if ROOT_ID in nodes:
         keep.add(ROOT_ID)  # the sentinel head always survives
     if len(keep) >= len(nodes):
+        if obs.enabled():
+            obs.semantic.gc_compacted(len(nodes), 0,
+                                      frontier=stable_vv is not None,
+                                      uuid=ct.uuid)
         return handle  # nothing to drop
     new_nodes = {nid: nodes[nid] for nid in keep}
     out = _rebuild(handle, ct, new_nodes, weave_fn)
@@ -272,5 +277,13 @@ def compact(handle, stable_vv: Optional[dict] = None):
 
     if causal_to_edn(out) != causal_to_edn(handle):
         # pragma: no cover - conservative rules cover
+        if obs.enabled():
+            obs.semantic.gc_compacted(len(nodes), 0, refused=True,
+                                      frontier=stable_vv is not None,
+                                      uuid=ct.uuid)
         return handle
+    if obs.enabled():
+        obs.semantic.gc_compacted(len(nodes), len(nodes) - len(keep),
+                                  frontier=stable_vv is not None,
+                                  uuid=ct.uuid)
     return out

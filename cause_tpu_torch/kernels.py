@@ -32,7 +32,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 __all__ = ["SOURCES", "launches", "reset_launches", "build_all", "load",
-           "library", "check", "stream_handle"]
+           "library", "check", "stream_handle", "source_hash"]
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -99,6 +99,22 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_SOURCE_HASH: Optional[str] = None
+
+
+def source_hash() -> str:
+    """One hash of every kernel source, every header and the compiler
+    flags: the identity of the library a build on the card compiles
+    (telemetry's program identity). Read once per process."""
+    global _SOURCE_HASH
+    if _SOURCE_HASH is None:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+            h.update(path.name.encode() + b"\0" + path.read_bytes())
+        _SOURCE_HASH = h.hexdigest()[:16]
+    return _SOURCE_HASH
+
+
 def _lib_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
     for header in sorted(CSRC.glob("*.cuh")):
@@ -156,11 +172,17 @@ def library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
+    from . import obs
+
     with _LOCK:
         if name not in _LIBS:
-            for n, p in build_all().items():
-                if n not in _LIBS:
-                    _LIBS[n] = load(p)
+            # the first build or load of the library: with telemetry on
+            # it runs under the devprof.compile span
+            with obs.span("devprof.compile", kernels=len(SOURCES),
+                          library=source_hash() if obs.enabled() else ""):
+                for n, p in build_all().items():
+                    if n not in _LIBS:
+                        _LIBS[n] = load(p)
     return _LIBS[name]
 
 

@@ -4,7 +4,8 @@ sockets, designed partition-first — SafarDB's split (arXiv:2603.08003:
 the host owns admission and ordering, the accelerator owns merge) with
 the ingest ordering pushed into the network layer (arXiv:1605.05619).
 A copy of ``cause_tpu.net`` without its telemetry (the ``net.*``
-events and trace contexts come back with the telemetry port); frames
+events and trace contexts come with the networked half of the
+telemetry port); frames
 are byte-identical to the reference's obs-off frames, so a port client
 talks to a reference server and the reverse.
 

@@ -1,8 +1,8 @@
 """The serve-side acceptor: inbound replication frames → admission.
 
 A copy of ``cause_tpu.net.server`` without the ``net.*`` events,
-gauges, clock stamps and trace continuation, which come back with the
-telemetry port; replies are byte-identical to the reference's obs-off
+gauges, clock stamps and trace continuation, which come with the
+networked half of the telemetry port; replies are byte-identical to the reference's obs-off
 replies.
 
 One :class:`ReplicationServer` fronts a :class:`~cause_tpu_torch.serve

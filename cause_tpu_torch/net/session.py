@@ -1,7 +1,7 @@
 """Resumable client replication sessions: the producer side of the
 replication transport (a copy of ``cause_tpu.net.session``, without the
-``net.*`` events, gauges and trace contexts, which come back with the
-telemetry port; frames are byte-identical to the reference's obs-off
+``net.*`` events, gauges and trace contexts, which come with the
+networked half of the telemetry port; frames are byte-identical to the reference's obs-off
 frames).
 
 A :class:`NetClient` is the thin front-end a real fleet runs millions

@@ -16,9 +16,9 @@ failures — ``chaos.InjectedDispatchError`` and this module's
 :class:`TransientDispatchError`. Everything else propagates at once: a
 CUDA launch error, an out-of-memory and a shape error are not
 transient (a sticky CUDA error poisons the context, so a retry could
-only fail again). The telemetry the reference records at each
-transition comes with the telemetry port; until then :func:`step` is a
-no-op.
+only fail again). With telemetry on, :func:`step` emits one
+``recovery.step`` event a transition, and the retry rung its
+``recovery.retry`` / ``recovery.exhausted`` evidence.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import time
 from typing import Callable, Tuple
 
 from .. import chaos as _chaos
+from .. import obs
 
 __all__ = [
     "LADDER",
@@ -36,6 +37,7 @@ __all__ = [
     "step",
     "is_transient",
     "run_dispatch",
+    "restore_recorded",
 ]
 
 # the rungs, in degradation order; "host" is the per-pair host merge —
@@ -53,8 +55,19 @@ class TransientDispatchError(RuntimeError):
 
 def step(site: str, from_step: str, to_step: str, reason: str,
          uuid: str = "", **extra) -> None:
-    """Record one ladder transition. A no-op until the telemetry port
-    (the reference emits a ``recovery.step`` event here)."""
+    """Record one ladder transition (``recovery.step`` event +
+    per-rung counter). No-op with obs off."""
+    if not obs.enabled():
+        return
+    obs.counter("recovery.steps").inc()
+    obs.counter(f"recovery.step.{to_step}").inc()
+    fields = {"site": site, "from": from_step, "to": to_step,
+              "reason": reason}
+    if uuid:
+        fields["uuid"] = uuid
+    if extra:
+        fields.update(extra)
+    obs.event("recovery.step", **fields)
 
 
 def is_transient(exc: BaseException) -> bool:
@@ -82,8 +95,33 @@ def run_dispatch(site: str, fn: Callable, *, retries: int = MAX_RETRIES,
             if not is_transient(e):
                 raise
             if attempt >= retries:
+                if obs.enabled():
+                    obs.counter("recovery.exhausted").inc()
+                    obs.event("recovery.exhausted", site=site,
+                              attempts=attempt + 1,
+                              error=type(e).__name__,
+                              **({"uuid": uuid} if uuid else {}))
                 where = f"{site} ({uuid})" if uuid else site
                 e.add_note(f"{where}: failed after {attempt + 1} attempts")
                 raise
             attempt += 1
+            if obs.enabled():
+                obs.counter("recovery.retry").inc()
+                obs.event("recovery.retry", site=site, attempt=attempt,
+                          error=type(e).__name__,
+                          **({"uuid": uuid} if uuid else {}))
             time.sleep(backoff_s * attempt)
+
+
+def restore_recorded(site: str, pairs: int, delta_restored: bool,
+                     uuid: str = "") -> None:
+    """Evidence of a checkpoint restore (``recovery.restore``): a
+    crashed process came back and resumed — with its delta frontier
+    when ``delta_restored``, without it when the frontier failed
+    revalidation (the next wave re-establishes at full width)."""
+    if not obs.enabled():
+        return
+    obs.counter("recovery.restores").inc()
+    obs.event("recovery.restore", site=site, pairs=int(pairs),
+              delta_restored=bool(delta_restored),
+              **({"uuid": uuid} if uuid else {}))

@@ -46,9 +46,10 @@ the views alone), and holds its rows of the bucket output on the device
 until something reads the resident weave (``_flush_window``).
 
 The device is the package default (``use_device``) unless ``device=``
-names one; on the card every wave runs the B1, B2 and B3 kernels. The
-telemetry hooks, which the reference runs only when they are enabled,
-come with the telemetry port.
+names one; on the card every wave runs the B1, B2 and B3 kernels.
+With telemetry on (``obs``), each wave emits its spans, one
+``wave.cost`` event, its ``wave.digest`` semantics and a device-memory
+sample; with it off, none of that runs.
 
 **Fault injection.** With the chaos engine armed, each ``wave()``
 passes its seams first: a ``stall`` fault sleeps there, and a
@@ -69,6 +70,7 @@ import numpy as np
 import torch
 
 from .. import chaos as _chaos
+from .. import obs
 from ..benchgen import LANE_KEYS5, lanes_from_numpy, v5_token_budget
 from ..collections import shared as s
 from ..device import resolve_device
@@ -78,8 +80,8 @@ from ..weaver.segments import SEG_LANE_KEYS, concat_seg_tables
 from . import recovery as _recovery
 from .mesh import mix32_np, replica_digest
 from .wave import (WaveBuffers, WaveResult, _PAD, _assemble_rows,
-                   _sampled_body_spotcheck, assemble_delta_window,
-                   delta_domain_ok, fetch_digest)
+                   _observe_semantics, _sampled_body_spotcheck,
+                   assemble_delta_window, delta_domain_ok, fetch_digest)
 
 __all__ = ["FleetSession"]
 
@@ -197,6 +199,11 @@ class FleetSession:
         return views
 
     def _full_upload(self, pairs):
+        with obs.span("session.full_upload", pairs=len(pairs)):
+            obs.counter("session.full_upload").inc()
+            return self._full_upload_inner(pairs)
+
+    def _full_upload_inner(self, pairs):
         views = self._collect_views(pairs)
         if views is None:
             raise s.CausalError(
@@ -217,6 +224,12 @@ class FleetSession:
         self.u_max = max(self.u_max, next_pow2(
             int(u * self._u_headroom) + self.d_max
         ))
+        if obs.enabled():
+            # resident-budget headroom: how far the CURRENT fleet sits
+            # below the session's token ceiling
+            from ..obs import semantic as _sem
+
+            _sem.token_headroom(int(self.u_max) - int(u), "session")
         self.capacity = cap
         self.dev = _upload(lanes, self.device)
         self._views = views
@@ -237,14 +250,28 @@ class FleetSession:
         ]
         self._gen = views[0][0].interner.generation
         self.pairs = list(pairs)
-        # a full upload is the session's O(doc) degradation: the
-        # delta-wave capability drops until the next full wave
+        # a full upload is the session's O(doc) degradation: the next
+        # wave.cost records it as a full-bag wave with zero delta ops,
+        # and the delta-wave capability drops until the next full wave
         # re-establishes the resident frontier
         self._last_delta_lanes = 0
         self._last_update_full = True
         self._delta = None
         self._dev_stale = False
         self._pending_window = None
+        if obs.enabled():
+            from ..obs import devprof
+
+            devprof.sample_device_memory("session.upload", self.device)
+
+    def _degrade(self, pairs, reason: str):
+        """The update-level ``delta -> full`` recovery-ladder rung:
+        every full re-upload taken from the delta path is a declared,
+        evidenced transition (``recovery.step``), not a silent
+        bounce."""
+        _recovery.step("session", "delta", "full", reason,
+                       uuid=str(pairs[0][0].ct.uuid) if pairs else "")
+        return self._full_upload(pairs)
 
     # ------------------------------------------------------------------
     def update(self, pairs: Sequence[Tuple[object, object]]):
@@ -256,11 +283,12 @@ class FleetSession:
         # wave: the resident pairs move ahead of the last wave's
         # rank/visibility/digest
         self._last_digest = None
-        return self._update_inner(pairs)
+        with obs.span("session.update", pairs=len(pairs)):
+            return self._update_inner(pairs)
 
     def _update_inner(self, pairs):
         if len(pairs) != len(self._views):
-            return self._full_upload(pairs)
+            return self._degrade(pairs, "pair-count-change")
         views = self._collect_views(pairs)
         if views is None:
             raise s.CausalError(
@@ -286,22 +314,22 @@ class FleetSession:
                 n0 = int(self._uploaded_n[r, t])
                 if (v.arena is not ov.arena and ov.arena.nodes[:n0]
                         != v.arena.nodes[:n0]):
-                    return self._full_upload(pairs)  # rewritten history
+                    return self._degrade(pairs, "rewritten-history")
                 if v.n < n0 or v.n - n0 > d_max or v.n > cap:
-                    return self._full_upload(pairs)  # delta overflow
+                    return self._degrade(pairs, "delta-overflow")
                 # an append that stabbed an old interior lane
                 # restructures the uploaded prefix's segment ordinals —
                 # the resident seg lane would be silently stale
                 if not np.array_equal(
                         v.segments()["run_of_lane"][:n0],
                         self._uploaded_rol[r][t][:n0]):
-                    return self._full_upload(pairs)
+                    return self._degrade(pairs, "interior-stab")
             ka = int(va.segments()["sg_len"].shape[0])
             kb = int(vb.segments()["sg_len"].shape[0])
             s_needed = max(s_needed, ka + kb)
         s_max = self.dev["sg_len"].shape[1]
         if s_needed > s_max:
-            return self._full_upload(pairs)  # segment-table overflow
+            return self._degrade(pairs, "segment-overflow")
 
         # delta path committed from here on; the sampled append-only
         # body check covers whole trees (a corrupt lane may be resident
@@ -309,6 +337,7 @@ class FleetSession:
         _bad = _sampled_body_spotcheck(views)
         if _bad:
             raise next(iter(_bad.values()))
+        obs.counter("session.delta_update").inc()
 
         if self._delta is not None:
             # delta-WAVE domain (stricter than the lane-splice domain
@@ -327,6 +356,13 @@ class FleetSession:
                         v, sp, anchor, start=int(self._uploaded_n[r, t]))
                     for t, v in enumerate((va, vb)))
                 if not ok:
+                    obs.counter("session.delta_wave_invalidate").inc()
+                    # the splice stays valid; only the delta-WAVE
+                    # capability drops — the next wave runs the full
+                    # rung and re-establishes
+                    _recovery.step("session", "delta", "full",
+                                   "domain-violation",
+                                   uuid=str(pairs[0][0].ct.uuid), pair=r)
                     self._delta = None
                     break
 
@@ -394,6 +430,15 @@ class FleetSession:
         else:
             _apply_deltas(self.dev, deltas, starts, counts, b_shift,
                           old_nb)
+            if obs.enabled():
+                # the resident splice counts as a dispatch, as the
+                # reference's splice program does — outside any wave
+                # window (update-time), so it counts globally; the
+                # spliced lane total rides the NEXT wave.cost
+                from ..obs import costmodel as _cm
+
+                _cm.record_dispatch(f"session:splice:d{self.d_max}",
+                                    site="session")
             for k in SEG_LANE_KEYS:
                 self.dev[k] = torch.as_tensor(np.stack(tables[k])).to(
                     device=self.device, dtype=self.dev[k].dtype)
@@ -426,6 +471,7 @@ class FleetSession:
             _chaos.stall_point("session")
             if self._delta is not None \
                     and _chaos.budget_exhaust("session"):
+                obs.counter("session.delta_wave_invalidate").inc()
                 _recovery.step("session", "delta", "full",
                                "budget-exhaustion", uuid=self._uuid())
                 self._delta = None
@@ -448,30 +494,100 @@ class FleetSession:
         self._pending_window = None
         if self._dev_stale:
             self._full_upload(self.pairs)
-        r, v, _c, ov = _recovery.run_dispatch(
-            "session",
-            lambda: batched_merge_weave_v5(
+        if obs.enabled():
+            from ..obs import costmodel as _cm
+
+            _cm.wave_begin("session")
+            # wedge-triage heartbeat: before the dispatch, so a live
+            # monitor can pair "session wave started" with the
+            # wave.digest that should follow (see parallel/wave.py)
+            obs.event("run.heartbeat", stage="session.wave",
+                      uuid=self._uuid(), pairs=len(self.pairs))
+
+        def run():
+            return batched_merge_weave_v5(
                 *(self.dev[k] for k in LANE_KEYS5),
-                u_max=self.u_max, k_max=self.u_max, device=self.device,
-            ), uuid=self._uuid())
-        out = fetch_digest(replica_digest(self.dev["hi"], self.dev["lo"],
-                                          r, v))
-        self.last_rank = r
-        self.last_visible = v
-        self.last_overflow = ov
+                u_max=self.u_max, k_max=self.u_max, device=self.device)
+
+        with obs.span("session.wave", pairs=len(self.pairs),
+                      u_max=int(self.u_max)):
+            if obs.enabled():
+                from ..obs import devprof
+
+                run = devprof.profiled(
+                    run, self.device, site="session", pipeline="v5",
+                    B=len(self.pairs), N=2 * int(self.capacity),
+                    u_max=int(self.u_max), k_max=int(self.u_max))
+            r, v, _c, ov = _recovery.run_dispatch("session", run,
+                                                  uuid=self._uuid())
+            out = fetch_digest(replica_digest(self.dev["hi"],
+                                              self.dev["lo"], r, v))
+            if obs.enabled():
+                from ..obs import costmodel as _cm
+
+                _cm.record_dispatch(f"session:v5:u{int(self.u_max)}",
+                                    site="session")
+                _cm.record_dispatch("session:digest", site="session")
+            self.last_rank = r
+            self.last_visible = v
+            self.last_overflow = ov
+        if obs.enabled():
+            # wave-boundary devprof sample: the session's whole point
+            # is device residency, so its growth must be a curve
+            from ..obs import devprof
+
+            devprof.sample_device_memory("session", self.device)
         if bool(ov.any()):
+            rows = torch.nonzero(ov).flatten().tolist()
+            if obs.enabled():
+                # an overflowed wave's digests are garbage — record
+                # the incident, never feed them to the monitors; the
+                # cost window is dropped too (fleet.session_overflow
+                # is the incident record)
+                from ..obs import costmodel as _cm
+                from ..obs import semantic as _sem
+
+                _sem.session_overflow(rows)
+                _cm.wave_abandon()
             raise s.CausalError(
                 "wave overflowed the session's token budget; raise "
                 "u_headroom or re-create the session",
-                {"causes": {"token-overflow"},
-                 "rows": torch.nonzero(ov).flatten().tolist()},
+                {"causes": {"token-overflow"}, "rows": rows},
             )
+        if obs.enabled():
+            # every session digest is device-computed (overflow raised
+            # above), so the whole wave feeds the divergence monitors
+            sem = _observe_semantics(self.pairs, out,
+                                     np.ones(len(self.pairs), bool),
+                                     "session")
+            # the cost-vs-divergence join, session flavor: delta ops
+            # are the lanes the LAST update actually spliced (zero
+            # after a full upload — that wave paid O(doc) transfer,
+            # recorded as full_bag)
+            from ..obs import costmodel as _cm
+
+            _cm.wave_cost(
+                uuid=self._uuid(),
+                pairs=len(self.pairs),
+                lanes=2 * int(self.capacity) * len(self.pairs),
+                token_budget=int(self.u_max) * len(self.pairs),
+                delta_ops=self._last_delta_lanes,
+                full_bag=1 if self._last_update_full else 0,
+                semantic=sem,
+                path="full",
+            )
+            self._last_delta_lanes = 0
+            self._last_update_full = False
         if self._delta_enabled:
             self._establish_delta(r, v)
         self._last_digest = out
         return out
 
     # ----------------------------------------------- delta-native wave
+    def _fail_establish(self) -> None:
+        self._delta_failures += 1
+        obs.counter("session.delta_establish_fail").inc()
+
     def _establish_delta(self, rank_dev, vis_dev) -> None:
         """Derive the delta frontier from a completed full wave: the
         shared converged lane prefix per pair, the anchor (the prefix
@@ -495,8 +611,7 @@ class FleetSession:
         for r, (va, vb) in enumerate(self._views):
             sp = lanecache.shared_prefix_len(va, vb)
             if sp < 1:
-                self._delta_failures += 1
-                return
+                return self._fail_establish()
             s_arr[r] = sp
         rank_np = rank_dev.cpu().numpy()
         for r, (va, vb) in enumerate(self._views):
@@ -507,15 +622,13 @@ class FleetSession:
             # divergent lane wove inside it and nothing can be frozen
             if not bool((pr < sp).all()) or int(pr.max()) != sp - 1 or \
                     int(np.bincount(pr, minlength=sp).max()) != 1:
-                self._delta_failures += 1
-                return
+                return self._fail_establish()
             anchor = int(np.argmax(pr))
             if int(va.arena.vclass[anchor]) > 0 or not (
                     delta_domain_ok(va, sp, anchor)
                     and delta_domain_ok(vb, sp, anchor)):
                 # a special anchor breaks the host-jump locality
-                self._delta_failures += 1
-                return
+                return self._fail_establish()
             anchor_arr[r] = anchor
             w_now = max(w_now, va.n - sp, vb.n - sp)
         vis_np = vis_dev.cpu().numpy()
@@ -556,23 +669,74 @@ class FleetSession:
         # lanes (same frontier, counts grow monotonically), so its
         # splice below supersedes the unflushed output bit for bit
         self._pending_window = None
-        lanes, starts, counts = assemble_delta_window(
-            self._views, dstate["s"], dstate["anchor"], wcap, n_w)
-        r0 = dstate["s"].astype(np.int32) - 1
-        t = lanes_from_numpy(lanes, self.device)
-        rank_w, vis_w, digest, ovf = _recovery.run_dispatch(
-            "session",
-            lambda: torchwd.batched_delta_weave(
-                *(t[k] for k in LANE_KEYS5), dstate["prefix_digest"], r0,
-                u_max=n_w, k_max=n_w, device=self.device),
-            uuid=self._uuid())
-        out = fetch_digest(digest)
-        if bool(ovf.any()):  # pragma: no cover - unreachable at u = N_w
-            self._delta = None
-            return None
-        torchwd.splice_ranks(self.last_rank, self.last_visible, rank_w,
-                             vis_w, starts, counts, r0)
-        self.last_overflow = ovf
+        B = len(self.pairs)
+        if obs.enabled():
+            from ..obs import costmodel as _cm
+
+            _cm.wave_begin("session")
+            obs.event("run.heartbeat", stage="session.delta_wave",
+                      uuid=self._uuid(), pairs=B)
+        with obs.span("session.delta_wave", pairs=B, w_cap=int(wcap)):
+            with obs.span("session.delta_assemble"):
+                lanes, starts, counts = assemble_delta_window(
+                    self._views, dstate["s"], dstate["anchor"], wcap, n_w)
+            r0 = dstate["s"].astype(np.int32) - 1
+            t = lanes_from_numpy(lanes, self.device)
+
+            def run():
+                return torchwd.batched_delta_weave(
+                    *(t[k] for k in LANE_KEYS5), dstate["prefix_digest"],
+                    r0, u_max=n_w, k_max=n_w, device=self.device)
+
+            if obs.enabled():
+                from ..obs import devprof
+
+                run = devprof.profiled(
+                    run, self.device, site="session", pipeline="delta",
+                    B=B, N=int(n_w), u_max=int(n_w), k_max=int(n_w))
+            rank_w, vis_w, digest, ovf = _recovery.run_dispatch(
+                "session", run, uuid=self._uuid())
+            out = fetch_digest(digest)
+            if bool(ovf.any()):  # pragma: no cover - unreachable at u = N_w
+                obs.counter("session.delta_wave_overflow").inc()
+                self._delta = None
+                if obs.enabled():
+                    from ..obs import costmodel as _cm
+
+                    _recovery.step("session", "delta", "full",
+                                   "window-overflow", uuid=self._uuid())
+                    _cm.wave_abandon()
+                return None
+            torchwd.splice_ranks(self.last_rank, self.last_visible, rank_w,
+                                 vis_w, starts, counts, r0)
+            self.last_overflow = ovf
+            if obs.enabled():
+                from ..obs import costmodel as _cm
+
+                _cm.record_dispatch(f"session:delta:w{int(wcap)}",
+                                    site="session")
+                _cm.record_dispatch("session:delta_splice", site="session")
+        if obs.enabled():
+            from ..obs import devprof
+
+            devprof.sample_device_memory("session", self.device)
+            sem = _observe_semantics(self.pairs, out, np.ones(B, bool),
+                                     "session")
+            from ..obs import costmodel as _cm
+
+            _cm.wave_cost(
+                uuid=self._uuid(),
+                pairs=B,
+                lanes=2 * int(self.capacity) * B,
+                tokens=int(counts.sum()) + 2 * B,
+                token_budget=int(n_w) * B,
+                delta_ops=self._last_delta_lanes,
+                full_bag=0,
+                semantic=sem,
+                path="delta",
+            )
+            self._last_delta_lanes = 0
+            self._last_update_full = False
         self._last_digest = out
         return out
 
@@ -616,10 +780,10 @@ class FleetSession:
         fallback rung (bucket window overflow, injected budget
         exhaustion). The next wave runs full width and re-establishes —
         this tenant alone pays the slow path, its bucket-mates stay
-        fast. ``reason`` names the ladder step for the telemetry
-        port."""
+        fast. ``reason`` names the ladder step (``recovery.step``)."""
         if self._delta is None:
             return
+        obs.counter("session.delta_wave_invalidate").inc()
         _recovery.step("serve", "batch", "full", reason, uuid=self._uuid())
         self._delta = None
 
@@ -648,6 +812,12 @@ class FleetSession:
             "counts": np.asarray(counts, np.int32),
             "r0": dstate["s"].astype(np.int32) - 1,
         }
+        if obs.enabled():
+            # per-tenant semantics are unchanged by batching: the
+            # wave.digest agreement, staleness and lag resolution all
+            # observe THIS session's digests, same as _delta_wave
+            _observe_semantics(self.pairs, out,
+                               np.ones(len(self.pairs), bool), "session")
         self._last_digest = out
         return out
 
@@ -667,12 +837,16 @@ class FleetSession:
         torchwd.splice_ranks(self.last_rank, self.last_visible,
                              pw["rank_w"], pw["vis_w"], pw["starts"],
                              pw["counts"], pw["r0"])
+        if obs.enabled():
+            from ..obs import costmodel as _cm
+
+            _cm.record_dispatch("session:delta_splice", site="session")
 
     def pop_divergence(self):
         """(delta_lanes, full_bag) shipped since the last read — the
         divergence evidence, reset on read. The batched scheduler drains
-        every bucket member (the reference sums them onto the bucket's
-        ``wave.cost`` event)."""
+        every bucket member and sums them onto the bucket's single
+        ``wave.cost`` event."""
         d = int(self._last_delta_lanes)
         f = 1 if self._last_update_full else 0
         self._last_delta_lanes = 0
@@ -729,27 +903,29 @@ class FleetSession:
                 {"causes": {"no-wave"}},
             )
         self._flush_window()
-        ck = {
-            "~causal_session": self.CHECKPOINT_VERSION,
-            "d_max": int(self.d_max),
-            "u_headroom": float(self._u_headroom),
-            "delta_enabled": bool(self._delta_enabled),
-            "u_max": int(self.u_max),
-            "capacity": int(self.capacity),
-            "pairs": [[serde.to_data(a), serde.to_data(b)]
-                      for a, b in self.pairs],
-            "rank": _pack_arr(self.last_rank.cpu().numpy()),
-            "visible": _pack_arr(self.last_visible.cpu().numpy()),
-            "digest": _pack_arr(np.asarray(self._last_digest)),
-        }
-        if self._delta is not None:
-            ck["delta"] = {
-                "s": _pack_arr(self._delta["s"]),
-                "anchor": _pack_arr(self._delta["anchor"]),
-                "prefix_digest": _pack_arr(self._delta["prefix_digest"]),
-                "w_cap": int(self._delta["w_cap"]),
+        with obs.span("session.checkpoint", pairs=len(self.pairs)):
+            obs.counter("session.checkpoint").inc()
+            ck = {
+                "~causal_session": self.CHECKPOINT_VERSION,
+                "d_max": int(self.d_max),
+                "u_headroom": float(self._u_headroom),
+                "delta_enabled": bool(self._delta_enabled),
+                "u_max": int(self.u_max),
+                "capacity": int(self.capacity),
+                "pairs": [[serde.to_data(a), serde.to_data(b)]
+                          for a, b in self.pairs],
+                "rank": _pack_arr(self.last_rank.cpu().numpy()),
+                "visible": _pack_arr(self.last_visible.cpu().numpy()),
+                "digest": _pack_arr(np.asarray(self._last_digest)),
             }
-        return ck
+            if self._delta is not None:
+                ck["delta"] = {
+                    "s": _pack_arr(self._delta["s"]),
+                    "anchor": _pack_arr(self._delta["anchor"]),
+                    "prefix_digest": _pack_arr(self._delta["prefix_digest"]),
+                    "w_cap": int(self._delta["w_cap"]),
+                }
+            return ck
 
     def checkpoint_to(self, path: str) -> None:
         """``checkpoint()`` straight to a JSON file, written to a
@@ -773,8 +949,6 @@ class FleetSession:
         {"checkpoint-mismatch"}``). The delta frontier is revalidated on
         the host against the rebuilt views; if it no longer holds, the
         session restores without it (the next wave runs full width)."""
-        from .. import serde
-
         if isinstance(data, str):
             try:
                 with open(data) as f:
@@ -794,6 +968,13 @@ class FleetSession:
                  "version": (data or {}).get("~causal_session")
                  if isinstance(data, dict) else None},
             )
+        with obs.span("session.restore"):
+            return cls._restore_checked(data, device)
+
+    @classmethod
+    def _restore_checked(cls, data, device) -> "FleetSession":
+        from .. import serde
+
         pairs = [(serde.from_data(ea), serde.from_data(eb))
                  for ea, eb in data["pairs"]]
         obj = cls.__new__(cls)
@@ -859,6 +1040,7 @@ class FleetSession:
                  "rows": np.flatnonzero(got != want).tolist()},
             )
         obj._last_digest = got
+        delta_restored = False
         dck = data.get("delta")
         if dck is not None and obj._delta_enabled:
             frontier = {
@@ -869,6 +1051,11 @@ class FleetSession:
             }
             if obj._frontier_valid(frontier):
                 obj._delta = frontier
+                delta_restored = True
+            else:
+                obs.counter("session.restore_frontier_drop").inc()
+        _recovery.restore_recorded("session", B, delta_restored,
+                                   uuid=str(pairs[0][0].ct.uuid))
         return obj
 
     def _frontier_valid(self, frontier: dict) -> bool:

@@ -41,8 +41,12 @@ the next level). The device is the package default (``use_device``)
 unless ``device=`` names one. With the chaos engine armed, a
 ``budget_exhaust("tree")`` fault bounces a delta level to full width
 exactly as an outgrown window does (the root is bit-identical), and
-injected dispatch faults are retried by ``recovery.run_dispatch``. The
-telemetry hooks of the reference are not ported yet (ROADMAP A.13).
+injected dispatch faults are retried by ``recovery.run_dispatch``.
+
+With telemetry on, each level emits ``tree.level`` spans, the
+``wave.digest(source="tree")`` semantic events and a per-level
+``wave.cost`` join (``python -m cause_tpu_torch.obs gap`` renders the
+per-level decomposition).
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .. import chaos as _chaos
+from .. import obs
 from ..benchgen import LANE_KEYS5, lanes_from_numpy
 from ..collections import shared as s
 from ..device import resolve_device
@@ -340,7 +345,27 @@ def _level_stats(level, P, byes, path, window, delta_ops, digests):
             "distinct": distinct, "agreed": distinct == 1}
 
 
-def _delta_level(pairs, state, level, byes, device):
+def _observe_level(uuid, level, digests, pairs, byes, delta_ops,
+                   window, path, dispatches, final):
+    from ..obs import lag as _lag
+    from ..obs import semantic as _sem
+
+    if not _sem.enabled():
+        return None
+    out = _sem.observe_tree_level(
+        uuid, level, digests, [True] * len(digests), pairs=pairs,
+        byes=byes, delta_ops=delta_ops, window=window, path=path,
+        dispatches=dispatches, final=final)
+    # convergence-lag resolution, tree flavor: level 0 weaves every
+    # replica's stamped ops (create→woven); only the FINAL level's
+    # fleet-wide digest agreement converges them — intermediate levels
+    # converge subtrees, not the fleet
+    _lag.level_observed(uuid, agreed=bool(out and out.get("agreed")),
+                        level=level, final=final)
+    return out
+
+
+def _delta_level(pairs, state, level, uuid, byes, final, device):
     """One delta level: windows assembled from pooled sides, ONE
     ``batched_delta_weave`` dispatch for the whole level, the next
     level's sides merged on the host after the dispatch is queued (the
@@ -354,32 +379,70 @@ def _delta_level(pairs, state, level, byes, device):
     n_w = 2 * wcap
     P = len(pairs)
     delta_ops = sum(len(l) + len(r) for l, r in sides_pairs)
-    lanes = _assemble_level(sides_pairs, state, wcap)
-    pdig = np.full(P, np.uint32(state["pdig"]), np.uint32)
-    r0 = np.full(P, state["s"] - 1, np.int32)
-    t = lanes_from_numpy(lanes, device)
-    rank_w, _vis_w, dig, ovf = _recovery.run_dispatch(
-        "tree",
-        lambda: torchwd.batched_delta_weave(
-            *(t[k] for k in LANE_KEYS5), pdig, r0,
-            u_max=int(n_w), k_max=int(n_w), device=device))
-    # pipeline: merge the NEXT level's sides on the host while the
-    # window weave finishes on the device; the digest fetch below is
-    # this level's only sync point
-    new_subs = [
-        _Sub(members=a.members + b.members, views=a.views + b.views,
-             side=_merge_sides(a.side, b.side), ranks=rank_w[i],
-             wcap=wcap, sides_lr=(a.side, b.side))
-        for i, (a, b) in enumerate(pairs)
-    ]
-    digests = fetch_digest(dig)
-    if bool(ovf.any()):  # pragma: no cover - unreachable at u = N_w
-        return None
+    if obs.enabled():
+        from ..obs import costmodel as _cm
+
+        _cm.wave_begin("tree")
+    with obs.span("tree.level", level=level, pairs=P, wcap=int(wcap),
+                  path="delta"):
+        with obs.span("tree.assemble", level=level):
+            lanes = _assemble_level(sides_pairs, state, wcap)
+        pdig = np.full(P, np.uint32(state["pdig"]), np.uint32)
+        r0 = np.full(P, state["s"] - 1, np.int32)
+        t = lanes_from_numpy(lanes, device)
+
+        def run():
+            return torchwd.batched_delta_weave(
+                *(t[k] for k in LANE_KEYS5), pdig, r0,
+                u_max=int(n_w), k_max=int(n_w), device=device)
+
+        if obs.enabled():
+            from ..obs import devprof
+
+            run = devprof.profiled(run, device, site="tree",
+                                   pipeline="delta", B=P, N=int(n_w),
+                                   u_max=int(n_w), k_max=int(n_w))
+        rank_w, _vis_w, dig, ovf = _recovery.run_dispatch("tree", run)
+        if obs.enabled():
+            from ..obs import costmodel as _cm
+
+            _cm.record_dispatch(f"tree:delta:w{int(wcap)}", site="tree")
+        # pipeline: merge the NEXT level's sides on the host while the
+        # window weave finishes on the device; the digest fetch below
+        # is this level's only sync point
+        new_subs = [
+            _Sub(members=a.members + b.members, views=a.views + b.views,
+                 side=_merge_sides(a.side, b.side), ranks=rank_w[i],
+                 wcap=wcap, sides_lr=(a.side, b.side))
+            for i, (a, b) in enumerate(pairs)
+        ]
+        digests = fetch_digest(dig)
+        if bool(ovf.any()):  # pragma: no cover - unreachable at u = N_w
+            if obs.enabled():
+                from ..obs import costmodel as _cm
+
+                _cm.wave_abandon()
+            return None
+    sem = _observe_level(uuid, level, digests, P, byes, delta_ops,
+                         wcap, "delta", 1, final)
+    if obs.enabled():
+        from ..obs import costmodel as _cm
+
+        # lanes is the O(doc) axis (each pair's two documents: frozen
+        # prefix + divergent side), tokens the O(delta) window work —
+        # same units as the session's wave.cost join
+        doc_lanes = sum(2 * state["s"] + len(l) + len(r)
+                        for l, r in sides_pairs)
+        _cm.wave_cost(uuid=uuid, pairs=P, lanes=doc_lanes,
+                      tokens=delta_ops + 2 * P,
+                      token_budget=int(n_w) * P,
+                      delta_ops=delta_ops, semantic=sem,
+                      path="delta", level=level)
     return new_subs, digests, _level_stats(level, P, byes, "delta", wcap,
                                            delta_ops, digests)
 
 
-def _full_level(pairs, state, level, byes, bye_subs, device):
+def _full_level(pairs, state, level, uuid, byes, bye_subs, final, device):
     """One full-width level (first contact / bounce): materialize both
     sides of every pair, run the document-width kernel+digest over the
     whole level in one dispatch, materialize the winners, and
@@ -404,16 +467,34 @@ def _full_level(pairs, state, level, byes, bye_subs, device):
         views_pairs.append((va, vb))
     P = len(pairs)
     cap = next_pow2(max(max(va.n, vb.n) for va, vb in views_pairs))
-    lanes = _assemble_rows(views_pairs, cap)
-    rank, vis, dig, _info = dispatch_full_rows(lanes, site="tree",
-                                               device=device)
-    res = WaveResult(handles_pairs, views_pairs, cap, rank, vis,
-                     dig, {}, "v5", digest_valid=np.ones(P, bool))
-    winners = [res.merged(i) for i in range(P)]
+    if obs.enabled():
+        from ..obs import costmodel as _cm
+
+        _cm.wave_begin("tree")
+    with obs.span("tree.level", level=level, pairs=P, cap=int(cap),
+                  path="full"):
+        with obs.span("tree.assemble", level=level):
+            lanes = _assemble_rows(views_pairs, cap)
+        rank, vis, dig, info = dispatch_full_rows(lanes, site="tree",
+                                                  device=device)
+        res = WaveResult(handles_pairs, views_pairs, cap, rank, vis,
+                         dig, {}, "v5", digest_valid=np.ones(P, bool))
+        winners = [res.merged(i) for i in range(P)]
     delta_ops = sum(
         (va.n - state["s"]) + (vb.n - state["s"])
         for va, vb in views_pairs
     ) if state is not None else 0
+    sem = _observe_level(uuid, level, dig, P, byes, delta_ops, cap,
+                         "full", 1 + (1 if info["retried"] else 0), final)
+    if obs.enabled():
+        from ..obs import costmodel as _cm
+
+        _cm.wave_cost(uuid=uuid, pairs=P, lanes=2 * int(cap) * P,
+                      tokens=info["u_need"] * P,
+                      token_budget=info["u_max"] * P,
+                      delta_ops=delta_ops,
+                      overflow_retries=info["retried"], semantic=sem,
+                      path="full", level=level)
     new_subs = []
     for w, (va, vb) in zip(winners, views_pairs):
         wv = lanecache.view_for(w.ct)
@@ -446,6 +527,13 @@ def _full_level(pairs, state, level, byes, bye_subs, device):
             sp, anchor = new_state["s"], new_state["anchor"]
             for sub in new_subs + list(bye_subs):
                 sub.side = _side_of(sub.views[0], sp, anchor)
+        else:
+            obs.counter("tree.establish_fail").inc()
+            # the next level cannot ride delta: declared, not silent —
+            # the levels that follow run full width until an
+            # establishment succeeds
+            _recovery.step("tree", "delta", "full", "establish-fail",
+                           uuid=uuid, level=level)
     return new_subs, new_state, _level_stats(level, P, byes, "full", cap,
                                              delta_ops, dig)
 
@@ -457,6 +545,7 @@ def _merge_tree_impl(handles, w_budget: Optional[int], device):
     first = handles[0]
     for h in handles[1:]:
         s.check_mergeable(first.ct, h.ct)
+    uuid = str(first.ct.uuid)
     report = {"n": len(handles), "rounds": tree_rounds(len(handles)),
               "levels": []}
     if len(handles) == 1:
@@ -485,43 +574,53 @@ def _merge_tree_impl(handles, w_budget: Optional[int], device):
             sub.views = [v]
     state = None
     level = 0
-    while len(subs) > 1:
-        pairs = [(subs[i], subs[i + 1])
-                 for i in range(0, len(subs) - 1, 2)]
-        bye_subs = [subs[-1]] if len(subs) % 2 else []
-        byes = len(bye_subs)
-        use_delta = (
-            state is not None
-            and all(sub.side is not None for sub in subs)
-        )
-        if use_delta and w_budget is not None:
-            wmax = max(len(sub.side) for sub in subs)
-            # mid-tree full-width bounce: the pooled windows outgrew
-            # the budget — run this level at document width and
-            # re-establish for the rest (the old state stays live: the
-            # symbolic survivors still materialize through it)
-            use_delta = 1 + wmax <= int(w_budget)
-        if use_delta and _chaos.enabled() \
-                and _chaos.budget_exhaust("tree"):
-            # injected window-budget exhaustion: the same ladder rung,
-            # the same (bit-identical) full-width bounce
-            _recovery.step("tree", "delta", "full", "budget-exhaustion",
-                           uuid=str(first.ct.uuid), level=level)
-            use_delta = False
-        t0 = time.perf_counter()
-        out = _delta_level(pairs, state, level, byes, device) \
-            if use_delta else None
-        if out is None:
-            new_subs, state, stats = _full_level(
-                pairs, state, level, byes, bye_subs, device)
-        else:
-            new_subs, _dig, stats = out
-        # the level's digests are on the host by now (the fetch waits
-        # for the device), so this is the level's whole time
-        stats["ms"] = (time.perf_counter() - t0) * 1e3
-        subs = new_subs + bye_subs
-        report["levels"].append(stats)
-        level += 1
+    with obs.span("tree.converge", n=len(handles),
+                  rounds=report["rounds"]):
+        while len(subs) > 1:
+            pairs = [(subs[i], subs[i + 1])
+                     for i in range(0, len(subs) - 1, 2)]
+            bye_subs = [subs[-1]] if len(subs) % 2 else []
+            byes = len(bye_subs)
+            final = len(pairs) == 1 and byes == 0
+            use_delta = (
+                state is not None
+                and all(sub.side is not None for sub in subs)
+            )
+            if use_delta and w_budget is not None:
+                wmax = max(len(sub.side) for sub in subs)
+                if 1 + wmax > int(w_budget):
+                    # mid-tree full-width bounce: the pooled windows
+                    # outgrew the budget — run this level at document
+                    # width and re-establish for the rest (the old
+                    # state stays live: the symbolic survivors still
+                    # materialize through it)
+                    obs.counter("tree.window_bounce").inc()
+                    _recovery.step("tree", "delta", "full",
+                                   "window-budget", uuid=uuid, level=level)
+                    use_delta = False
+            if use_delta and _chaos.enabled() \
+                    and _chaos.budget_exhaust("tree"):
+                # injected window-budget exhaustion: the same ladder
+                # rung, the same (bit-identical) full-width bounce
+                obs.counter("tree.window_bounce").inc()
+                _recovery.step("tree", "delta", "full",
+                               "budget-exhaustion", uuid=uuid, level=level)
+                use_delta = False
+            t0 = time.perf_counter()
+            out = _delta_level(pairs, state, level, uuid, byes, final,
+                               device) if use_delta else None
+            if out is None:
+                new_subs, state, stats = _full_level(
+                    pairs, state, level, uuid, byes, bye_subs, final,
+                    device)
+            else:
+                new_subs, _dig, stats = out
+            # the level's digests are on the host by now (the fetch
+            # waits for the device), so this is the level's whole time
+            stats["ms"] = (time.perf_counter() - t0) * 1e3
+            subs = new_subs + bye_subs
+            report["levels"].append(stats)
+            level += 1
     root = _materialize(subs[0], state)
     report["path_counts"] = {
         p: sum(1 for lv in report["levels"] if lv["path"] == p)
@@ -593,6 +692,7 @@ def flat_fold(handles: Sequence, ctx=None, device=None):
         raise s.CausalError("Nothing to merge.",
                             {"causes": {"empty-fleet"}})
     acc = handles[0]
-    for h in handles[1:]:
-        acc = merge_wave([(acc, h)], ctx=ctx, device=device).merged(0)
+    with obs.span("tree.flat_fold", n=len(handles)):
+        for h in handles[1:]:
+            acc = merge_wave([(acc, h)], ctx=ctx, device=device).merged(0)
     return acc

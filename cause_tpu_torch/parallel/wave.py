@@ -42,6 +42,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import obs
 from ..collections import shared as s
 from ..device import default_device
 from ..weaver import lanecache
@@ -246,7 +247,9 @@ def _pipeline() -> str:
 def _dispatch(lanes, u: int, device, site: str, pipeline: str = "v5"):
     """One kernel + digest dispatch over an assembled lane batch, v5 or
     (``pipeline="v5f"``) the fused token pipeline; host numpy ``(rank,
-    visible, digest, overflow)``."""
+    visible, digest, overflow)``. With telemetry on, the first dispatch
+    of each identity (pipeline, shape, budgets) emits its
+    ``devprof.program`` event."""
     from ..benchgen import LANE_KEYS5, lanes_from_numpy
     from ..weaver.torchw5f import batched_merge_weave_v5f
     from ..weaver.torchwd import batched_weave_digest
@@ -262,6 +265,13 @@ def _dispatch(lanes, u: int, device, site: str, pipeline: str = "v5"):
         return batched_weave_digest(*args, u_max=int(u), k_max=int(u),
                                     device=device)
 
+    if obs.enabled():
+        from ..obs import devprof
+
+        B, N = lanes["hi"].shape
+        run = devprof.profiled(run, device, site=site, pipeline=pipeline,
+                               B=int(B), N=int(N), u_max=int(u),
+                               k_max=int(u))
     rank, visible, digest, overflow = _recovery.run_dispatch(site, run)
     return (rank.cpu().numpy(), visible.cpu().numpy(),
             fetch_digest(digest), overflow.cpu().numpy())
@@ -282,13 +292,27 @@ def dispatch_full_rows(lanes, site: str = "tree", device="cuda"):
 
     u_need = int(v5_token_budget(lanes))
     u_max = next_pow2(u_need)
-    rank, visible, digest, overflow = _dispatch(lanes, u_max, device, site)
+
+    def _run(sub, u):
+        out = _dispatch(sub, u, device, site)
+        if obs.enabled():
+            from ..obs import costmodel as _cm
+
+            _cm.record_dispatch(f"{site}:full:u{int(u)}", site=site)
+        return out
+
+    rank, visible, digest, overflow = _run(lanes, u_max)
     retried = 0
     if overflow.any():
         rows = np.flatnonzero(overflow)
         retried = len(rows)
+        obs.counter("wave.overflow_retry").inc(retried)
+        # recovery-ladder rung: the sampled token budget missed a
+        # spiky row, escalate just those rows to a doubled budget
+        _recovery.step(site, "full", "double_budget", "token-overflow",
+                       rows=retried)
         sub = {k: lanes[k][rows] for k in LANE_KEYS5}
-        r2, v2, d2, ov2 = _dispatch(sub, 2 * u_max, device, site)
+        r2, v2, d2, ov2 = _run(sub, 2 * u_max)
         if ov2.any():
             raise s.CausalError(
                 "full-width level overflowed its doubled token budget",
@@ -301,6 +325,45 @@ def dispatch_full_rows(lanes, site: str = "tree", device="cuda"):
     return rank, visible, digest, {
         "u_need": u_need, "u_max": int(u_max), "retried": retried,
     }
+
+
+def _observe_semantics(pairs, digests, valid, source: str):
+    """One wave's CRDT-semantic telemetry (``wave.digest`` agreement,
+    per-pair staleness, ``divergence`` provenance) — obs-on callers
+    only. The version-vector callback is lazy: vectors are built from
+    the yarn caches only when a divergence actually needs
+    first-differing-site provenance, never on the agreeing fast
+    path. Returns the wave summary fields (``observe_wave``'s dict)
+    so the cost model can join them onto its ``wave.cost`` event, or
+    None when obs is off."""
+    from ..obs import lag as _lag
+    from ..obs import semantic
+    from ..sync import version_vector
+
+    if not semantic.enabled():
+        return None
+
+    def vv_of(i):
+        # the merged pair's vector: pointwise max of both replicas'
+        a, b = pairs[i]
+        vv = {k: list(v) for k, v in version_vector(a).items()}
+        for site, h in version_vector(b).items():
+            h = list(h)
+            if site not in vv or vv[site] < h:
+                vv[site] = h
+        return vv
+
+    sem = semantic.observe_wave(pairs[0][0].ct.uuid, digests, valid,
+                                vv_of=vv_of, source=source)
+    # convergence-lag resolution: the wave wove every op stamped for
+    # this document (create→woven), and an agreeing wave is the
+    # fleet-converged visibility point (create→converged); a
+    # disagreeing or degenerate wave leaves the ops pending — they
+    # resolve at the first wave whose digests agree
+    _lag.wave_observed(pairs[0][0].ct.uuid,
+                       agreed=bool(sem and sem.get("agreed")),
+                       source=source)
+    return sem
 
 
 # Lanes sampled per tree per wave by the body spot-check below.
@@ -549,6 +612,24 @@ def merge_wave(pairs: Sequence[Tuple[object, object]],
     if not pairs:
         raise s.CausalError("Nothing to merge.", {"causes": {"empty-fleet"}})
     dev = default_device() if device is None else device
+    with obs.span("wave.merge", pairs=len(pairs), sharded=False):
+        return _merge_wave(pairs, ctx, dev)
+
+
+def _merge_wave(pairs, ctx, dev) -> WaveResult:
+    if obs.enabled():
+        # open the wave cost window: device dispatches below attribute
+        # to it, and ONE wave.cost event joins them to the wave's
+        # divergence evidence on every exit path
+        from ..obs import costmodel as _cm
+
+        _cm.wave_begin("wave")
+        # wedge triage heartbeat: lands BEFORE the device dispatch, so
+        # a live monitor distinguishes "a wave started and never
+        # produced its wave.digest" (wedged dispatch) from "nobody is
+        # waving" (idle)
+        obs.event("run.heartbeat", stage="wave",
+                  uuid=str(pairs[0][0].ct.uuid), pairs=len(pairs))
     for a, b in pairs:
         s.check_mergeable(a.ct, b.ct)
 
@@ -567,6 +648,7 @@ def merge_wave(pairs: Sequence[Tuple[object, object]],
             # validation is what a repeat payload offender has to pass
             # — a corrupt one lands in poisoned, never in the
             # digest-only device path
+            obs.counter("wave.quarantined").inc()
             _recovery.step("wave", "full", "host", "quarantined",
                            uuid=str(a.ct.uuid), pair=i)
             try:
@@ -607,6 +689,22 @@ def merge_wave(pairs: Sequence[Tuple[object, object]],
         live = [i for i, v in enumerate(views) if v is not None]
     if not live:
         B = len(pairs)
+        obs.counter("wave.pairs").inc(B)
+        obs.counter("wave.fallback").inc(len(fallback))
+        obs.counter("wave.poisoned").inc(len(poisoned))
+        if obs.enabled():
+            # the wave still happened; every pair ages (no device
+            # digest converged it against the fleet's modal value)
+            sem = _observe_semantics(pairs, np.zeros(B, np.uint32),
+                                     np.zeros(B, bool), "wave")
+            # a degenerate wave (all pairs host-merged/poisoned) ran
+            # zero device programs: its wave.cost records that
+            from ..obs import costmodel as _cm
+
+            _cm.wave_cost(uuid=str(pairs[0][0].ct.uuid), pairs=B,
+                          lanes=0, full_bag=len(fallback),
+                          poisoned=len(poisoned), semantic=sem,
+                          path="full")
         return WaveResult(pairs, views, 0,
                           np.zeros((B, 0), np.int32),
                           np.zeros((B, 0), bool),
@@ -617,7 +715,8 @@ def merge_wave(pairs: Sequence[Tuple[object, object]],
         max(va.n, vb.n) for i in live for va, vb in [views[i]]
     ))
     live_views = [views[i] for i in live]
-    lanes = _assemble_rows(live_views, cap, bufs=ctx)
+    with obs.span("wave.assemble", rows=len(live_views), cap=int(cap)):
+        lanes = _assemble_rows(live_views, cap, bufs=ctx)
 
     from ..benchgen import LANE_KEYS5, v5_token_budget
 
@@ -629,15 +728,44 @@ def merge_wave(pairs: Sequence[Tuple[object, object]],
     # keep the same shapes
     u_need = int(v5_token_budget(lanes))
     u_max = next_pow2(u_need)
-    rank, visible, digest, overflow = _dispatch(lanes, u_max, dev, "wave",
-                                                pipeline)
+
+    def dispatch_v5(sub, u):
+        out = _dispatch(sub, u, dev, "wave", pipeline)
+        if obs.enabled():
+            # dispatch accounting, as the reference counts it: one
+            # kernel and one digest invocation per dispatch, attributed
+            # to the open wave window
+            from ..obs import costmodel as _cm
+
+            _cm.record_dispatch(f"wave:{pipeline}:u{int(u)}", site="wave")
+            _cm.record_dispatch("wave:digest", site="wave")
+        return out
+
+    if obs.enabled():
+        # token-budget headroom: the pow2 slack this fleet has before
+        # a divergence spike overflows the kernel and forces
+        # retries/host fallbacks
+        from ..obs import semantic as _sem
+
+        _sem.token_headroom(int(u_max) - u_need, "wave")
+    with obs.span("wave.dispatch", kernel=pipeline, rows=len(live_views),
+                  u_max=int(u_max), sharded=False):
+        rank, visible, digest, overflow = dispatch_v5(lanes, u_max)
+    n_retried = 0
     if overflow.any():
         # the token budget samples rows; a spiky unsampled row can
         # overflow. Retry just those rows with a doubled budget before
         # resorting to host merges.
         rows = np.flatnonzero(overflow)
+        n_retried = len(rows)
+        obs.counter("wave.overflow_retry").inc(len(rows))
+        obs.event("wave.overflow_retry", rows=len(rows), u_max=int(u_max))
+        _recovery.step("wave", "full", "double_budget", "token-overflow",
+                       uuid=str(pairs[0][0].ct.uuid), rows=n_retried)
         sub = {k: lanes[k][rows] for k in LANE_KEYS5}
-        r2, v2, d2, ov2 = _dispatch(sub, 2 * u_max, dev, "wave", pipeline)
+        with obs.span("wave.dispatch.retry", rows=len(rows),
+                      u_max=int(2 * u_max)):
+            r2, v2, d2, ov2 = dispatch_v5(sub, 2 * u_max)
         rank[rows] = r2
         visible[rows] = v2
         digest[rows] = d2
@@ -651,6 +779,10 @@ def merge_wave(pairs: Sequence[Tuple[object, object]],
     for j, i in enumerate(live):
         if bool(overflow[j]):
             a, b = pairs[i]
+            # the ladder's last rung: still overflowing at the doubled
+            # budget, this pair runs the host merge
+            _recovery.step("wave", "double_budget", "host",
+                           "token-overflow", uuid=str(a.ct.uuid), pair=i)
             try:
                 # budget blown at the doubled budget: host path, correct
                 fallback[i] = a.merge(b)
@@ -663,5 +795,34 @@ def merge_wave(pairs: Sequence[Tuple[object, object]],
         full_vis[i] = visible[j]
         full_dig[i] = digest[j]
         dig_valid[i] = True
+    obs.counter("wave.pairs").inc(B)
+    obs.counter("wave.fallback").inc(len(fallback))
+    obs.counter("wave.poisoned").inc(len(poisoned))
+    if obs.enabled():
+        # semantic layer: digest agreement, staleness aging, and (on
+        # disagreement) one divergence event with site provenance
+        sem = _observe_semantics(pairs, full_dig, dig_valid, "wave")
+        # devprof wave-boundary sample: the caching allocator's device
+        # memory after the dispatch, so per-wave residency renders as
+        # a curve next to the dispatch spans
+        from ..obs import devprof
+
+        devprof.sample_device_memory("wave", dev)
+        # the cost-vs-divergence join: ONE wave.cost event carrying
+        # this wave's dispatch count and program identities next to
+        # its token work size (the O(delta) axis), its lane width
+        # (the O(doc) axis) and the semantic digest summary
+        from ..obs import costmodel as _cm
+
+        # lanes/tokens are FLEET totals (lanes: the O(doc) transfer/
+        # scan width; tokens: worst-row estimate × rows — the kernel
+        # pads every row to the budget), same units as delta_ops
+        _cm.wave_cost(uuid=str(pairs[0][0].ct.uuid), pairs=B,
+                      lanes=2 * int(cap) * B,
+                      tokens=int(u_need) * len(live_views),
+                      token_budget=int(u_max) * len(live_views),
+                      full_bag=len(fallback), poisoned=len(poisoned),
+                      overflow_retries=n_retried, semantic=sem,
+                      path="full")
     return WaveResult(pairs, views, cap, full_rank, full_vis, full_dig,
                       fallback, pipeline, dig_valid, poisoned=poisoned)

@@ -32,9 +32,11 @@ replicated-data-type ops). The port of ``cause_tpu.serve``.
 
 The sessions run on the package default device (``use_device``): only
 the ticking thread touches CUDA; admission, the journal and the net
-server's connection threads stay on the host. The telemetry the
-reference records along the way (``serve.*`` events, counters, gauges,
-traces and the live feed) comes back with the telemetry port.
+server's connection threads stay on the host. With telemetry on, the
+plane records what the reference's does (``serve.*`` events, counters,
+gauges, traces and the live feed the controller reads); the telemetry
+uplink (``CAUSE_TPU_OBS_SHIP``) comes with the networked half of the
+telemetry port.
 
 Import discipline: this ``__init__`` and the host-side modules (ingest,
 controller, wal, scrub) import nothing of torch themselves; the

@@ -34,8 +34,10 @@ hooks factored out of ``FleetSession._delta_wave``:
   its bucket, runs its own full-width ``wave()`` (re-establish)
   WITHOUT dragging its bucket-mates down the slow path.
 
-The reference's per-bucket ``wave.cost`` accounting and trace hops come
-back with the telemetry port.
+Cost accounting (telemetry on): each bucket emits one ``wave.cost``
+with ``bucket`` and ``batch_rows`` fields (``path="batched"``),
+draining every member tenant's pending delta-op evidence, so
+``floor_budget_ms`` scales with #buckets, not #tenants.
 """
 
 from __future__ import annotations
@@ -45,6 +47,8 @@ from typing import Dict, List
 import numpy as np
 
 from .. import chaos as _chaos
+from .. import obs
+from ..obs import xtrace
 
 __all__ = ["BatchScheduler"]
 
@@ -58,15 +62,22 @@ class BatchScheduler:
         self.last_buckets = 0
         self.last_batch_rows = 0
         self.last_fallbacks = 0
+        # tick-scoped {uuid: [trace ids]} for per-tenant wave hops
+        self._traces_by_uuid: Dict[str, list] = {}
 
-    def wave_fleet(self, sessions) -> Dict[str, np.ndarray]:
+    def wave_fleet(self, sessions,
+                   traces_by_uuid=None) -> Dict[str, np.ndarray]:
         """One batched wave over ``{uuid: FleetSession}``: every session
         ends wave-current; returns ``{uuid: digest array}`` bit-identical
         to per-tenant ``wave()`` calls. The dispatches run on the package
-        default device, and raise without a card when that is CUDA."""
+        default device, and raise without a card when that is CUDA.
+        ``traces_by_uuid`` (telemetry on) maps tenants to the trace ids
+        riding this tick so each fused bucket span fans out per-tenant
+        "wave" child hops."""
         from ..device import resolve_device
 
         device = resolve_device()
+        self._traces_by_uuid = traces_by_uuid or {}
         digests: Dict[str, np.ndarray] = {}
         fallback: List[str] = []
         buckets: Dict[int, list] = {}
@@ -90,6 +101,9 @@ class BatchScheduler:
         for uuid in fallback:
             # full-width re-establish, one tenant at a time
             digests[uuid] = sessions[uuid].wave()
+            if obs.enabled():
+                for tr in self._traces_by_uuid.get(uuid, ()):
+                    xtrace.hop("wave", tr, uuid=uuid, path="full")
         self.last_fallbacks = len(fallback)
         return digests
 
@@ -123,33 +137,91 @@ class BatchScheduler:
         s_arr = np.concatenate(s_parts).astype(np.int32)
         anchor_arr = np.concatenate(anchor_parts).astype(np.int32)
         pdig = np.concatenate(pdig_parts).astype(np.uint32)
+        uuids = [u for u, _se, _lo, _n in row_of]
         self.last_batch_rows += n_pad
         if _chaos.enabled():
             # one stall draw per dispatch, the same rate the per-tenant
             # path pays per wave
             _chaos.stall_point("session")
-        lanes, starts, counts = assemble_delta_window(
-            views, s_arr, anchor_arr, wcap, n_w)
-        r0 = s_arr - 1
-        t = lanes_from_numpy(lanes, device)
-        rank_w, vis_w, digest, ovf = _recovery.run_dispatch(
-            "session",
-            lambda: torchwd.batched_delta_weave(
-                *(t[k] for k in LANE_KEYS5), pdig, r0,
-                u_max=n_w, k_max=n_w, device=device))
-        # one host fetch of the bucket's digests and flags; the ranks
-        # and visibility stay on the device, split per tenant by rows
-        out = fetch_digest(digest)
-        ovf_np = ovf.cpu().numpy()
+        if obs.enabled():
+            from ..obs import costmodel as _cm
+
+            _cm.wave_begin("serve")
+            obs.event("run.heartbeat", stage="serve.batch_wave",
+                      bucket=int(wcap), tenants=len(group),
+                      batch_rows=n_pad)
+        with obs.span("serve.batch_wave", bucket=int(wcap),
+                      tenants=len(group), rows=n_real):
+            with obs.span("serve.batch_assemble"):
+                lanes, starts, counts = assemble_delta_window(
+                    views, s_arr, anchor_arr, wcap, n_w)
+            r0 = s_arr - 1
+            t = lanes_from_numpy(lanes, device)
+
+            def run():
+                return torchwd.batched_delta_weave(
+                    *(t[k] for k in LANE_KEYS5), pdig, r0,
+                    u_max=n_w, k_max=n_w, device=device)
+
+            if obs.enabled():
+                from ..obs import devprof
+
+                run = devprof.profiled(run, device, site="serve",
+                                       pipeline="delta", B=n_pad,
+                                       N=int(n_w), u_max=int(n_w),
+                                       k_max=int(n_w))
+            rank_w, vis_w, digest, ovf = _recovery.run_dispatch(
+                "session", run)
+            # one host fetch of the bucket's digests and flags; the
+            # ranks and visibility stay on the device, split per tenant
+            # by rows
+            out = fetch_digest(digest)
+            ovf_np = ovf.cpu().numpy()
+            if obs.enabled():
+                from ..obs import costmodel as _cm
+
+                _cm.record_dispatch(f"serve:batch:w{int(wcap)}x{n_pad}",
+                                    site="serve")
+        delta_ops = 0
+        full_bags = 0
         for uuid, sess, r_lo, rows in row_of:
             sl = slice(r_lo, r_lo + rows)
             if bool(ovf_np[sl].any()):  # pragma: no cover -
                 # structurally unreachable at u_max = N_w (the same
                 # budget rule as _delta_wave); kept so a future budget
                 # change degrades this tenant alone, not its bucket
+                obs.counter("serve.batch_row_overflow").inc()
                 sess.abandon_frontier("window-overflow")
                 fallback.append(uuid)
                 continue
-            sess.pop_divergence()
+            d, f = sess.pop_divergence()
+            delta_ops += d
+            full_bags += f
             digests[uuid] = sess.complete_window(
                 rank_w[sl], vis_w[sl], out[sl], starts[sl], counts[sl])
+            if obs.enabled():
+                # the bucket span fans out per-tenant child hops: each
+                # trace's "wave" hop names the fused dispatch (bucket +
+                # rows) that actually served it
+                for tr in self._traces_by_uuid.get(uuid, ()):
+                    xtrace.hop("wave", tr, uuid=uuid, path="batched",
+                               bucket=int(wcap), batch_rows=n_pad)
+        if obs.enabled():
+            from ..obs import costmodel as _cm
+            from ..obs import devprof
+
+            devprof.sample_device_memory("serve.batch", device)
+            _cm.wave_cost(
+                uuid=f"bucket:w{int(wcap)}",
+                pairs=n_real,
+                lanes=sum(2 * int(se.capacity) * n
+                          for _u, se, _lo, n in row_of),
+                tokens=int(counts[:n_real].sum()) + 2 * n_real,
+                token_budget=int(n_w) * n_pad,
+                delta_ops=delta_ops,
+                full_bag=full_bags,
+                path="batched",
+                bucket=int(wcap),
+                batch_rows=n_pad,
+                uuids=uuids,
+            )

@@ -1,7 +1,7 @@
 """The adaptive T_batch controller: the lag SLO's cost model, inverted
 live. A copy of ``cause_tpu.serve.controller`` with the H100's dispatch
-floor as its default (``DISPATCH_FLOOR_MS`` below) and without the
-``serve.control`` event, which comes back with the telemetry port.
+floor as its default (``DISPATCH_FLOOR_MS`` below, the port's one floor
+constant: ``obs.costmodel`` reads it too).
 
 The lag SLO decomposes as ``p99 ≈ T_batch + floor×dispatches +
 slope×batch_ops``: an op created at the start of a
@@ -43,6 +43,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from .. import obs
 
 __all__ = ["BatchController", "DISPATCH_FLOOR_MS"]
 
@@ -120,7 +121,8 @@ class BatchController:
     def update(self, snapshot: dict) -> float:
         """One control tick against a ``live.snapshot`` dict. Applies
         feedback (burn) and capacity (headroom) to the inversion
-        target, then hysteresis/step-cap/cooldown damping."""
+        target, then hysteresis/step-cap/cooldown damping. Emits one
+        ``serve.control`` event per actual change (obs on)."""
         lag = snapshot.get("lag") or {}
         slo = lag.get("slo") or {}
         burn = slo.get("burn_rate")
@@ -175,7 +177,13 @@ class BatchController:
         if self.t_batch_ms > 0 and abs(proposed - self.t_batch_ms) \
                 / self.t_batch_ms < self.hysteresis:
             return self.t_batch_ms
+        old = self.t_batch_ms
         self.t_batch_ms = proposed
         self._cooldown = self.cooldown_ticks
         self.changes += 1
+        if obs.enabled():
+            obs.counter("serve.control_changes").inc()
+            obs.gauge("serve.t_batch_ms").set(round(proposed, 3))
+            obs.event("serve.control", old_ms=round(old, 3),
+                      new_ms=round(proposed, 3), **self.last_terms)
         return self.t_batch_ms

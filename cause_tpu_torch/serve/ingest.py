@@ -1,9 +1,8 @@
 """Bounded-queue admission: the host side of the SafarDB offload split.
 
-A copy of ``cause_tpu.serve.ingest`` without its telemetry (the
-``serve.shed`` events, counters and trace hops come back with the
-telemetry port); the stats, the refusals and the journal bytes are the
-reference's.
+A copy of ``cause_tpu.serve.ingest``: the stats, the refusals, the
+journal bytes and, with telemetry on, the ``serve.shed`` events,
+counters and trace hops are the reference's.
 
 The admission queue is the seam where the service meets the world, and
 it is designed around three refusals:
@@ -39,7 +38,8 @@ it is designed around three refusals:
   ``retry_after_ms`` instead of acknowledged — an unappendable
   journal must NEVER ack, or a crash would lose an "admitted" op.
 
-  Every shed — every rung — is counted in the queue's ``stats``.
+  Every shed — every rung — is counted in the queue's ``stats`` and,
+  with telemetry on, is one evidenced ``serve.shed`` event.
 
 Stdlib + this package's ``sync`` only: admission is host work by
 design (the accelerator owns merge, nothing else), and this module
@@ -55,8 +55,10 @@ import time
 from collections import OrderedDict, deque
 from typing import Callable, Iterator, List, Optional
 
+from .. import obs
 from .. import sync
 from ..collections import shared as s
+from ..obs import xtrace
 
 __all__ = ["Admission", "IngestJournal", "IngestQueue"]
 
@@ -190,7 +192,7 @@ class _Entry:
         self.ops = ops
         self.seq = seq
         self.ts_us = ts_us
-        # trace ids riding this batch (None without telemetry)
+        # trace ids riding this batch (None when obs is off)
         self.traces = traces
 
 
@@ -319,12 +321,26 @@ class IngestQueue:
     def _shed(self, rung: str, reason: str, uuid: str, site: str,
               ops: int, retry_after_ms: Optional[float] = None,
               traces=None) -> None:
-        """The one funnel every shed goes through: the stats (the
-        reference also emits its ``serve.shed`` event here). Called
-        under the lock."""
+        """The one funnel every shed goes through: stats + the
+        evidenced ``serve.shed`` event (telemetry on). Called under the
+        lock."""
         self.stats["sheds"] += 1
         self.stats["shed_ops"] += ops
         self.stats["shed_by_rung"][rung] += 1
+        if obs.enabled():
+            obs.counter("serve.sheds").inc()
+            obs.counter("serve.shed_ops").inc(ops)
+            fields = {"rung": rung, "reason": reason, "uuid": uuid,
+                      "site": site, "ops": ops,
+                      "depth": self._depth,
+                      "deferred": len(self._deferred)}
+            if retry_after_ms is not None:
+                fields["retry_after_ms"] = retry_after_ms
+            obs.event("serve.shed", **fields)
+            # a shed ENDS the batch's journey — record where it died
+            for tr in (traces or ()):
+                xtrace.hop("shed", tr, rung=rung, reason=reason,
+                           uuid=uuid, site=site)
 
     # ------------------------------------------------------ admission
 
@@ -344,6 +360,8 @@ class IngestQueue:
         if sync.is_quarantined(site):
             with self._lock:
                 self.stats["quarantine_refusals"] += 1
+            if obs.enabled():
+                obs.counter("serve.quarantine_refusals").inc()
             return Admission(False, rung="quarantined",
                              reason="site-quarantined")
         try:
@@ -367,11 +385,31 @@ class IngestQueue:
             # applied, and a crash replay would trip over it
             with self._lock:
                 self.stats["unknown_tenant_rejects"] += 1
+            if obs.enabled():
+                obs.counter("serve.unknown_tenant_rejects").inc()
             return Admission(False, rung="reject",
                              reason="unknown-tenant")
         ops = len(items)
         if ops == 0:
             return Admission(True, seq=0)  # nothing to admit
+        if obs.enabled() and not traces:
+            # the Admission.offer mint point: a batch arriving with
+            # no upstream context (local producer, not the wire).
+            # Ops already bound in-process (the mutation funnel's
+            # mint) continue THEIR traces — minting over them would
+            # split one journey into two half-chains; only genuinely
+            # unattributed batches get their causal identity here.
+            # Past the trust boundary on purpose — poison earns no
+            # trace.
+            existing = xtrace.traces_of(it[0] for it in items)
+            if existing:
+                traces = existing[:16]
+            else:
+                tr = xtrace.new_trace()
+                xtrace.hop("mint", tr, parent="", source="offer",
+                           uuid=uuid, site=site, ops=ops)
+                xtrace.bind_ops(tr, [it[0] for it in items])
+                traces = [tr]
         with self._lock:
             if self._closed:
                 # drain already started: admission is closed, the
@@ -438,6 +476,15 @@ class IngestQueue:
             self._deferred = deque(
                 d for d in self._deferred
                 if not (d.uuid == uuid and d.site == site))
+        # WRITE-AHEAD: journal first, acknowledge after. An
+        # unappendable journal must never ack — the durability rung
+        # refuses the offer with a retry hint and the producer
+        # re-offers once storage recovers (zero ADMITTED ops lost:
+        # this op was never admitted)
+        if obs.enabled():
+            for tr in (traces or ()):
+                xtrace.hop("admit", tr, uuid=uuid, site=site, ops=ops,
+                           depth=self._depth)
         if self.journal is not None:
             try:
                 seq = self.journal.append(uuid, site, items, ts_us=now,
@@ -452,6 +499,10 @@ class IngestQueue:
                            retry_after_ms=retry, traces=traces)
                 return Admission(False, rung="durability",
                                  reason=reason, retry_after_ms=retry)
+            if obs.enabled():
+                for tr in (traces or ()):
+                    xtrace.hop("journal", tr, uuid=uuid, site=site,
+                               seq=seq)
         else:
             self._seq += 1
             seq = self._seq
@@ -463,6 +514,10 @@ class IngestQueue:
         self.stats["admitted_batches"] += 1
         if self._depth > self.stats["max_depth"]:
             self.stats["max_depth"] = self._depth
+        if obs.enabled():
+            obs.counter("serve.admitted_ops").inc(ops)
+            obs.counter("serve.admitted_batches").inc()
+            obs.gauge("serve.queue_depth").set(self._depth)
         return Admission(True, seq=seq)
 
     def close_admission(self) -> None:
@@ -532,7 +587,11 @@ class IngestQueue:
                 adm = self._admit_locked(d.uuid, d.site, d.items,
                                          d.ops, now, traces=d.traces)
                 self.stats["deferred_promoted"] += 1
+                if obs.enabled():
+                    obs.counter("serve.deferred_promoted").inc()
                 # promoted entries are admitted but not drained this
                 # call: the next drain picks them up in FIFO order
                 assert adm.admitted
+            if obs.enabled():
+                obs.gauge("serve.queue_depth").set(self._depth)
         return out

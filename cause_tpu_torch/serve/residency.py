@@ -21,10 +21,10 @@ delta frontier) and spills the LRU tail to host:
   ``checkpoint-mismatch``). A torn or tampered pack can cost a
   re-upload and a loud error; it can never cost a wrong answer.
 
-Every transition is counted in ``stats`` (the reference also emits
-``serve.evict`` / ``serve.restore`` events and the
-``serve.resident_docs`` gauge; they come back with the telemetry
-port).
+Every transition is counted in ``stats`` and, with telemetry on, is
+evidence: ``serve.evict`` / ``serve.restore`` events, eviction/restore
+counters, and the ``serve.resident_docs`` gauge the live snapshot
+reads.
 
 Evict requires the session to be wave-current (an update since the
 last wave makes the checkpoint unprovable — ``FleetSession`` refuses); the service guarantees that by waving every touched tenant
@@ -39,6 +39,7 @@ import os
 from collections import OrderedDict
 from typing import Dict, List, Optional
 
+from .. import obs
 
 __all__ = ["ResidencyManager"]
 
@@ -83,14 +84,21 @@ class ResidencyManager:
         """Resident tenants grouped by their pow2 batch-bucket key
         (``FleetSession.bucket_key``; 0 = next wave runs full width).
         The batched tick's marshaling unit: every tenant under one
-        key rides one fused dispatch."""
+        key rides one fused dispatch. Sets the ``serve.buckets``
+        gauge as a side effect (telemetry on)."""
         out: Dict[int, List[str]] = {}
         for uuid, sess in self._resident.items():
             out.setdefault(int(getattr(sess, "bucket_key", 0)),
                            []).append(uuid)
+        if obs.enabled():
+            obs.gauge("serve.buckets").set(len(out))
         return out
 
     # ----------------------------------------------------- transitions
+
+    def _gauge(self) -> None:
+        if obs.enabled():
+            obs.gauge("serve.resident_docs").set(len(self._resident))
 
     def insert(self, uuid: str, session) -> None:
         """Register a (new or restored) session as resident, evicting
@@ -102,6 +110,7 @@ class ResidencyManager:
         self._spilled.pop(uuid, None)
         while len(self._resident) > self.capacity:
             self.evict(next(iter(self._resident)))
+        self._gauge()
 
     def evict(self, uuid: str) -> None:
         """Spill one resident tenant to a checkpoint-grade pack. The
@@ -121,6 +130,12 @@ class ResidencyManager:
         del self._resident[uuid]
         self._spilled[uuid] = pack
         self.stats["evictions"] += 1
+        if obs.enabled():
+            obs.counter("serve.evictions").inc()
+            obs.event("serve.evict", uuid=uuid,
+                      resident=len(self._resident),
+                      spilled=len(self._spilled))
+        self._gauge()
 
     def get(self, uuid: str):
         """Touch one tenant: the resident session (MRU-bumped), or a
@@ -147,6 +162,10 @@ class ResidencyManager:
             self.evict(next(iter(self._resident)))
         sess = FleetSession.restore(pack)  # the digest gate lives here
         self.stats["restores"] += 1
+        if obs.enabled():
+            obs.counter("serve.restores").inc()
+            obs.event("serve.restore", uuid=uuid,
+                      resident=len(self._resident) + 1)
         if self.spill_dir and isinstance(pack, str):
             try:
                 os.unlink(pack)

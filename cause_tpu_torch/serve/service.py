@@ -12,8 +12,8 @@ controller, residency) plus the per-tenant journal watermarks:
   tenant (``serve.batch``; the B1, B2 and B3 kernels on the card), or
   one wave per tenant with ``batched=False``;
 - **watchdog** — a daemon thread watching the tick heartbeat, firing
-  once per excursion past ``watchdog_s`` (the reference's
-  ``serve.watchdog`` event comes back with the telemetry port);
+  once per excursion past ``watchdog_s`` (one ``serve.watchdog`` event
+  per excursion with telemetry on);
 - **drain** — stop admission → flush the queue (deferred entries
   included) → every tenant wave-current → checkpoint everything
   (per-tenant packs + one atomic manifest with the journal
@@ -35,11 +35,16 @@ Devices: every session the service builds (``add_tenant``, ``restore``,
 a residency restore) lands on the package default device
 (``use_device``) and raises without a card unless the CPU was asked
 for. Only the ticking thread touches CUDA; admission, the journal and a
-net server's connection threads stay on the host. The reference's live
-feed attachment, telemetry uplink and ``serve.*`` events come back with
-the telemetry port; the tick summary's ``wave_dispatches`` is read from
-the telemetry cost counter there, and is 0 here as it is in the
-reference with telemetry off.
+net server's connection threads stay on the host.
+
+Telemetry (``obs`` on): construction attaches a live fold
+(``obs.live.attach``) with the controller's ``on_alert`` as its alert
+callback; each tick polls it and feeds the snapshot to
+``BatchController.update``, emits ``serve.tick`` and a
+``run.heartbeat``, and reads the tick's ``wave_dispatches`` from the
+cost model's ``costmodel.dispatches`` counter (0 with telemetry off, as
+in the reference). ``close()`` detaches the subscriber. The
+reference's telemetry uplink (``CAUSE_TPU_OBS_SHIP``) is not ported.
 """
 
 from __future__ import annotations
@@ -52,9 +57,11 @@ import zlib
 from typing import Dict, List, Optional
 
 from .. import chaos as _chaos
+from .. import obs
 from .. import serde
 from .. import sync
 from ..collections import shared as s
+from ..obs import xtrace
 from .batch import BatchScheduler
 from .controller import BatchController
 from .ingest import IngestQueue, _Entry
@@ -74,8 +81,10 @@ class ServiceCrashed(RuntimeError):
 
 
 class SyncService:
-    """See the module docstring. Tenants register via
-    :meth:`add_tenant` (or arrive via :meth:`restore`)."""
+    """See the module docstring. Construction wires the live
+    attachment (obs on) with the controller registered as the alert
+    callback; tenants register via :meth:`add_tenant` (or arrive via
+    :meth:`restore`)."""
 
     def __init__(self, queue: IngestQueue,
                  controller: Optional[BatchController] = None,
@@ -108,6 +117,12 @@ class SyncService:
         self._watchdog_thread = None
         self._watchdog_stop = threading.Event()
         self._watchdog_firing = False
+        self._live = None
+        if obs.enabled():
+            from ..obs import live as _live
+
+            self._live = _live.attach(
+                on_alert=[self.controller.on_alert], source="serve")
 
     # ------------------------------------------------------- tenants
 
@@ -132,6 +147,10 @@ class SyncService:
             # ancestor collide here — and a silent overwrite would
             # cross-wire both tenants' journal watermarks and residency
             # slots. Mint a fresh clist per tenant instead.
+            if obs.enabled():
+                obs.counter("serve.refusals").inc()
+                obs.event("serve.refusal", op="add_tenant",
+                          why="duplicate-tenant", uuid=uuid)
             raise s.CausalError(
                 "serve: duplicate tenant uuid",
                 {"causes": {"duplicate-tenant"}, "uuid": uuid,
@@ -184,6 +203,10 @@ class SyncService:
         if sess is None:
             sess = self.residency.get(uuid)
         if sess is None:
+            if obs.enabled():
+                obs.counter("serve.refusals").inc()
+                obs.event("serve.refusal", op="apply",
+                          why="unknown-tenant", uuid=uuid)
             raise s.CausalError(
                 "serve: batch for unknown tenant",
                 {"causes": {"unknown-tenant"}, "uuid": uuid})
@@ -253,10 +276,33 @@ class SyncService:
             if uuid not in self.tenants:
                 # the door predicate makes this unreachable for new
                 # offers; a batch admitted before its tenant vanished
-                # is an orphan — skipped, never a crashed tick that
-                # drops the other tenants' drained entries
+                # is an orphan — skipped LOUDLY, never a crashed tick
+                # that drops the other tenants' drained entries
+                if obs.enabled():
+                    obs.counter("serve.orphan_batches").inc()
+                    obs.event("serve.orphan_batch", uuid=uuid,
+                              ops=sum(e.ops for e in batch))
                 continue
             known.append((uuid, batch))
+        # trace continuation: every drained entry's traces get a
+        # "tick" hop here and the per-tenant map rides into the
+        # scheduler so the fused bucket span can fan out per-tenant
+        # "wave" child hops
+        traces_by_uuid: Dict[str, List[str]] = {}
+        if obs.enabled():
+            for uuid, batch in known:
+                seen = traces_by_uuid.setdefault(uuid, [])
+                for e in batch:
+                    for tr in (e.traces or ()):
+                        xtrace.hop("tick", tr, uuid=uuid, seq=e.seq,
+                                   ops=e.ops, tick=self.ticks)
+                        if tr not in seen:
+                            seen.append(tr)
+        # the tick's device dispatch count, read from the costmodel
+        # counter (not inferred): the batched tick's whole claim is
+        # that this collapses from O(#tenants) to O(#buckets)
+        disp0 = obs.counter("costmodel.dispatches").value \
+            if obs.enabled() else 0
         buckets = 0
         batch_rows = 0
         fallbacks = 0
@@ -275,19 +321,43 @@ class SyncService:
                     self._apply_batches(uuid, batch,
                                         sess=group.get(uuid),
                                         wave=False)
-                self._scheduler.wave_fleet(group)
+                self._scheduler.wave_fleet(
+                    group, traces_by_uuid=traces_by_uuid)
                 buckets += self._scheduler.last_buckets
                 batch_rows += self._scheduler.last_batch_rows
                 fallbacks += self._scheduler.last_fallbacks
         else:
             for uuid, batch in known:
                 self._apply_batches(uuid, batch)
+                if obs.enabled():
+                    for tr in traces_by_uuid.get(uuid, ()):
+                        xtrace.hop("wave", tr, uuid=uuid,
+                                   path="per-tenant")
+        wave_dispatches = (obs.counter("costmodel.dispatches").value
+                           - disp0) if obs.enabled() else 0
+        snap = None
+        if self._live is not None and not self._live.closed:
+            snap = self._live.poll(emit_snapshot=True)
+        if snap is not None:
+            self.controller.update(snap)
         ops = sum(e.ops for e in entries)
+        if obs.enabled():
+            obs.counter("serve.ticks").inc()
+            obs.event("serve.tick", ops=ops,
+                      tenants=len(by_tenant),
+                      depth=self.queue.depth,
+                      resident=self.residency.resident_docs,
+                      t_batch_ms=round(self.controller.t_batch_ms, 3),
+                      buckets=buckets, batch_rows=batch_rows,
+                      wave_dispatches=wave_dispatches,
+                      fallbacks=fallbacks)
+            obs.event("run.heartbeat", stage="serve.tick",
+                      ticks=self.ticks, ops=ops)
         return {"ops": ops, "tenants": len(by_tenant),
                 "t_batch_ms": self.controller.t_batch_ms,
                 "depth": self.queue.depth,
                 "buckets": buckets, "batch_rows": batch_rows,
-                "wave_dispatches": 0}
+                "wave_dispatches": wave_dispatches}
 
     def run(self, seconds: float, max_ops: Optional[int] = None) -> int:
         """The paced loop: tick, then sleep the controller's current
@@ -323,9 +393,13 @@ class SyncService:
                     continue
                 age_s = (time.time_ns() // 1000 - last) / 1e6
                 if age_s > self.watchdog_s and not self._watchdog_firing:
-                    # one firing per excursion — tick() re-arms (the
-                    # reference emits its serve.watchdog event here)
+                    # one event per excursion — tick() re-arms
                     self._watchdog_firing = True
+                    if obs.enabled():
+                        obs.counter("serve.watchdog").inc()
+                        obs.event("serve.watchdog",
+                                  age_s=round(age_s, 3),
+                                  limit_s=self.watchdog_s)
 
         self._watchdog_thread = threading.Thread(
             target=_watch, name="serve-watchdog", daemon=True)
@@ -340,9 +414,16 @@ class SyncService:
 
     def close(self) -> None:
         """Release the service's process-global hooks: stop the
-        watchdog and unhook the queue's tenant predicate. Idempotent;
+        watchdog, detach the live subscription and unhook the queue's
+        tenant predicate. A crash/restore loop builds a fresh
+        SyncService per incarnation — without this, every dead
+        incarnation's subscriber stays registered on the obs sink and
+        every later record pays an enqueue into it. Idempotent;
         drain() calls it once the checkpoint lands."""
         self.stop_watchdog()
+        if self._live is not None:
+            self._live.close()
+            self._live = None
         if self.queue.tenant_known == self._knows_tenant:
             # a retired queue handle must not pin this service's whole
             # object graph (residency -> every tenant's device state)
@@ -360,68 +441,75 @@ class SyncService:
         out_dir = out_dir or self.checkpoint_dir
         if not out_dir:
             raise ValueError("no checkpoint dir configured")
-        files = self.residency.checkpoint_all(out_dir)
-        # the minimum live watermark: every journal record at or
-        # below it is applied by its tenant AND captured by the
-        # packs just written — the WAL's GC retires segments
-        # wholly below it once the manifest rename lands
-        min_seq = min((t["applied_seq"]
-                       for t in self.tenants.values()), default=0)
-        manifest = {
-            "~serve_manifest": MANIFEST_VERSION,
-            "ts_us": time.time_ns() // 1000,
-            "journal": (self.queue.journal.path
-                        if self.queue.journal else None),
-            "gc_watermark": min_seq,
-            # the admission regime rides the manifest so a
-            # queue-less restore() rebuilds the SAME bounds — a
-            # restart must not quietly relax them
-            "queue": {
-                "max_ops": self.queue.max_ops,
-                "defer_watermark": self.queue.defer_watermark,
-                "defer_max": self.queue.defer_max,
-                "deadline_ms": self.queue.deadline_ms,
-            },
-            "residency_capacity": self.residency.capacity,
-            "tenants": {
-                uuid: {"file": files[uuid]["file"],
-                       "seq": self.tenants[uuid]["applied_seq"]}
-                for uuid in self.tenants if uuid in files
-            },
-        }
-        path = os.path.join(out_dir, MANIFEST_NAME)
-        tmp = f"{path}.tmp.{os.getpid()}"
-        # the rename below is the commit point the post-checkpoint
-        # GC trusts before it unlinks superseded packs and WAL
-        # segments — fsync the contents first (and the directory
-        # after) so a crash cannot persist the unlinks while
-        # losing the manifest that justified them
-        with open(tmp, "w") as f:
-            f.write(json.dumps(manifest))
-            f.flush()
-            os.fsync(f.fileno())
-        try:
-            if _chaos.enabled() \
-                    and _chaos.disk_rename_fail("serve.checkpoint"):
-                raise OSError("chaos: injected rename failure")
-            os.replace(tmp, path)
-        except OSError as e:
-            # the atomic swap failed: the PREVIOUS manifest is
-            # untouched (that is the whole point of rename-last)
-            # and the journal still covers everything since it —
-            # evidence the fault, drop the orphan tmp, and let the
-            # caller retry the checkpoint
+        with obs.span("serve.checkpoint", tenants=len(self.tenants)):
+            files = self.residency.checkpoint_all(out_dir)
+            # the minimum live watermark: every journal record at or
+            # below it is applied by its tenant AND captured by the
+            # packs just written — the WAL's GC retires segments
+            # wholly below it once the manifest rename lands
+            min_seq = min((t["applied_seq"]
+                           for t in self.tenants.values()), default=0)
+            manifest = {
+                "~serve_manifest": MANIFEST_VERSION,
+                "ts_us": time.time_ns() // 1000,
+                "journal": (self.queue.journal.path
+                            if self.queue.journal else None),
+                "gc_watermark": min_seq,
+                # the admission regime rides the manifest so a
+                # queue-less restore() rebuilds the SAME bounds — a
+                # restart must not quietly relax them
+                "queue": {
+                    "max_ops": self.queue.max_ops,
+                    "defer_watermark": self.queue.defer_watermark,
+                    "defer_max": self.queue.defer_max,
+                    "deadline_ms": self.queue.deadline_ms,
+                },
+                "residency_capacity": self.residency.capacity,
+                "tenants": {
+                    uuid: {"file": files[uuid]["file"],
+                           "seq": self.tenants[uuid]["applied_seq"]}
+                    for uuid in self.tenants if uuid in files
+                },
+            }
+            path = os.path.join(out_dir, MANIFEST_NAME)
+            tmp = f"{path}.tmp.{os.getpid()}"
+            # the rename below is the commit point the post-checkpoint
+            # GC trusts before it unlinks superseded packs and WAL
+            # segments — fsync the contents first (and the directory
+            # after) so a crash cannot persist the unlinks while
+            # losing the manifest that justified them
+            with open(tmp, "w") as f:
+                f.write(json.dumps(manifest))
+                f.flush()
+                os.fsync(f.fileno())
             try:
-                os.unlink(tmp)
-            except OSError:  # pragma: no cover - best-effort
-                pass
-            raise s.CausalError(
-                "serve: checkpoint manifest rename failed "
-                "(previous manifest intact)",
-                {"causes": {"checkpoint-rename"},
-                 "path": path}) from e
-        fsync_dir(out_dir)
-        self._storage_gc(out_dir, min_seq, manifest)
+                if _chaos.enabled() \
+                        and _chaos.disk_rename_fail("serve.checkpoint"):
+                    raise OSError("chaos: injected rename failure")
+                os.replace(tmp, path)
+            except OSError as e:
+                # the atomic swap failed: the PREVIOUS manifest is
+                # untouched (that is the whole point of rename-last)
+                # and the journal still covers everything since it —
+                # evidence the fault, drop the orphan tmp, and let the
+                # caller retry the checkpoint
+                try:
+                    os.unlink(tmp)
+                except OSError:  # pragma: no cover - best-effort
+                    pass
+                if obs.enabled():
+                    obs.counter("serve.disk_faults").inc()
+                    obs.event("serve.disk", op="checkpoint",
+                              why="rename-failed", path=path)
+                raise s.CausalError(
+                    "serve: checkpoint manifest rename failed "
+                    "(previous manifest intact)",
+                    {"causes": {"checkpoint-rename"},
+                     "path": path}) from e
+            fsync_dir(out_dir)
+            if obs.enabled():
+                obs.counter("serve.checkpoints").inc()
+            self._storage_gc(out_dir, min_seq, manifest)
         return path
 
     def _storage_gc(self, out_dir: str, min_seq: int,
@@ -442,20 +530,35 @@ class SyncService:
         checkpoint — sharing one directory WOULD have their packs
         swept by each other; point each at its own directory."""
         j = self.queue.journal
+        wal_gc = None
         if j is not None and hasattr(j, "gc"):
-            j.gc(min_seq)
+            wal_gc = j.gc(min_seq)
         live = {info["file"] for info in manifest["tenants"].values()}
         live.add(MANIFEST_NAME)
+        swept = swept_bytes = 0
         for name in os.listdir(out_dir):
             if name in live:
                 continue
             if not (name.endswith(".ckpt.json") or ".tmp." in name):
                 continue  # never touch files this service didn't write
+            fp = os.path.join(out_dir, name)
             try:
-                os.unlink(os.path.join(out_dir, name))
+                nb = os.path.getsize(fp)
+                os.unlink(fp)
             except OSError:
                 continue
-        self.residency.sweep_spill()
+            swept += 1
+            swept_bytes += nb
+        spill_bytes = self.residency.sweep_spill()
+        if obs.enabled():
+            obs.event("serve.gc", watermark=min_seq,
+                      wal_retired=(wal_gc or {}).get("retired", 0),
+                      wal_retired_bytes=(wal_gc or {}).get(
+                          "retired_bytes", 0),
+                      wal_aborted=bool((wal_gc or {}).get("aborted")),
+                      packs_swept=swept,
+                      packs_swept_bytes=swept_bytes,
+                      spill_swept_bytes=spill_bytes)
 
     def drain(self, out_dir: Optional[str] = None) -> str:
         """Graceful drain: stop admission → flush the queue (deferred
@@ -466,6 +569,10 @@ class SyncService:
         restores from the previous checkpoint + journal with zero
         admitted-op loss."""
         self.queue.close_admission()
+        if obs.enabled():
+            obs.event("serve.drain", phase="start",
+                      depth=self.queue.depth,
+                      deferred=self.queue.deferred)
         while self.queue.depth or self.queue.deferred:
             if _chaos.enabled() and _chaos.should_crash("serve.drain"):
                 raise ServiceCrashed(
@@ -489,6 +596,9 @@ class SyncService:
                 # would otherwise have to cover)
                 self.queue.shed_stranded()
         path = self.checkpoint(out_dir)
+        if obs.enabled():
+            obs.event("serve.drain", phase="done",
+                      tenants=len(self.tenants))
         self.close()
         return path
 
@@ -554,12 +664,18 @@ class SyncService:
         svc = cls(queue, controller=controller, residency=residency,
                   checkpoint_dir=checkpoint_dir, d_max=d_max,
                   watchdog_s=watchdog_s, batched=batched)
-        for uuid, info in (manifest.get("tenants") or {}).items():
-            sess = FleetSession.restore(
-                os.path.join(checkpoint_dir, info["file"]))
-            svc.residency.insert(uuid, sess)
-            svc.tenants[uuid] = {"applied_seq": int(info["seq"])}
-        svc._replay_journal(journal_path)
+        with obs.span("serve.restore",
+                      tenants=len(manifest.get("tenants") or {})):
+            for uuid, info in (manifest.get("tenants") or {}).items():
+                sess = FleetSession.restore(
+                    os.path.join(checkpoint_dir, info["file"]))
+                svc.residency.insert(uuid, sess)
+                svc.tenants[uuid] = {"applied_seq": int(info["seq"])}
+            replayed = svc._replay_journal(journal_path)
+            if obs.enabled():
+                obs.counter("serve.journal_replays").inc(replayed)
+                obs.event("serve.restored",
+                          tenants=len(svc.tenants), replayed=replayed)
         return svc
 
     def _replay_journal(self, journal_path: Optional[str]) -> int:
@@ -591,17 +707,55 @@ class SyncService:
                 sync.validate_node_items(items)
             except s.CausalError:
                 # a torn journal VALUE (valid JSON, poisoned payload)
-                # cannot reach a merge — skipped
+                # cannot reach a merge — counted, skipped, loud in the
+                # stream
+                if obs.enabled():
+                    obs.counter("serve.journal_rejects").inc()
+                    obs.event("serve.journal_reject", seq=e.get("seq"),
+                              uuid=uuid)
                 continue
+            # re-link the journey: a journal row written by an obs-on
+            # process carries its batch's trace ids — the restored
+            # process continues those chains ("replay" hop, ops
+            # re-bound for the lag join) instead of orphaning them
+            traces = None
+            if obs.enabled():
+                raw = e.get("trace")
+                if isinstance(raw, list):
+                    traces = [str(tr) for tr in raw[:16]
+                              if isinstance(tr, str) and tr]
+                for tr in (traces or ()):
+                    xtrace.hop("replay", tr, uuid=uuid, seq=int(e["seq"]))
+                    xtrace.bind_ops(tr, [tuple(it[0]) for it in items])
             by_tenant.setdefault(uuid, []).append(
                 _Entry(uuid, str(e.get("site")), items, len(items),
-                       int(e["seq"]), int(e.get("ts_us") or 0)))
+                       int(e["seq"]), int(e.get("ts_us") or 0),
+                       traces=traces))
         ops = 0
         for uuid, batch in by_tenant.items():
             self._apply_batches(uuid, batch)
             ops += sum(x.ops for x in batch)
-        # torn/corrupt lines stay counted on the journal (``skipped``,
-        # ``corrupt``); the reference raises an event for them too
+            if obs.enabled():
+                # replayed entries never re-enter the queue (no tick
+                # hop): the replay's own per-tenant wave is the
+                # journey's next edge after "replay"
+                seen: List[str] = []
+                for x in batch:
+                    for tr in (x.traces or ()):
+                        if tr not in seen:
+                            seen.append(tr)
+                            xtrace.hop("wave", tr, uuid=uuid,
+                                       path="replay")
+        # torn/corrupt lines were COUNTED by the scan; any skip on a
+        # replay is evidence (a torn tail is expected after a crash;
+        # CRC corruption never is — both deserve an alert, not a
+        # buried counter)
+        torn = int(getattr(journal, "skipped", 0) or 0)
+        rot = int(getattr(journal, "corrupt", 0) or 0)
+        if (torn or rot) and obs.enabled():
+            obs.counter("serve.journal_torn").inc(torn + rot)
+            obs.event("serve.journal_torn", skipped=torn, corrupt=rot,
+                      journal=journal_path)
         if not borrowed:
             journal.close()
         return ops

@@ -1,10 +1,9 @@
 """The segmented CRC write-ahead log — the durable-storage lifecycle
 behind the serve layer's zero-admitted-op-loss guarantee.
 
-A copy of ``cause_tpu.serve.wal`` without its telemetry: the
-``serve.disk`` events and the segment gauges come back with the
-telemetry port; records, segment bytes, stats and GC are the
-reference's.
+A copy of ``cause_tpu.serve.wal``: records, segment bytes, stats, GC
+and, with telemetry on, the ``serve.disk`` events and the segment
+gauges are the reference's.
 
 :class:`IngestJournal` proved the WRITE-AHEAD contract but
 kept the storage story a single ever-growing file with flush-but-no-
@@ -50,7 +49,8 @@ real storage engineering underneath:
   survives in service memory and the next checkpoint), ``fsync``
   fails a flush (the WAL rotates to a fresh segment), ``rename``
   aborts a GC manifest swap (segments intact, retried next cycle).
-  Every degradation is counted in ``stats``.
+  Every degradation is counted in ``stats`` and, with telemetry on,
+  is one evidenced ``serve.disk`` event.
 
 Stdlib-only (it imports nothing of torch itself): the WAL is host
 work by definition.
@@ -66,6 +66,7 @@ import zlib
 from typing import Iterator, List, Optional, Tuple
 
 from .. import chaos as _chaos
+from .. import obs
 from ..collections import shared as s
 from .ingest import IngestJournal
 
@@ -247,6 +248,8 @@ class WriteAheadLog:
         else:
             self._active = None
             self._open_active_locked(1)
+        with self._lock:
+            self._gauges_locked()
 
     # -------------------------------------------------- construction
 
@@ -318,6 +321,22 @@ class WriteAheadLog:
                         "last_seq": None, "bytes": 0,
                         "opened_s": time.monotonic()}
 
+    # ------------------------------------------------------ evidence
+
+    def _disk_event_locked(self, op: str, why: str) -> None:
+        if obs.enabled():
+            obs.counter("serve.disk_faults").inc()
+            obs.event("serve.disk", op=op, why=why, path=self.path,
+                      segment=self._active["name"])
+
+    def _gauges_locked(self) -> None:
+        if obs.enabled():
+            live = sum(sg["bytes"] for sg in self._index) \
+                + (self._active["bytes"] if self._active else 0)
+            obs.gauge("serve.wal_segments").set(
+                len(self._index) + (1 if self._active else 0))
+            obs.gauge("serve.wal_bytes").set(live)
+
     # -------------------------------------------------------- append
 
     def append(self, uuid: str, site: str, items: list,
@@ -346,6 +365,7 @@ class WriteAheadLog:
             if _chaos.enabled():
                 if _chaos.disk_enospc(_CHAOS_SITE):
                     self.stats["append_failures"] += 1
+                    self._disk_event_locked("append", "enospc")
                     raise s.CausalError(
                         "wal: append refused (no space left)",
                         {"causes": {"wal-enospc"}, "path": self.path})
@@ -358,6 +378,7 @@ class WriteAheadLog:
                     torn = body[: max(1, len(body) // 2)] + "\n"
                     self._write_locked(torn)
                     self.stats["append_failures"] += 1
+                    self._disk_event_locked("append", "torn")
                     raise s.CausalError(
                         "wal: append torn (crash mid-write)",
                         {"causes": {"wal-torn"}, "path": self.path})
@@ -375,6 +396,7 @@ class WriteAheadLog:
                     raw = bytearray(body.encode("utf-8"))
                     raw[flip] ^= 0x01
                     body = raw.decode("latin-1")
+                    self._disk_event_locked("append", "bitrot")
             self._write_locked(body + "\t#" + crc_hex + "\n")
             self._seq = seq
             a = self._active
@@ -383,6 +405,7 @@ class WriteAheadLog:
             a["last_seq"] = seq
             self.stats["appends"] += 1
             self._fsync_maybe_locked()
+            self._gauges_locked()
         return seq
 
     def _write_locked(self, text: str) -> None:
@@ -424,6 +447,7 @@ class WriteAheadLog:
             self.stats["fsyncs"] += 1
         else:
             self.stats["fsync_failures"] += 1
+            self._disk_event_locked("fsync", "fsync-failed")
         self._pending_fsync = 0
         self._last_fsync_s = now if now is not None else time.monotonic()
         return ok
@@ -457,6 +481,7 @@ class WriteAheadLog:
         self._index.append(a)
         self.stats["rotations"] += 1
         self._open_active_locked(a["no"] + 1)
+        self._gauges_locked()
 
     # ---------------------------------------------------------- scan
 
@@ -514,6 +539,7 @@ class WriteAheadLog:
                 # unadvanced, retried next cycle — evidenced, never
                 # silent
                 self.stats["gc_aborts"] += 1
+                self._disk_event_locked("gc", "rename-failed")
                 return {"retired": 0, "retired_bytes": 0,
                         "watermark": self.gc_watermark,
                         "aborted": True}
@@ -546,6 +572,7 @@ class WriteAheadLog:
             self.stats["gc_bytes"] += b
             if n:
                 self._write_manifest_locked()
+            self._gauges_locked()
             return {"retired": n, "retired_bytes": b,
                     "watermark": self.gc_watermark, "aborted": False}
 

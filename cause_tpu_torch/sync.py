@@ -29,9 +29,9 @@ checkpoints (README.md:19).
 
 On the device weaver (``weaver="torch"``) every applied delta is one
 union and one full reweave (``merge_many``), so each side of a round
-runs the B1, B2 and B3 kernels once. The telemetry the reference
-records along the way (sync events, cost model, convergence lag,
-distributed traces) comes with the telemetry port.
+runs the B1, B2 and B3 kernels once. With telemetry on, the round
+records what the reference's does (sync events, cost-model evidence,
+convergence lag, trace hops).
 """
 
 from __future__ import annotations
@@ -43,8 +43,13 @@ import zlib
 from typing import Dict, Optional, Tuple
 
 from . import chaos as _chaos
+from . import obs
 from . import serde
 from .collections import shared as s
+from .obs import costmodel as _cm
+from .obs import lag as _lag
+from .obs import semantic as _sem
+from .obs import xtrace as _xtrace
 
 __all__ = [
     "version_vector",
@@ -122,10 +127,13 @@ def shadow(handle, nodes: dict):
     return type(handle)(handle.ct.evolve(nodes=dict(nodes)))
 
 
-def apply_delta(handle, nodes: dict):
+def apply_delta(handle, nodes: dict, _count_as_delta: bool = True):
     """Merge a received delta into ``handle`` (no-op for an empty
     delta). Raises CausalError exactly like a local merge would on
     append-only conflicts, uuid mismatch, or missing causes.
+    ``_count_as_delta=False`` is the full-bag call sites' spelling:
+    a resend of the whole bag must not count as a delta round in the
+    semantic degradation rate.
 
     Path choice matters on the default pure weaver: ``merge`` replays
     the delta incrementally (O(delta x doc) — right for anti-entropy's
@@ -139,7 +147,35 @@ def apply_delta(handle, nodes: dict):
     sh = shadow(handle, nodes)
     incremental = (handle.ct.weaver == "pure"
                    and len(nodes) * 8 < len(handle.ct.nodes))
-    return handle.merge(sh) if incremental else handle.merge_many([sh])
+    merged = handle.merge(sh) if incremental else handle.merge_many([sh])
+    # emitted only AFTER the merge validated: a rejected delta is a
+    # full-bag round, not a delta round — recording it before the
+    # raise would make every degraded round count twice and understate
+    # the full_bag_rate the fleet CLI reports
+    if _count_as_delta and obs.enabled():
+        _sem.sync_applied(len(nodes),
+                          "incremental" if incremental else "union",
+                          uuid=handle.ct.uuid)
+        # divergence evidence for the cost model: these ops accrue to
+        # the document and drain into its NEXT wave.cost event, so
+        # per-wave cost sits next to the sync layer's own accounting
+        _cm.note_delta_ops(handle.ct.uuid, len(nodes))
+    if obs.enabled():
+        # convergence-lag tracer, ingest side (delta AND full-bag
+        # re-applies: either way these nodes just became visible on
+        # this replica): ops stamped at creation in-process record
+        # their apply lag against the receiving replica; foreign ops
+        # are stamped now — ingest IS their local creation time
+        _lag.ops_applied(handle.ct.uuid, nodes.keys(),
+                         replica=handle.ct.site_id)
+        # journey hop: the delta's ops just became visible on
+        # this replica — one "apply" hop per distinct trace riding
+        # the batch (remote-apply in the per-hop SLO decomposition)
+        for tr in _xtrace.traces_of(nodes.keys()):
+            _xtrace.hop("apply", tr, uuid=str(handle.ct.uuid),
+                        replica=str(handle.ct.site_id),
+                        ops=len(nodes))
+    return merged
 
 
 # ---------------------------------------------- validate-before-apply
@@ -255,16 +291,24 @@ _QUARANTINED: set = set()
 def note_reject(peer: str, uuid: str = "", why: str = "") -> int:
     """Record one rejected payload from ``peer``; quarantines it at
     QUARANTINE_AFTER consecutive rejects. Returns the consecutive
-    count. ``uuid`` and ``why`` name the document and the reject for
-    the telemetry port (the reference's ``sync.reject`` event)."""
+    count. Emits ``sync.reject`` (and ``sync.quarantine`` on the
+    transition) when obs is on."""
     peer = str(peer or "")
-    if not peer:
-        return 1
-    with _Q_LOCK:
-        n = _REJECTS.get(peer, 0) + 1
-        _REJECTS[peer] = n
-        if n >= QUARANTINE_AFTER:
-            _QUARANTINED.add(peer)
+    newly = False
+    if peer:
+        with _Q_LOCK:
+            n = _REJECTS.get(peer, 0) + 1
+            _REJECTS[peer] = n
+            if n >= QUARANTINE_AFTER and peer not in _QUARANTINED:
+                _QUARANTINED.add(peer)
+                newly = True
+    else:
+        n = 1
+    if obs.enabled():
+        _sem.sync_rejected(why or "payload-invalid", uuid=uuid,
+                           peer=peer)
+        if newly:
+            _sem.sync_quarantined(peer, uuid=uuid, rejects=n)
     return n
 
 
@@ -283,17 +327,19 @@ def note_clean(peer: str) -> None:
 
 def readmit(peer: str, uuid: str = "") -> bool:
     """Lift ``peer``'s quarantine after a clean validated full-bag
-    resync; returns whether it was quarantined. A full bag from a peer
-    that is NOT quarantined changes nothing — in particular it does not
-    reset the consecutive-reject count, or a repeat offender whose
-    every reject heals over a full bag could never cross the
-    threshold."""
+    resync; returns whether it was quarantined. Emits
+    ``sync.readmit`` when obs is on. A full bag from a peer that is
+    NOT quarantined changes nothing — in particular it does not reset
+    the consecutive-reject count, or a repeat offender whose every
+    reject heals over a full bag could never cross the threshold."""
     peer = str(peer or "")
     with _Q_LOCK:
         was = peer in _QUARANTINED
         if was:
             _QUARANTINED.discard(peer)
             _REJECTS.pop(peer, None)
+    if was and obs.enabled():
+        _sem.sync_readmitted(peer, uuid=uuid)
     return was
 
 
@@ -454,6 +500,12 @@ def sync_stream(handle, stream, read_timeout_s: Optional[float] = None):
     """
     ct = handle.ct
     _arm_deadline(stream, read_timeout_s)
+    if obs.enabled():
+        # wedge-triage heartbeat: before the first blocking
+        # exchange, so a live monitor can tell "a sync round started
+        # and hung mid-protocol" from "no replica is syncing" —
+        # the obs watch absence rules read this pairing
+        obs.event("run.heartbeat", stage="sync.stream", uuid=ct.uuid)
     hello = exchange_frame(stream, {
         "op": "hello", "uuid": ct.uuid, "type": ct.type,
         # sender identity for the offender/quarantine registry (an
@@ -557,13 +609,20 @@ def sync_stream(handle, stream, read_timeout_s: Optional[float] = None):
             {"causes": {"bad-frame"}, "expected": "done|resync"},
         )
     if peer_state.get("op") == "resync" or not ok:
+        if obs.enabled():
+            _sem.sync_full_bag(
+                reason or ("cause-must-exist" if not ok
+                           else "peer-resync"),
+                uuid=ct.uuid)
+            _cm.note_full_bag(ct.uuid)
         full = exchange_frame(
             stream, nodes_frame("full", dict(ct.nodes), "sync.full"))
         try:
             merged = apply_delta(
                 merged,
                 checked_decode(frame_field(full, "full", "nodes"),
-                               full.get("crc")))
+                               full.get("crc")),
+                _count_as_delta=False)
         except s.CausalError as e:
             if _is_payload_reject(e):
                 # a poisoned FULL bag cannot heal this round: reject
@@ -587,10 +646,16 @@ def sync_pair(a, b) -> Tuple[object, object]:
     """In-memory anti-entropy between two handles (the loopback twin of
     ``sync_stream`` — same vv/delta/full-bag-fallback path, no
     framing)."""
+    if obs.enabled():
+        obs.event("run.heartbeat", stage="sync.pair", uuid=a.ct.uuid)
     va, vb = version_vector(a), version_vector(b)
 
     def full_bag(dst, src, reason):
-        out = apply_delta(dst, dict(src.ct.nodes))
+        if obs.enabled():
+            _sem.sync_full_bag(reason, uuid=dst.ct.uuid)
+            _cm.note_full_bag(dst.ct.uuid)
+        out = apply_delta(dst, dict(src.ct.nodes),
+                          _count_as_delta=False)
         # the in-memory full bag comes straight off the live peer
         # handle (already merge-validated state): it is the
         # quarantine's validated exit ramp — but only on the

@@ -55,6 +55,7 @@ from .arrays import (
     next_pow2,
 )
 from ..ids import is_id
+from ..obs import counter as _obs_counter, enabled as _obs_enabled
 
 __all__ = [
     "SharedInterner",
@@ -306,6 +307,7 @@ class LaneView:
         already built to skip re-masking the columns on a miss."""
         segs = self.arena.seg_cache.get(self.n)
         if segs is None:
+            _obs_counter("lanecache.segments.miss").inc()
             from .segments import tree_segments
 
             if na is None:
@@ -314,6 +316,8 @@ class LaneView:
             segs = tree_segments(hi, lo, na.cause_idx, na.vclass, na.n)
             with self.arena.lock:
                 _seg_cache_put(self.arena.seg_cache, self.n, segs)
+        else:
+            _obs_counter("lanecache.segments.hit").inc()
         return segs
 
 
@@ -344,6 +348,13 @@ def build_view(nodes_map: dict, uuid: str,
     if not na.spec_ok:
         return None
     view = LaneView(_arena_from_node_arrays(na, interner, gen), na.n)
+    if _obs_enabled():
+        # devprof host-memory telemetry: a from-scratch marshal is the
+        # expensive rebuild path, so its arena footprint is the curve
+        # that shows fleet-cache growth in a trace
+        from ..obs import devprof as _devprof
+
+        _devprof.arena_footprint(view.arena, site="lanecache.build")
     return view
 
 
@@ -382,6 +393,7 @@ def extend_view(view: Optional[LaneView], new_nodes) -> Optional[LaneView]:
     # attempt/append counters: the gap between them is the bail rate
     # (cache drops that force a lazy rebuild) — the signal the round-3
     # incremental-marshal work exists to keep near zero
+    _obs_counter("lanecache.extend.attempt").inc()
     arena = view.arena
     interner = arena.interner
     arena.sync_ranks()  # a rank reassignment upgrades in place
@@ -472,6 +484,7 @@ def extend_view(view: Optional[LaneView], new_nodes) -> Optional[LaneView]:
             )
             if new_segs is not None:
                 _seg_cache_put(arena.seg_cache, n + k, new_segs)
+    _obs_counter("lanecache.extend.append").inc()
     return LaneView(arena, n + k)
 
 
@@ -497,10 +510,13 @@ def view_for(ct) -> Optional[LaneView]:
     if LIST_SHAPED is None:
         LIST_SHAPED = _list_shaped_types()
     if ct.type not in LIST_SHAPED:
+        _obs_counter("lanecache.view.unshaped").inc()
         return None
     view = getattr(ct, "lanes", None)
     if isinstance(view, LaneView) and view.n == len(ct.nodes):
+        _obs_counter("lanecache.view.hit").inc()
         return view
+    _obs_counter("lanecache.view.rebuild").inc()
     return build_view(ct.nodes, ct.uuid)
 
 

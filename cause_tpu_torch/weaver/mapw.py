@@ -218,14 +218,17 @@ def pair_rows(pairs: Sequence[Tuple[dict, dict]],
     layout), ``meta`` the per-row host artifacts for
     ``merged_map_weave``.
     """
-    trees = [t for pair in pairs for t in pair]
-    krank = key_table(trees)
-    interner = SiteInterner(nid[1] for t in trees for nid in t)
-    cap = next_pow2(max(1 + len(krank) + len(t) for t in trees))
-    lanes, meta = _assemble(
-        [[forest_lanes(t, krank, interner, cap, spec) for t in pair]
-         for pair in pairs], cap)
-    return lanes, {"rows": meta, "capacity": cap, "key_rank": krank}
+    from ..obs import span as _span
+
+    with _span("mapw.pair_rows", pairs=len(pairs)):
+        trees = [t for pair in pairs for t in pair]
+        krank = key_table(trees)
+        interner = SiteInterner(nid[1] for t in trees for nid in t)
+        cap = next_pow2(max(1 + len(krank) + len(t) for t in trees))
+        lanes, meta = _assemble(
+            [[forest_lanes(t, krank, interner, cap, spec) for t in pair]
+             for pair in pairs], cap)
+        return lanes, {"rows": meta, "capacity": cap, "key_rank": krank}
 
 
 def batched_merge_map_weave(lanes: Dict[str, np.ndarray], k_max: int = 0):
@@ -441,8 +444,11 @@ def merge_map_wave(pairs, kernel: str = "v5", device=None) -> MapWaveResult:
     if kernel != "v5":
         raise ValueError(
             f"merge_map_wave kernel must be 'v5' or 'v4', got {kernel!r}")
+    from ..obs import span as _span
+
     dev = default_device() if device is None else device
-    return _merge_map_wave(pairs, dev)
+    with _span("mapw.merge_wave", pairs=len(pairs), kernel=kernel):
+        return _merge_map_wave(pairs, dev)
 
 
 def _dispatch_v5(lanes, cap, u, v5b, device):

@@ -43,10 +43,25 @@ from .fphase import fphase_expand
 from .gatherops import (at_add, at_set, searchsorted_iota_right,
                         searchsorted_targets_left, take1d)
 
-__all__ = ["batched_merge_weave_v5"]
+__all__ = ["batched_merge_weave_v5", "STAGES"]
 
 BIG = int(I32_MAX)
 I32 = torch.int32
+
+# the profiling-only prefix stages (``stage=``), cumulative; None runs
+# the whole kernel
+STAGES = ("A", "B", "C", "D", "E", None)
+
+
+def _stage_ck(*xs):
+    """Per-row checksum of a stage's live outputs (``jaxw5._stage_ck``
+    over each row): the float32 sum of every given tensor's row."""
+    total = torch.zeros(xs[0].shape[0], dtype=torch.float32,
+                        device=xs[0].device)
+    for x in xs:
+        x = x.to(torch.float32)
+        total = total + (x.sum(dim=1) if x.dim() > 1 else x)
+    return total
 
 
 def _shift1(x, fill):
@@ -108,12 +123,13 @@ def _pair_search_le(kh, kl, qh, ql, size):
 
 def _v5_ab(hi, lo, cci, vclass, seg, sg_min_hi, sg_min_lo, sg_max_hi,
            sg_max_lo, sg_len, sg_lane0, sg_dense, sg_tail_special, sg_valid,
-           sg_vsum, u_max: int):
+           sg_vsum, u_max: int, stage=None):
     """Phases A and B: what both the v5 kernel and the fused v5f pipeline
     (``torchw5f``) take from them — the presort tokens ``t_*``, the
     ``token_of_lane`` resolver, ``overflow_u``, and the coverage inputs
     ``survive`` / ``inv_s`` of phase F (``jaxw5``'s ``stage="_AB"``
-    handoff)."""
+    handoff). ``stage="A"``/``"B"`` (profiling) return that prefix's
+    per-row checksum instead."""
     B, N = hi.shape
     S = sg_len.shape[1]
     dev = hi.device
@@ -204,6 +220,8 @@ def _v5_ab(hi, lo, cci, vclass, seg, sg_min_hi, sg_min_lo, sg_max_hi,
 
     twin_drop = same_prev & ~explode
     survive = s_va & ~explode & ~twin_drop
+    if stage == "A":
+        return _stage_ck(explode, survive, grp)
 
     # ================= B. token construction ========================
     tok_cnt = torch.where(survive, 1,
@@ -226,6 +244,8 @@ def _v5_ab(hi, lo, cci, vclass, seg, sg_min_hi, sg_min_lo, sg_max_hi,
     t_len = torch.where(u_ok, torch.where(o_expl, 1, take(s_len, oc)), 0)
     t_vc = torch.where(u_ok, take(vclass, t_lane), 0)
     t_tsp = torch.where(o_expl, t_vc > 0, take(s_tsp, oc)) & u_ok
+    if stage == "B":
+        return _stage_ck(t_hi, t_lo, t_len, t_tsp)
 
     # token_of_lane machinery (PRESORT token ids). A cause lane inside a
     # twin-DROPPED segment copy resolves to the KEPT twin's token.
@@ -250,13 +270,15 @@ def _v5_ab(hi, lo, cci, vclass, seg, sg_min_hi, sg_min_lo, sg_max_hi,
 
 def _v5(hi, lo, cci, vclass, valid, seg, sg_min_hi, sg_min_lo, sg_max_hi,
         sg_max_lo, sg_len, sg_lane0, sg_dense, sg_tail_special, sg_valid,
-        sg_vsum, u_max: int, k_max: int):
+        sg_vsum, u_max: int, k_max: int, stage=None):
     B, N = hi.shape
     dev = hi.device
     take = take1d
     ab = _v5_ab(hi, lo, cci, vclass, seg, sg_min_hi, sg_min_lo, sg_max_hi,
                 sg_max_lo, sg_len, sg_lane0, sg_dense, sg_tail_special,
-                sg_valid, sg_vsum, u_max)
+                sg_valid, sg_vsum, u_max, stage=stage)
+    if stage in ("A", "B"):
+        return ab
     (t_hi, t_lo, t_len, t_vc, t_tsp, t_lane) = (
         ab.t_hi, ab.t_lo, ab.t_len, ab.t_vc, ab.t_tsp, ab.t_lane)
     token_of_lane, uidx, U = ab.token_of_lane, ab.uidx, u_max
@@ -274,6 +296,8 @@ def _v5(hi, lo, cci, vclass, valid, seg, sg_min_hi, sg_min_lo, sg_max_hi,
     sdup = (_eq(st_hi, st_lo, _shift1(st_hi, -1), _shift1(st_lo, -1))
             & (uidx > 0) & tva)
     keep_t = tva & ~sdup
+    if stage == "C":
+        return _stage_ck(st_hi, keep_t, sv_lane, inv_t)
 
     # ================= D. token cause resolution ====================
     cl = torch.where(tva, take(cci, sv_lane.clamp(0, N - 1)), -1)
@@ -311,6 +335,8 @@ def _v5(hi, lo, cci, vclass, valid, seg, sg_min_hi, sg_min_lo, sg_max_hi,
         | (cause_su != _shift1(cause_su, 0))
         | (sv_len != _shift1(sv_len, 0))
     )).any(dim=1)
+    if stage == "D":
+        return _stage_ck(parent_su, cause_su, conflict)
 
     # ================= E. chain runs + ranking at token width =======
     kept_len = torch.where(keep_t, sv_len, 0)
@@ -413,6 +439,11 @@ def _v5(hi, lo, cci, vclass, valid, seg, sg_min_hi, sg_min_lo, sg_max_hi,
     # the successor head's cause must BE the run's tail node
     kill_tail = r_valid & s_is_hide & (take(cause_su, s_c) == tail_tok)
     vict_tail = torch.where(kill_tail, take(sv_tail_lane, t_cc), N)
+    if stage == "E":
+        # conflict included so prefix increments stay strictly
+        # cumulative over stage D's reduction
+        return _stage_ck(rank_tok, vict_inrun, vict_tail, kill_tail,
+                         conflict)
 
     # ================= F. expansion to concat lanes =================
     lane_key = torch.where(keep_t & (rank_tok < N), sv_lane, N).to(I32)
@@ -449,14 +480,24 @@ def batched_merge_weave_v5(hi, lo, cci, vclass, valid, seg,
                            sg_min_hi, sg_min_lo, sg_max_hi, sg_max_lo,
                            sg_len, sg_lane0, sg_dense, sg_tail_special,
                            sg_valid, sg_vsum, u_max: int, k_max: int,
-                           device="cuda"):
+                           device="cuda", stage=None):
     """Segment-union batch: ``[B, N]`` node lanes + ``[B, S]`` segment
     tables (``benchgen.LANE_KEYS5`` order) -> per-replica ``(rank,
     visible, conflict, overflow)``, rank/visible indexed by concat lane
     (rank N for dropped, duplicate and padding lanes). Runs on
     ``device``; on the card the sorts, the forest walk and the lane
-    expansion are the B1, B2 and B3 kernels."""
+    expansion are the B1, B2 and B3 kernels.
+
+    ``stage`` (profiling only; ``obs.stages``) stops after a prefix of
+    the pipeline and returns one float32 checksum per row of that
+    phase's live outputs, as ``jaxw5``'s ``stage=`` does: ``"A"``
+    segment ordering + explode/dedupe, ``"B"`` token construction,
+    ``"C"`` token sort + dedupe, ``"D"`` cause resolution, ``"E"``
+    token-width ranking + kills. ``None`` (every other caller) runs
+    the full kernel."""
+    if stage not in STAGES:
+        raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
     args = _prepare((hi, lo, cci, vclass, valid, seg, sg_min_hi, sg_min_lo,
                      sg_max_hi, sg_max_lo, sg_len, sg_lane0, sg_dense,
                      sg_tail_special, sg_valid, sg_vsum), device)
-    return _v5(*args, u_max=int(u_max), k_max=int(k_max))
+    return _v5(*args, u_max=int(u_max), k_max=int(k_max), stage=stage)

@@ -10,7 +10,8 @@ through the v5 pipeline and the fused v5f pipeline, the handle-level
 ``merge_wave`` API through both, the session, the merge tree and the
 map-fleet wave, bases, sync rounds, the quarantined wave, the chaos
 ladder and compaction, a served fleet of 32 tenants behind the
-network transport, and checks that the kernels really
+network transport, the telemetry over those paths, and checks that
+the kernels really
 carried those paths (launch counts) and that the results are
 bit-identical to the plain path on the card, to each other and to the
 pure host weaver. Every comparison is exact: all outputs are integers or
@@ -142,9 +143,32 @@ Phases, one line each (times from CUDA events unless named host):
    bit-identical; the scrubber over the WAL and the checkpoint; the
    native weaver built and a 10k-node merge equal to the pure merge.
 
-Phases 5-10 each reset the launch counts before they run (phase 10
-reads them tick by tick) and read them after: a phase that did not
-launch B1, B2 and B3 fails.
+11. telemetry: the port's ``obs`` on the card. Each path runs with
+   telemetry off and then on, and must launch the same kernels the same
+   number of times with bit-identical outputs: the API wave (v5, then
+   v5f) over phase 4's 32 pairs, a ``FleetSession`` over them (a full
+   wave, a round the reference also runs full, a delta round) and its
+   ``converge()`` (the merge tree over the 64 replicas), and two
+   offered rounds of phase 10's served fleet (32 tenants, capacity 16,
+   its default drain) under a 1 ms lag SLO. With telemetry on: every
+   ``wave.cost``'s dispatches against the B3 launches they ran (the
+   reference's count: kernel + digest, delta + splice, one a tree level
+   or a bucket); ``wave.digest`` and ``divergence`` against the digests
+   (the API pairs diverge by construction; the tree's root level and
+   every tenant wave agree, no incident); no op pending after
+   ``converge()`` and after the served rounds; one ``live.alert`` per
+   excursion of each rule; the controller's ``T_batch`` moving
+   (``serve.control``), each tick's ``wave_dispatches`` above 0 where it
+   dispatched a bucket; one ``devprof.program`` per dispatch identity,
+   each with its dispatch's 6/1/1 (or v5f's) launches and the CUDA
+   allocator's statistics; the memory gauge equal to
+   ``memory_allocated``; the stage ladder (A-E, FULL) at the north star
+   with FULL within 25% of phase 3's v5 dispatch p50; the overhead on
+   the wave and on the tick; the JSONL sidecar holding every record.
+
+Phases 5-11 each reset or read the launch counts around their runs
+(phases 10 and 11 tick by tick) and read them after: a phase that did
+not launch B1, B2 and B3 fails.
 
 Before the last line it prints the card's ``name, power.limit`` (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -2053,8 +2077,8 @@ class ServeTicker:
             sched = svc._scheduler
             real_wave = sched.wave_fleet
 
-            def wave_fleet(sessions):
-                out = real_wave(sessions)
+            def wave_fleet(sessions, **kw):
+                out = real_wave(sessions, **kw)
                 self.fallbacks += sched.last_fallbacks
                 return out
 
@@ -2418,7 +2442,399 @@ def phase_serve(torch, dev, card: str) -> tuple:
         + kernel_sums_line(per)
         + f"; phase {time.perf_counter() - t_phase:.1f} s (host clock); "
         f"{card}")
-    return tick_counts, per
+    return tick_counts, per, tenants
+
+
+# ------------------------------------------------------------ 11. telemetry
+
+
+def obs_fresh(out: str = "") -> None:
+    """The port's telemetry reset to a clean, disabled state (every
+    layer: events, counters, monitors, cost windows, devprof's seen
+    identities), streaming to ``out`` once enabled."""
+    from cause_tpu_torch import obs
+    from cause_tpu_torch.obs import costmodel, devprof, semantic
+
+    obs.configure(enabled=False, out=out, ring_size=1 << 20, reset=True)
+    semantic.reset()
+    costmodel.reset()
+    devprof.reset()
+
+
+def obs_twin(torch, tag: str, run):
+    """``run()`` with telemetry off, then on: the two results, the
+    launches of each and the events of the on run. Fails unless both
+    runs launched the same kernels the same number of times."""
+    from cause_tpu_torch import kernels, obs
+
+    obs.configure(enabled=False)
+    with launches_in() as off_counts:
+        off, off_ms = timed_ms(torch, run)
+    obs.configure(enabled=True)
+    i0 = len(obs.events())
+    with launches_in() as on_counts:
+        on, on_ms = timed_ms(torch, run)
+    obs.configure(enabled=False)
+    evs = obs.events()[i0:]
+    if on_counts != off_counts:
+        fail(f"{tag}: telemetry changed the launches: off {off_counts}, "
+             f"on {on_counts}")
+    if not any(on_counts[n] for n in V5_LAUNCHES):
+        fail(f"{tag}: the path launched no B1-B3 kernel: {on_counts}")
+    return off, on, on_counts, evs, off_ms, on_ms
+
+
+def fields_of(evs, name, **match):
+    return [e["fields"] for e in evs if e.get("ev") == "event"
+            and e.get("name") == name
+            and all(e["fields"].get(k) == v for k, v in match.items())]
+
+
+def same(torch, a, b) -> bool:
+    """Bit identity of nested results: tensors, arrays and plain data."""
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(same(torch, x, y) for x, y in zip(a, b)))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same(torch, a[k], b[k]) for k in a))
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype \
+            and torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype \
+            and np.array_equal(a, b)
+    return a == b
+
+
+def check_wave_costs(tag: str, costs, fphase: int, per_dispatch: int):
+    """The cost model's dispatch count against the kernels': every
+    counted dispatch here runs B3 once, and the reference's accounting
+    counts ``per_dispatch`` records for it (kernel + digest, or delta
+    weave + rank splice: 2; a tree level or a bucket: 1)."""
+    got = sum(f["dispatches"] for f in costs)
+    if not costs or got != per_dispatch * fphase:
+        fail(f"{tag}: wave.cost dispatches {[f['dispatches'] for f in costs]}"
+             f" (sum {got}) against {fphase} B3 launches x {per_dispatch}")
+
+
+def phase_telemetry(torch, dev, card: str, pairs, v5, u_max: int,
+                    k_p50: float, tenants) -> dict:
+    """Phase 11: the port's telemetry on the card. Returns the
+    telemetry-on runs' launch counts."""
+    import random
+    import tempfile
+
+    import cause_tpu_torch as ct
+    from cause_tpu_torch import kernels, obs, serde
+    from cause_tpu_torch.obs import devprof, lag, perfetto, stages
+    from cause_tpu_torch.parallel.session import FleetSession
+
+    tag = "[11 telemetry]"
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="obs-smoke-")
+    sidecar = os.path.join(tmp.name, "obs.jsonl")
+    obs_fresh(sidecar)
+    obs.set_platform(dev)
+    total = {n: 0 for n in kernels.SOURCES}
+
+    def add(counts):
+        for n in total:
+            total[n] += counts[n]
+
+    # ---- the API wave, v5 then v5f, off against on
+    def api(kernel):
+        def run():
+            os.environ["BENCH_KERNEL"] = kernel
+            try:
+                res = ct.merge_wave(pairs)
+            finally:
+                os.environ.pop("BENCH_KERNEL", None)
+            return res.rank, res.visible, res.digest, res.kernel
+        return run
+
+    for kernel in ("v5", "v5f"):
+        off, on, counts, evs, off_ms, on_ms = obs_twin(
+            torch, f"{tag} api {kernel}", api(kernel))
+        add(counts)
+        if not same(torch, off, on):
+            fail(f"{tag} api {kernel}: ranks, visibility or digests "
+                 f"differ with telemetry on")
+        costs = fields_of(evs, "wave.cost", source="wave")
+        if len(costs) != 1:
+            fail(f"{tag} api {kernel}: {len(costs)} wave.cost events")
+        check_wave_costs(f"{tag} api {kernel}", costs, counts["fphase"], 2)
+        (dig,) = fields_of(evs, "wave.digest", source="wave")
+        distinct = len(set(int(d) for d in on[2]))
+        if dig["distinct"] != distinct or dig["agreed"] != (distinct == 1):
+            fail(f"{tag} api {kernel}: wave.digest {dig} against "
+                 f"{distinct} distinct digests")
+        incidents = fields_of(evs, "divergence", source="wave")
+        if len(incidents) != (0 if distinct == 1 else 1):
+            fail(f"{tag} api {kernel}: {len(incidents)} divergence "
+                 f"incidents for {distinct} distinct digests")
+        say(f"{tag} api {kernel}: merge_wave over {len(pairs)} pairs "
+            f"bit-identical with telemetry on (launches {counts}); one "
+            f"wave.cost of {costs[0]['dispatches']} dispatches; "
+            f"wave.digest {distinct} distinct of {len(pairs)} (the pairs "
+            f"diverge by construction: one incident); host ms off "
+            f"{off_ms:.3f} on {on_ms:.3f} (first calls)")
+
+    # ---- two session rounds (full, then delta) and the tree over the
+    # session's replicas, off against on
+    def session_run():
+        sess = FleetSession(pairs)
+        digs = [sess.wave()]
+        cur = pairs
+        for rnd in (1, 2):
+            cur = session_edit(cur, rnd)
+            sess.update(cur)
+            digs.append(sess.wave())
+        root = sess.converge()
+        return digs, sess.last_rank, sess.last_visible, root.ct.weave
+
+    uuid = str(pairs[0][0].ct.uuid)
+    off, on, counts, evs, off_ms, on_ms = obs_twin(
+        torch, f"{tag} session + tree", session_run)
+    add(counts)
+    if not same(torch, off, on):
+        fail(f"{tag} session: digests, resident ranks, visibility or the "
+             f"converged root differ with telemetry on")
+    s_costs = fields_of(evs, "wave.cost", source="session")
+    t_costs = fields_of(evs, "wave.cost", source="tree")
+    paths = [f["path"] for f in s_costs]
+    if len(s_costs) != 3 or "full" not in paths or "delta" not in paths:
+        fail(f"{tag} session: wave.cost paths {paths}")
+    levels = fields_of(evs, "tree.level")
+    if len(t_costs) != len(levels) or t_costs[0]["path"] != "full":
+        fail(f"{tag} tree: {len(t_costs)} wave.cost for {len(levels)} "
+             f"levels, paths {[f['path'] for f in t_costs]}")
+    if any(f["dispatches"] != 2 for f in s_costs) or any(
+            f["dispatches"] < 1 for f in t_costs):
+        fail(f"{tag}: session/tree dispatch counts "
+             f"{[f['dispatches'] for f in s_costs]} / "
+             f"{[f['dispatches'] for f in t_costs]}")
+    check_wave_costs(f"{tag} session + tree", s_costs + t_costs,
+                     counts["fphase"] + len(s_costs), 1)
+    tree_digest = fields_of(evs, "wave.digest", source="tree")
+    if not tree_digest[-1].get("agreed") or fields_of(
+            evs, "divergence", source="tree"):
+        fail(f"{tag} tree: the root level disagreed or minted an "
+             f"incident: {tree_digest[-1]}")
+    pending = lag.pending_ops(uuid)
+    resolved = fields_of(evs, "lag.window")
+    if pending or not resolved or not resolved[-1]["converged"]:
+        fail(f"{tag}: {pending} ops still pending after converge "
+             f"({len(resolved)} lag windows)")
+    say(f"{tag} session: 3 waves (paths {paths}) and converge() over "
+        f"{2 * len(pairs)} replicas ({len(levels)} tree levels, paths "
+        f"{[f['path'] for f in t_costs]}) bit-identical with telemetry "
+        f"on (launches {counts}); wave.cost dispatches session "
+        f"{[f['dispatches'] for f in s_costs]}, tree "
+        f"{[f['dispatches'] for f in t_costs]}; root level agreed, no "
+        f"divergence incident; {resolved[-1]['converged_total']} ops "
+        f"converged, 0 pending; host ms off {off_ms:.3f} on {on_ms:.3f}")
+
+    # ---- two offered rounds of the served fleet, the lag SLO out of
+    # reach (1 ms): the controller must move
+    def serve_run(root):
+        def run():
+            svc = serve_service(root(), batched=True)
+            uuids = [svc.add_tenant(a, b) for a, b, _tail in tenants]
+            producers = [ServeProducer(i, tenants[i])
+                         for i in range(len(tenants))]
+            rng = random.Random(SERVE_SEED)
+            weights = [1.0 / ((i + 1) ** 1.2) for i in range(len(tenants))]
+            rng.shuffle(weights)
+            ticker = ServeTicker(svc)
+            t_batch0 = svc.controller.t_batch_ms
+            firing, ticks = [], []
+            for k in range(2):
+                for _ in range(SERVE_OFFERS):
+                    t = rng.choices(range(len(producers)), weights=weights)[0]
+                    p = producers[t]
+                    st = p.sites[rng.randrange(2)]
+                    ops = p.mint(st, rng.randint(1, 16))
+                    items = serde.encode_node_items(
+                        {o[0]: (o[1], o[2]) for o in ops})
+                    if not svc.queue.offer(p.uuid, st, items).admitted:
+                        fail(f"{tag} serve: an offer was refused")
+                for t in ticker.until_empty(torch, f"{tag} serve round {k}"):
+                    ticks.append(t)
+                    if svc._live is not None:
+                        firing.append({r.spec: r.firing
+                                       for r in svc._live.monitor.rules})
+            digests = {u: svc.converged_digest(u) for u in uuids}
+            moved = (t_batch0, svc.controller.t_batch_ms)
+            svc.close()
+            return digests, ticks, firing, moved
+        return run
+
+    n_root = iter(range(2))
+    lag.set_slo(1.0)
+    off, on, counts, evs, off_ms, on_ms = obs_twin(
+        torch, f"{tag} serve",
+        serve_run(lambda: os.path.join(tmp.name, f"serve{next(n_root)}")))
+    lag.set_slo(None)
+    add(counts)
+    (dig_off, ticks_off, _f, moved_off), (dig_on, ticks_on, firing,
+                                          moved_on) = off, on
+    if dig_off != dig_on:
+        fail(f"{tag} serve: tenant digests differ with telemetry on")
+    keys = ("ops", "tenants", "depth", "buckets", "batch_rows")
+    if [{k: t["summary"][k] for k in keys} for t in ticks_off] != \
+            [{k: t["summary"][k] for k in keys} for t in ticks_on]:
+        fail(f"{tag} serve: the ticks drained or dispatched differently")
+    if moved_off[0] != moved_off[1]:
+        fail(f"{tag} serve: T_batch moved with telemetry off")
+    control = fields_of(evs, "serve.control")
+    if moved_on[1] == moved_on[0] or not control:
+        fail(f"{tag} serve: T_batch stayed at {moved_on[0]} ms under an "
+             f"unmeetable SLO ({len(control)} serve.control events)")
+    wd = [t["summary"]["wave_dispatches"] for t in ticks_on]
+    buckets = [t["summary"]["buckets"] for t in ticks_on]
+    if any(t["summary"]["wave_dispatches"] for t in ticks_off) or \
+            not all(w > 0 for w, b in zip(wd, buckets) if b) or not any(wd):
+        fail(f"{tag} serve: wave_dispatches off "
+             f"{[t['summary']['wave_dispatches'] for t in ticks_off]}, on "
+             f"{wd} (buckets {buckets})")
+    b_costs = fields_of(evs, "wave.cost", path="batched")
+    if len(b_costs) != sum(buckets) or any(f["dispatches"] != 1
+                                           for f in b_costs):
+        fail(f"{tag} serve: {len(b_costs)} batched wave.cost events for "
+             f"{sum(buckets)} bucket dispatches")
+    alerts = fields_of(evs, "live.alert")
+    for spec in (firing[0] if firing else {}):
+        rises = sum(1 for i, f in enumerate(firing)
+                    if f[spec] and (i == 0 or not firing[i - 1][spec]))
+        got = sum(1 for a in alerts if a.get("rule") == spec)
+        if got != rises:
+            fail(f"{tag} serve: rule {spec}: {got} live.alert events for "
+                 f"{rises} excursions")
+    burn = [a for a in alerts if str(a.get("rule", "")).startswith("burn")]
+    if not burn:
+        fail(f"{tag} serve: no burn alert under a 1 ms SLO")
+    serve_uuids = list(dig_on)
+    if any(lag.pending_ops(u) for u in serve_uuids):
+        fail(f"{tag} serve: ops pending after the fleet drained its queue")
+    agreed = fields_of(evs, "wave.digest", source="session")
+    if not agreed or not all(f["agreed"] for f in agreed) or fields_of(
+            evs, "divergence", source="session"):
+        fail(f"{tag} serve: a tenant wave disagreed or minted an incident")
+    tick_off = [t["ms"] for t in ticks_off]
+    tick_on = [t["ms"] for t in ticks_on]
+    say(f"{tag} serve: {len(tenants)} tenants, 2 offered rounds, "
+        f"{len(ticks_on)} ticks, digests and tick shapes bit-identical "
+        f"with telemetry on (launches {counts}); T_batch "
+        f"{moved_on[0]:.3f} -> {moved_on[1]:.3f} ms in {len(control)} "
+        f"serve.control changes (lag SLO 1 ms); wave_dispatches a tick "
+        f"{wd} (buckets {buckets}); {len(b_costs)} batched wave.cost of 1 "
+        f"dispatch each; live.alert {sorted(a['rule'] for a in alerts)}, "
+        f"one per excursion; 0 ops pending; every tenant wave agreed")
+    ratios = [b / a for a, b in zip(tick_off, tick_on)]
+    say(f"{tag} overhead: tick p50 off {float(np.median(tick_off)):.3f} "
+        f"ms, on {float(np.median(tick_on)):.3f} ms (host clock, "
+        f"synchronized, {len(tick_off)} / {len(tick_on)} ticks: "
+        f"{[round(t, 3) for t in tick_off]} / "
+        f"{[round(t, 3) for t in tick_on]}); the same tick on / off, "
+        f"median {float(np.median(ratios)):.3f}, range "
+        f"{min(ratios):.3f}-{max(ratios):.3f}; {card}")
+
+    # ---- devprof on the card
+    programs = fields_of(obs.events(), "devprof.program")
+    idents = [tuple(sorted((k, v) for k, v in f.items()
+                           if k not in ("site", "launches", "cost",
+                                        "memory")))
+              for f in programs]
+    if not programs or len(set(idents)) != len(idents):
+        fail(f"{tag} devprof: {len(programs)} devprof.program events, "
+             f"{len(set(idents))} identities")
+    for f in programs:
+        want = V5F_LAUNCHES if f["pipeline"] == "v5f" else V5_LAUNCHES
+        got = {k: v for k, v in f["launches"].items() if v}
+        if got != want or "memory" not in f or "flops" in f["cost"]:
+            fail(f"{tag} devprof.program {f}: launches {got}, expected "
+                 f"{want}, with the allocator's memory and no flops")
+    a0 = torch.cuda.memory_allocated(dev)
+    obs.configure(enabled=True)
+    sample = devprof.sample_device_memory("smoke", dev)
+    obs.configure(enabled=False)
+    a1 = torch.cuda.memory_allocated(dev)
+    gauges = {e["name"]: e["value"] for e in obs.events()
+              if e.get("ev") == "gauge"}
+    if not (a0 == sample["device_bytes_in_use"] == a1
+            == gauges["devprof.device_bytes_in_use.smoke"]):
+        fail(f"{tag} devprof: gauge {sample} against memory_allocated "
+             f"{a0} / {a1}")
+    sites = {n.rsplit(".", 1)[-1] for n in gauges
+             if n.startswith("devprof.device_bytes_in_use.")}
+    for site in ("wave", "session", "batch", "smoke"):
+        if site not in sites:
+            fail(f"{tag} devprof: no memory gauge at {site} ({sites})")
+    say(f"{tag} devprof: {len(programs)} devprof.program events, one per "
+        f"dispatch identity ({sorted({(f['site'], f['pipeline']) for f in programs})}), "
+        f"launches per first dispatch 6/1/1 (v5, delta) and 2/1/1/1/1/1 "
+        f"(v5f); memory gauge {sample['device_bytes_in_use']} B == "
+        f"memory_allocated; gauged at {sorted(sites)}")
+
+    # ---- the stage ladder at the north star. Phase 3 timed its dispatch
+    # before the earlier phases filled the heap with handles; freezing
+    # that heap keeps Python's full collections from scanning it in the
+    # middle of a timed prefix, so FULL compares with phase 3's p50
+    import gc
+
+    gc.collect()
+    gc.freeze()
+    obs.configure(enabled=True)
+    lines = []
+    try:
+        ladder = stages.run_v5_stage_ladder(inputs=(v5, u_max),
+                                            reps=3 * REPS, device=dev,
+                                            echo=lines.append)
+    finally:
+        obs.configure(enabled=False)
+        gc.unfreeze()
+    full = ladder[-1]["p50_ms"]
+    if [r["stage"] for r in ladder] != ["A", "B", "C", "D", "E", "FULL"]:
+        fail(f"{tag} stages: {ladder}")
+    if abs(full - k_p50) > 0.25 * k_p50:
+        fail(f"{tag} stages: FULL p50 {full:.3f} ms is not within 25% of "
+             f"phase 3's v5 dispatch p50 {k_p50:.3f} ms")
+    say(f"{tag} stages at the north star ({v5['hi'].shape[0]} rows, "
+        f"u_max {u_max}; CUDA events, p50 of {3 * REPS}, the older heap "
+        f"frozen): "
+        + ", ".join(f"{r['stage']} {r['p50_ms']:.3f} ms ({r['delta_ms']:+.3f})"
+                    for r in ladder)
+        + f"; FULL against phase 3's dispatch p50 {k_p50:.3f} ms: "
+        f"{full / k_p50:.3f}; {card}")
+
+    # ---- the sidecar: what was streamed folds like the ring
+    streamed = perfetto.load_jsonl(sidecar)
+    ring = obs.events()
+    if len(streamed) != len(ring):
+        fail(f"{tag}: the sidecar holds {len(streamed)} records, the ring "
+             f"{len(ring)}")
+
+    # ---- the overhead on the wave: merge_wave v5, off and on alternately,
+    # every record streamed to the sidecar (one write a record)
+    offs, ons = [], []
+    try:
+        for _ in range(REPS):
+            for flag, acc in ((False, offs), (True, ons)):
+                obs.configure(enabled=flag)
+                acc.append(timed_ms(torch, lambda: ct.merge_wave(pairs))[1])
+    finally:
+        obs.configure(enabled=False)
+    say(f"{tag} overhead: merge_wave over {len(pairs)} pairs p50 off "
+        f"{float(np.median(offs)):.3f} ms, on {float(np.median(ons)):.3f} "
+        f"ms (host clock, synchronized, {REPS} reps each, alternated, "
+        f"streamed to the sidecar: {[round(t, 3) for t in offs]} / "
+        f"{[round(t, 3) for t in ons]}); {card}")
+    obs_fresh()
+    tmp.cleanup()
+    say(f"{tag} {len(streamed)} records streamed to the sidecar; phase "
+        f"{time.perf_counter() - t_phase:.1f} s (host clock); {card}")
+    return total
 
 
 # --------------------------------------------------------------- main
@@ -2740,8 +3156,13 @@ def main() -> int:
                                           tree_root)
 
     # ------------------------------------------------ 10. serve
-    del res, cached, hs, tree_root, pairs
-    serve_counts, serve_per = phase_serve(torch, dev, card)
+    del res, cached, hs, tree_root
+    serve_counts, serve_per, tenants = phase_serve(torch, dev, card)
+
+    # ------------------------------------------------ 11. telemetry
+    obs_counts = phase_telemetry(torch, dev, card, pairs, v5, u_max, k_p50,
+                                 tenants)
+    del pairs, tenants
 
     # ------------------------------------------------ result
     recs = []
@@ -2767,6 +3188,10 @@ def main() -> int:
             "serve_plain_ms": serve_per.get(name, {}).get("plain_ms"),
             "serve_bound_ms": serve_per.get(name, {}).get("bound_ms"),
             "serve_library_ms": serve_per.get(name, {}).get("library_ms"),
+            # phase 11's telemetry-on runs (the api wave twice, the
+            # session and its tree, two served rounds, the stage ladder
+            # excluded)
+            "telemetry_launches": obs_counts[name],
         })
     say(f"total {time.perf_counter() - t_start:.1f} s (host clock)")
     print(card, flush=True)

@@ -9,7 +9,10 @@ payload fuzzer (``:372``) — and, on their outcomes (digests, retries,
 the ``injected()`` log), the stream reject at the boundary (``:298``),
 the quarantine round trip (``:325``), the ladder's retry (``:413``) and
 the session's dispatch and budget faults (``:447``); their reads of
-telemetry events wait for the telemetry port (ROADMAP A.13). The
+telemetry events are not mirrored here (the ``chaos.inject`` and
+``recovery.*`` evidence rides the twin streams of
+``tests/test_torch_serve.py``'s and ``test_torch_serve_batch.py``'s
+telemetry halves). The
 checkpoint cases (``:550``, ``:586``) are mirrored in
 ``tests/test_torch_session.py``; here a crash fault drives the
 checkpoint -> restore cycle. ``:663`` needs the serving plane (A.12).

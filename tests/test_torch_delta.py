@@ -319,3 +319,69 @@ def test_merge_wave_refuses_a_mesh():
     tpairs = make_pairs(PORT, 1, n_base=10, n_div=2)
     with pytest.raises(NotImplementedError, match="A.15"):
         ct.merge_wave(tpairs, object())
+
+
+# ------------------------------------------------ the telemetry halves
+
+
+def test_obs_off_invariance_of_delta_path(tmp_path):
+    """``tests/test_delta_weave.py``'s case: obs off records nothing
+    (no events, no cost-model state, no sink) while the delta path
+    makes the same routing decisions; an obs-on full wave over the
+    edited fleet gives the same digests."""
+    import os
+
+    from cause_tpu_torch import obs
+    from cause_tpu_torch.obs import costmodel, semantic
+    from test_torch_obs import reset_all
+
+    reset_all()
+    out = str(tmp_path / "never.jsonl")
+    obs.configure(enabled=False, out=out)
+    pairs = make_pairs(PORT, 2, n_base=30)
+    sess = ct.FleetSession(pairs)
+    d0 = sess.wave()
+    assert sess._delta is not None
+    pairs = [(a.conj("x"), b.conj("y")) for a, b in pairs]
+    sess.update(pairs)
+    assert sess._delta is not None
+    d1 = sess.wave()
+    assert obs.events() == []
+    assert obs.counters_snapshot() == {"counters": {}, "gauges": {}}
+    assert not os.path.exists(out)
+    assert costmodel._PROGRAMS == {} and costmodel._PENDING_OPS == {}
+    obs.configure(enabled=True)
+    semantic.reset()
+    costmodel.reset()
+    d1_on = ct.FleetSession(pairs).wave()
+    reset_all()
+    assert np.array_equal(d1, d1_on)
+    assert not np.array_equal(d0, d1)
+
+
+def test_gap_report_renders_per_path_verdicts():
+    """``tests/test_delta_weave.py``'s case: a stream with both wave
+    generations renders O(delta) for the delta path and O(doc) for the
+    full-weave control, in both packages alike."""
+    from cause_tpu.obs import costmodel as j_cm
+    from cause_tpu_torch.obs import costmodel
+
+    def ev(path, d, wall):
+        return {"ev": "event", "name": "wave.cost",
+                "fields": {"uuid": "u", "source": "bench",
+                           "path": path, "pairs": 1024,
+                           "lanes": 20480 * 1024, "delta_ops": d,
+                           "full_bag": 0, "dispatches": 2,
+                           "programs": 2, "wall_ms": wall}}
+
+    waves = []
+    for d in (10, 50, 500, 5000):
+        waves.append(ev("full", d * 1024, 5300.0 + d * 0.001))
+        waves.append(ev("delta", d * 1024, 20.0 + d * 0.4))
+    rep = costmodel.gap_report([], waves)
+    by = rep["cost_vs_divergence_by_path"]
+    assert by["delta"]["verdict"] == "O(delta)"
+    assert by["full"]["verdict"] == "O(doc)"
+    text = costmodel.render_gap(rep)
+    assert "path delta" in text and "path full" in text
+    assert by == j_cm.gap_report([], waves)["cost_vs_divergence_by_path"]

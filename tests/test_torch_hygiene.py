@@ -15,6 +15,12 @@
   package facade does).
 - The kernels are built and loaded only on first launch, never at
   import time, and each wrapper counts only its own launches.
+- Telemetry (``obs``): off, it records nothing, keeps no registry
+  state, reads no environment variable after its one-time resolution
+  and changes no output; its new device entry points (the stage
+  ladder, ``devprof``'s samplers, a telemetry-on ``SyncService``)
+  follow the no-card rule; its host modules hold no tensor code; the
+  cost model's dispatch floor is the serving controller's.
 """
 
 import ast
@@ -324,3 +330,163 @@ def test_lanes_from_numpy_fixes_dtypes():
         want = torch.bool if k in tbench.V5_BOOL_KEYS else torch.int32
         assert lanes[k].dtype == want, k
         assert lanes[k].is_contiguous()
+
+
+# ------------------------------------------------------------ telemetry
+
+OBS_HOST = ["obs/__init__.py", "obs/__main__.py", "obs/core.py",
+            "obs/perfetto.py", "obs/semantic.py", "obs/xtrace.py",
+            "obs/lag.py", "obs/journey.py", "obs/fleet.py",
+            "obs/costmodel.py", "obs/ledger.py", "obs/live.py"]
+
+
+@pytest.mark.parametrize("rel", OBS_HOST)
+def test_obs_host_modules_hold_no_tensor_code(rel):
+    """The telemetry substrate is host bookkeeping: only ``devprof``
+    (the allocator's statistics) and ``stages`` (it runs kernels) touch
+    torch, and those import it inside their functions."""
+    tree = ast.parse((ROOT / "cause_tpu_torch" / rel).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert not [n for n in names if n.split(".")[0] == "torch"]
+
+
+def test_costmodel_floor_is_the_controllers():
+    from cause_tpu_torch.obs import costmodel
+    from cause_tpu_torch.serve import controller
+
+    assert costmodel.DISPATCH_FLOOR_MS is controller.DISPATCH_FLOOR_MS
+    assert controller.BatchController().floor_ms \
+        == costmodel.DISPATCH_FLOOR_MS
+
+
+@pytest.fixture
+def obs_clean(monkeypatch):
+    from cause_tpu_torch import obs
+    from cause_tpu_torch.obs import costmodel, devprof, semantic
+
+    for k in ("CAUSE_TPU_OBS", "CAUSE_TPU_OBS_OUT", "CAUSE_TPU_OBS_RING",
+              "CAUSE_TPU_LAG_SLO_MS"):
+        monkeypatch.delenv(k, raising=False)
+    for m in (obs, semantic, costmodel, devprof):
+        m.reset()
+    yield obs
+    for m in (obs, semantic, costmodel, devprof):
+        m.reset()
+
+
+def test_obs_entry_points_raise_without_cuda(no_card, obs_clean, tmp_path):
+    """The stage ladder, its timing loop, ``devprof``'s samplers and a
+    telemetry-on service default to CUDA and refuse without a card; on
+    the CPU, asked for, they run."""
+    from cause_tpu_torch.obs import devprof, stages
+    from cause_tpu_torch.serve import IngestQueue, SyncService
+
+    obs_clean.configure(enabled=True)
+    calls = (
+        lambda: stages.run_v5_stage_ladder(shape=(2, 30, 6, 64), reps=1,
+                                           echo=lambda s: None),
+        lambda: stages.timed_median("x", lambda: 1, reps=1),
+        lambda: devprof.sample_device_memory("wave"),
+        lambda: devprof.profiled(lambda: 1, pipeline="v5"),
+        lambda: SyncService(IngestQueue()).add_tenant(
+            *_serve_pair("T")),
+    )
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert stages.timed_median("x", lambda: 1, reps=1, device="cpu")[0] == 1
+    assert devprof.sample_device_memory("wave", "cpu") == {}
+    ct.use_device("cpu")
+    svc = SyncService(IngestQueue())
+    svc.add_tenant(*_serve_pair("U"))
+    svc.close()
+
+
+def _serve_pair(tag):
+    b = ct.CausalList(ct.clist(weaver="torch").ct.evolve(
+        site_id=f"s{tag}BASE000000", uuid=f"hyg-{tag}"))
+    b = b.extend(["w"] * 12)
+    return (ct.CausalList(b.ct.evolve(site_id=f"s{tag}A0000000000"))
+            .conj("A"),
+            ct.CausalList(b.ct.evolve(site_id=f"s{tag}B0000000000"))
+            .conj("B"))
+
+
+def test_obs_off_records_nothing_reads_nothing_changes_nothing(
+        obs_clean, tmp_path, monkeypatch):
+    """Every instrumented path with telemetry off: no event, no
+    counter, no registry state anywhere in ``obs``, no environment read
+    of a telemetry variable once the state resolved, and the same
+    outputs as the same paths with telemetry on."""
+    import os
+
+    from cause_tpu_torch.obs import core, costmodel, devprof, lag
+    from cause_tpu_torch.obs import semantic, xtrace
+    from cause_tpu_torch.serve import IngestQueue, SyncService
+
+    ct.use_device("cpu")
+
+    def run():
+        base = ct.CausalList(ct.clist(weaver="torch").ct.evolve(
+            site_id="sHYGBASE00000", uuid="hyg-doc")).extend(["w"] * 20)
+        pairs = [(ct.CausalList(base.ct.evolve(site_id=f"sHA{i}000000000"))
+                  .conj("a"),
+                  ct.CausalList(base.ct.evolve(site_id=f"sHB{i}000000000"))
+                  .conj("b")) for i in range(3)]
+        out = [ct.merge_wave(pairs).digest.tolist()]
+        sess = ct.FleetSession(pairs)
+        out.append(sess.wave().tolist())
+        pairs = [(a.conj("x"), b.conj("y")) for a, b in pairs]
+        sess.update(pairs)
+        out.append(sess.wave().tolist())
+        root = ct.merge_tree([h for p in pairs for h in p])
+        out.append(root.ct.weave)
+        a2, b2 = ct.sync_pair(*pairs[0])
+        out.append(a2.ct.weave)
+        svc = SyncService(IngestQueue(), d_max=16)
+        uuid = svc.add_tenant(*_serve_pair("H"))
+        left, _r = svc.residency.get(uuid).pairs[0]
+        l2 = left.conj("z")
+        svc.queue.offer(uuid, l2.ct.site_id, ct.serde.encode_node_items(
+            ct.sync.delta_nodes(l2, ct.sync.version_vector(left))))
+        tick = svc.tick()
+        out.append({k: v for k, v in tick.items()
+                    if k not in ("wave_dispatches", "t_batch_ms")})
+        out.append(svc.converged_digest(uuid))
+        svc.close()
+        return out, tick
+
+    obs_clean.configure(enabled=False)
+    read = []
+
+    class _Tracker(dict):
+        def get(self, key, default=None):
+            read.append(key)
+            return super().get(key, default)
+
+        def __getitem__(self, key):
+            read.append(key)
+            return super().__getitem__(key)
+
+    monkeypatch.setattr(os, "environ", _Tracker(os.environ))
+    off, tick_off = run()
+    monkeypatch.undo()
+    assert not [k for k in read if k.startswith("CAUSE_TPU_OBS")
+                or k in ("CAUSE_TPU_LAG_SLO_MS", "CAUSE_TPU_LEDGER")]
+    assert obs_clean.events() == []
+    assert obs_clean.counters_snapshot() == {"counters": {}, "gauges": {}}
+    assert core._STATE.subscribers == ()
+    assert semantic._MON == {} and costmodel._PROGRAMS == {}
+    assert costmodel._PENDING_OPS == {} and costmodel._PENDING_BAGS == {}
+    assert lag._DOCS == {} and xtrace._OPS == {} and xtrace._LAST == {}
+    assert devprof._SEEN == {}
+    assert tick_off["wave_dispatches"] == 0
+    obs_clean.configure(enabled=True)
+    on, tick_on = run()
+    assert on == off
+    assert tick_on["wave_dispatches"] > 0

@@ -10,10 +10,17 @@ digests, materialized documents, journal rows without their wall-clock
 stamps); the port's record must EQUAL the reference's.
 
 Cases of ``tests/test_serve.py`` that read telemetry events keep their
-event-free half here; the event half waits for the telemetry port
-(ROADMAP A.13). ``test_live_snapshot_serve_fields_and_default_rules``
-and ``test_watch_renders_serve_line`` read only telemetry and wait
-whole.
+event-free half under the reference's name; their event half is a
+second case, ``<name>_obs``, which runs the same scenario with telemetry
+on in both packages (the ``obs_twin`` fixture: each package's obs
+state its own, the lag SLO out of reach, both controllers held still)
+and holds the port's
+event stream equal to the reference's, record for record, after
+``test_torch_obs.normalize`` (its docstring lists the fields left out),
+plus the reference test's own event assertions.
+``test_live_snapshot_serve_fields_and_default_rules`` is mirrored
+whole; ``test_watch_renders_serve_line`` waits for the ``watch``
+dashboard.
 
 The module also holds the twin-package helpers the other
 ``test_torch_serve_batch``/``wal``/``net`` files import.
@@ -49,6 +56,7 @@ from cause_tpu.serve import wal as j_wal
 
 import cause_tpu_torch as ct
 from cause_tpu_torch import chaos as t_chaos
+from cause_tpu_torch import obs as t_obs
 from cause_tpu_torch import serde as t_serde
 from cause_tpu_torch import sync as t_sync
 from cause_tpu_torch.collections import clist as t_clist
@@ -101,11 +109,20 @@ PORT = _pkg("port", ct, t_chaos, t_sync, t_serde, t_shared, t_clist,
             t_net_session, t_net_server)
 
 
+REF.obs = j_obs
+PORT.obs = t_obs
+
+# each package's event stream of the last ``both()`` run (telemetry on)
+STREAMS = {}
+
+
 def reset_both():
     for P in (REF, PORT):
         P.chaos.reset()
         P.sync.quarantine_reset()
-    j_obs.reset()
+        P.obs.reset()
+        P.obs.semantic.reset()
+        P.obs.costmodel.reset()
 
 
 @pytest.fixture(autouse=True)
@@ -133,8 +150,49 @@ def both(fn, tmp_path=None):
             root = tmp_path / P.name
             root.mkdir(parents=True, exist_ok=True)
             out[P.name] = fn(P, root)
+        if P.obs.enabled():
+            STREAMS[P.name] = P.obs.events()
     assert out["port"] == out["ref"]
     return out["port"]
+
+
+@pytest.fixture
+def obs_twin(monkeypatch):
+    """Telemetry on in both packages for ``both()`` scenarios; the
+    streams land in ``STREAMS``. The lag SLO is set out of reach, and
+    both controllers hold ``T_batch`` still: its target reads a
+    wall-time slope fitted from this host's timings, which differ
+    between the packages (``test_controller_moves_under_an_unmeetable_slo``
+    holds the port's controller moving)."""
+    monkeypatch.setenv("CAUSE_TPU_OBS", "1")
+    monkeypatch.setenv("CAUSE_TPU_LAG_SLO_MS", "1e9")
+    for mod in (j_controller, t_controller):
+        monkeypatch.setattr(mod.BatchController, "update",
+                            lambda self, snapshot: self.t_batch_ms)
+    STREAMS.clear()
+    reset_both()
+    yield STREAMS
+    STREAMS.clear()
+
+
+def twin_events(streams, name=None):
+    """The port's events of the last twin run after checking its
+    normalized stream equals the reference's (paths read from each
+    package's own scenario directory); ``name`` filters."""
+    from test_torch_obs import normalize
+
+    # each package ran in its own scenario directory (.../ref, .../port)
+    ref = normalize(streams["ref"])
+    port = json.loads(json.dumps(normalize(streams["port"])).replace(
+        "/port/", "/ref/"))
+    for i, (a, b) in enumerate(zip(port, ref)):
+        assert a == b, (i, a.get("name"), {
+            k: (a.get("fields", {}).get(k), b.get("fields", {}).get(k))
+            for k in set(a.get("fields", {})) | set(b.get("fields", {}))
+            if a.get("fields", {}).get(k) != b.get("fields", {}).get(k)})
+    assert len(port) == len(ref)
+    return [e for e in streams["port"] if e.get("ev") == "event"
+            and (name is None or e["name"] == name)]
 
 
 # ------------------------------------------------------------ documents
@@ -174,7 +232,8 @@ def delta_items(P, new, old):
 def payload(P, n=3, tag="P"):
     """A standalone valid payload of exactly ``n`` ops (a single-site
     list incl. its root node), for queue-only scenarios."""
-    h = P.CausalList(P.c.clist().ct.evolve(site_id=site(tag)))
+    h = P.CausalList(P.c.clist().ct.evolve(site_id=site(tag),
+                                           uuid=f"payload-{tag}"))
     h = h.extend([f"v{i}" for i in range(n - 1)])
     items = P.serde.encode_node_items(dict(h.ct.nodes))
     assert len(items) == n
@@ -788,8 +847,8 @@ def test_drain_mid_crash_then_restore(tmp_path):
 
 def test_service_tick_emits_vocabulary_and_controller_moves(tmp_path):
     """The event half (``serve.tick``, ``run.heartbeat``, the live
-    fold) waits for the telemetry port; the tick's summary dict and
-    the controller's ``t_batch_ms`` are held here."""
+    fold) is the ``_obs`` case; the tick's summary dict and the
+    controller's ``t_batch_ms`` are held here."""
     def scen(P, root):
         svc = service(P, root)
         a, r = pair(P, base(P))
@@ -807,7 +866,7 @@ def test_service_tick_emits_vocabulary_and_controller_moves(tmp_path):
 
 
 def test_service_watchdog_fires_once_per_excursion(tmp_path):
-    """The ``serve.watchdog`` event waits for the telemetry port; the
+    """The ``serve.watchdog`` event is the ``_obs`` case; the
     once-per-excursion latch and its re-arm by a tick are held here."""
     def scen(P, root):
         svc = service(P, root, watchdog_s=0.1)
@@ -865,8 +924,8 @@ def test_duplicate_tenant_uuid_rejected(tmp_path):
 
 
 def test_replay_with_torn_lines_emits_journal_torn_event(tmp_path):
-    """The ``serve.journal_torn`` event waits for the telemetry port;
-    the torn count it carries (the journal's own ``skipped``) and the
+    """The ``serve.journal_torn`` event is the ``_obs`` case; the torn
+    count it carries (the journal's own ``skipped``) and the
     restored document are held here."""
     def scen(P, root):
         svc = service(P, root)
@@ -919,8 +978,8 @@ def test_restore_watermark_inside_retired_segment(tmp_path):
 
 
 def test_restore_watermark_spanning_segment_boundary(tmp_path):
-    """The ``serve.restored`` event's ``replayed`` count waits for the
-    telemetry port; replay across the rotation seam and its outcome are
+    """The ``serve.restored`` event's ``replayed`` count is the
+    ``_obs`` case; replay across the rotation seam and its outcome are
     held here."""
     def scen(P, root):
         svc = wal_service(P, root, rotate_bytes=150)
@@ -1142,3 +1201,181 @@ def test_port_and_reference_journals_are_byte_identical(tmp_path):
 
     rec = both(scen, tmp_path)
     assert len(rec[1]) >= 2
+
+
+# ------------------------------------------------ the telemetry halves
+
+
+def test_poison_never_enters_queue_and_quarantine_refused_obs(obs_twin):
+    test_poison_never_enters_queue_and_quarantine_refused()
+    assert twin_events(obs_twin, "sync.reject")
+    assert twin_events(obs_twin, "sync.quarantine")
+
+
+def test_shed_ladder_defer_promote_and_drop_oldest_obs(obs_twin):
+    test_shed_ladder_defer_promote_and_drop_oldest()
+    sheds = [e["fields"] for e in twin_events(obs_twin, "serve.shed")]
+    assert [f["rung"] for f in sheds] == ["defer", "defer",
+                                          "drop_oldest", "defer"]
+    assert sheds[2]["uuid"] == "cold1"  # the oldest unadmitted
+
+
+def test_residency_lru_evicts_and_restores_bit_identically_obs(
+        tmp_path, obs_twin):
+    test_residency_lru_evicts_and_restores_bit_identically(tmp_path)
+    ev = twin_events(obs_twin, "serve.evict")
+    rs = twin_events(obs_twin, "serve.restore")
+    assert len(ev) == 2 and len(rs) == 1
+    # the restore's eviction lands before the restore
+    assert ev[0]["ts_us"] <= rs[0]["ts_us"] <= ev[-1]["ts_us"] or \
+        ev[-1]["ts_us"] <= rs[0]["ts_us"]
+
+
+def test_crash_after_admission_loses_zero_admitted_ops_obs(
+        tmp_path, obs_twin):
+    test_crash_after_admission_loses_zero_admitted_ops(tmp_path)
+    restored = [e["fields"] for e in twin_events(obs_twin,
+                                                 "serve.restored")]
+    # svc2 and svc3 each replay the three admitted ops (idempotently)
+    assert [f["replayed"] for f in restored] == [3, 3]
+    assert twin_events(obs_twin, "chaos.inject")
+
+
+def test_drain_mid_crash_then_restore_obs(tmp_path, obs_twin):
+    test_drain_mid_crash_then_restore(tmp_path)
+    phases = [e["fields"]["phase"]
+              for e in twin_events(obs_twin, "serve.drain")]
+    assert phases == ["start", "start", "done"]
+    assert twin_events(obs_twin, "serve.restored")
+
+
+def test_service_tick_emits_vocabulary_and_controller_moves_obs(
+        tmp_path, obs_twin):
+    test_service_tick_emits_vocabulary_and_controller_moves(tmp_path)
+    (tick,) = twin_events(obs_twin, "serve.tick")
+    assert tick["fields"]["ops"] == 1 and tick["fields"]["tenants"] == 1
+    assert tick["fields"]["wave_dispatches"] > 0
+    assert [e for e in twin_events(obs_twin, "run.heartbeat")
+            if e["fields"].get("stage") == "serve.tick"]
+    fold = t_obs.live.LiveFold()
+    fold.feed_many(obs_twin["port"])
+    snap = fold.snapshot()
+    assert snap["serve"]["active"] is True
+    assert snap["serve"]["ticks"] == 1 and snap["serve"]["queue_depth"] == 0
+    assert twin_events(obs_twin, "live.snapshot")
+
+
+def test_service_watchdog_fires_once_per_excursion_obs(tmp_path, obs_twin):
+    test_service_watchdog_fires_once_per_excursion(tmp_path)
+    (fired,) = twin_events(obs_twin, "serve.watchdog")
+    assert fired["fields"]["age_s"] > 0.1
+
+
+def test_replay_with_torn_lines_emits_journal_torn_event_obs(
+        tmp_path, obs_twin):
+    test_replay_with_torn_lines_emits_journal_torn_event(tmp_path)
+    (torn,) = twin_events(obs_twin, "serve.journal_torn")
+    assert torn["fields"]["skipped"] == 1
+    fold = t_obs.live.LiveFold()
+    fold.feed_many(obs_twin["port"])
+    assert fold.snapshot()["serve"]["journal_torn"] == 1
+
+
+def test_restore_watermark_spanning_segment_boundary_obs(
+        tmp_path, obs_twin):
+    test_restore_watermark_spanning_segment_boundary(tmp_path)
+    (restored,) = twin_events(obs_twin, "serve.restored")
+    assert restored["fields"]["replayed"] == 4
+
+
+def test_gc_then_restore_replays_only_live_suffix_obs(tmp_path, obs_twin):
+    test_gc_then_restore_replays_only_live_suffix(tmp_path)
+    (restored,) = twin_events(obs_twin, "serve.restored")
+    assert restored["fields"]["replayed"] == 0
+    assert twin_events(obs_twin, "serve.gc")
+
+
+def test_checkpoint_rename_failure_keeps_previous_manifest_obs(
+        tmp_path, obs_twin):
+    test_checkpoint_rename_failure_keeps_previous_manifest(tmp_path)
+    disks = [e["fields"] for e in twin_events(obs_twin, "serve.disk")
+             if e["fields"].get("op") == "checkpoint"]
+    assert len(disks) == 1 and disks[0]["why"] == "rename-failed"
+
+
+def test_live_snapshot_serve_fields_and_default_rules():
+    """``tests/test_serve.py``'s case, whole, in the port."""
+    live = t_obs.live
+    specs = set(live.DEFAULT_RULE_SPECS)
+    assert "shed_rate>0" in specs and "absence:serve.tick:60" in specs
+    assert live.parse_rule("shed_rate>0").path == "serve.shed_rate"
+    assert live.parse_rule("queue_depth>100").path == "serve.queue_depth"
+    assert live.parse_rule("resident_docs>8").path \
+        == "serve.resident_docs"
+    fold = live.LiveFold()
+    fold.feed({"ev": "event", "name": "wave.digest", "ts_us": 1,
+               "fields": {}})
+    assert fold.snapshot(now_us=200_000_000)["serve"]["active"] is False
+    mon = live.LiveMonitor(rules=["absence:serve.tick:60"], source="t")
+    mon.feed([{"ev": "event", "name": "wave.digest", "ts_us": 1,
+               "fields": {}}])
+    assert mon.evaluate(now_us=200_000_000) == []
+    mon2 = live.LiveMonitor(rules=["shed_rate>0"], source="t")
+    t0 = 1_000_000
+    mon2.feed([
+        {"ev": "event", "name": "serve.tick", "ts_us": t0,
+         "fields": {"ops": 1}},
+        {"ev": "gauge", "name": "serve.queue_depth", "ts_us": t0,
+         "value": 7},
+        {"ev": "gauge", "name": "serve.resident_docs", "ts_us": t0,
+         "value": 3},
+        {"ev": "event", "name": "serve.shed", "ts_us": t0 + 1000,
+         "fields": {"rung": "reject"}},
+    ])
+    snap = mon2.snapshot(now_us=t0 + 2000)
+    assert snap["serve"]["active"] is True
+    assert snap["serve"]["queue_depth"] == 7
+    assert snap["serve"]["resident_docs"] == 3
+    assert snap["serve"]["sheds"] == 1 and snap["serve"]["shed_rate"] > 0
+    fired = mon2.evaluate(now_us=t0 + 2000)
+    assert len(fired) == 1 and fired[0]["rule"] == "shed_rate>0"
+    mon3 = live.LiveMonitor(rules=["absence:serve.tick:60"], source="t")
+    mon3.feed([{"ev": "event", "name": "serve.tick", "ts_us": t0,
+                "fields": {}}])
+    fired = mon3.evaluate(now_us=t0 + 61_000_000)
+    assert len(fired) == 1 and fired[0]["rule"] == "absence:serve.tick:60"
+
+
+def test_controller_moves_under_an_unmeetable_slo(tmp_path, monkeypatch):
+    """With telemetry on and an SLO no tick can meet, the live fold's
+    burn alert arms the controller and ``T_batch`` shrinks: the closed
+    loop the port runs on the card (its ``serve.control`` event)."""
+    monkeypatch.setenv("CAUSE_TPU_OBS", "1")
+    monkeypatch.setenv("CAUSE_TPU_LAG_SLO_MS", "0.001")
+    reset_both()
+    root = tmp_path / "port"
+    root.mkdir()
+    svc = service(PORT, root)
+    a, r = pair(PORT, base(PORT))
+    uuid = svc.add_tenant(a, r)
+    t0 = svc.controller.t_batch_ms
+    left, _right = svc.residency.get(uuid).pairs[0]
+    cur = left
+    outs = []
+    for i in range(6):
+        nxt = cur.conj(f"x{i}")
+        svc.queue.offer(uuid, nxt.ct.site_id, delta_items(PORT, nxt, cur))
+        outs.append(svc.tick())
+        cur = nxt
+    svc.close()
+    assert svc.controller.t_batch_ms < t0
+    assert all(o["wave_dispatches"] > 0 for o in outs)
+    evs = t_obs.events()
+    ctl = [e for e in evs if e.get("name") == "serve.control"]
+    alerts = [e for e in evs if e.get("name") == "live.alert"]
+    assert ctl and ctl[0]["fields"]["old_ms"] == t0
+    assert [a["fields"]["rule"] for a in alerts].count("burn>2") == 1
+    assert t_obs.subscribe  # close() detached the service's subscriber
+    from cause_tpu_torch.obs import core
+
+    assert core._STATE.subscribers == ()

@@ -10,8 +10,8 @@ telemetry (``wave_dispatches``, ``wave.cost``), these cases count the
 calls of each package's ``batched_delta_weave`` instead: one a bucket
 on the batched tick, one a tenant on the per-tenant path. The telemetry
 halves (lag resolution, ``wave.digest`` agreement, ``recovery.step``
-evidence, the ``serve.tick`` fields) wait for the telemetry port
-(ROADMAP A.13).
+evidence, the ``serve.tick`` fields, ``wave.cost`` per bucket) are the
+``<name>_obs`` cases (``test_torch_serve.py``'s ``obs_twin``).
 
 Also holds the session's batched hooks (``window_pack`` /
 ``complete_window`` / ``_flush_window``) to the delta wave they factor:
@@ -28,8 +28,8 @@ from cause_tpu.weaver import jaxwd as j_wd
 from cause_tpu_torch.weaver import torchwd as t_wd
 
 from test_torch_serve import (PORT, REF, _fresh_state, base, both,  # noqa: F401
-                              delta_items, edn, journal_rows, pair,
-                              pure_merge, site)
+                              delta_items, edn, journal_rows, obs_twin,
+                              pair, pure_merge, site, twin_events)
 
 
 @pytest.fixture
@@ -410,3 +410,52 @@ def test_complete_window_equals_the_delta_wave():
         return got.tolist(), edn(P, s_hook.merged(1))
 
     both(scen)
+
+
+# ------------------------------------------------ the telemetry halves
+
+
+def test_batched_vs_unbatched_bit_identity_obs(tmp_path, obs_twin):
+    """Both arms with telemetry on: the port's stream (every lag
+    resolution, every wave digest) equals the reference's, each
+    session's waves agree, and ops converge on both arms."""
+    test_batched_vs_unbatched_bit_identity(tmp_path)
+    digests = twin_events(obs_twin, "wave.digest")
+    assert digests and all(e["fields"]["agreed"] for e in digests)
+    wins = twin_events(obs_twin, "lag.window")
+    assert wins and wins[-1]["fields"]["converged_total"] > 0
+
+
+def test_batched_tick_one_dispatch_per_bucket_obs(tmp_path, obs_twin,
+                                                  count_dispatches):
+    test_batched_tick_one_dispatch_per_bucket(tmp_path, count_dispatches)
+    (tick,) = twin_events(obs_twin, "serve.tick")
+    costs = [e["fields"] for e in twin_events(obs_twin, "wave.cost")
+             if e["fields"]["path"] == "batched"]
+    assert len(costs) == 2 and all(f["dispatches"] == 1 for f in costs)
+    assert sorted(f["bucket"] for f in costs) == [32, 64]
+    assert sum(f["tenants"] for f in costs) == 6
+    assert tick["fields"]["wave_dispatches"] == 2
+
+
+def test_unbatched_tick_pays_per_tenant_dispatches_obs(
+        tmp_path, obs_twin, count_dispatches):
+    test_unbatched_tick_pays_per_tenant_dispatches(tmp_path,
+                                                   count_dispatches)
+    (tick,) = twin_events(obs_twin, "serve.tick")
+    costs = [e["fields"] for e in twin_events(obs_twin, "wave.cost")
+             if e["fields"]["source"] == "session"
+             and e["fields"]["path"] == "delta"]
+    assert len(costs) == 4
+    # per tenant: the update's splice, the window weave, its rank splice
+    assert tick["fields"]["wave_dispatches"] == 3 * 4
+
+
+def test_overflowing_tenant_falls_back_alone_obs(tmp_path, obs_twin,
+                                                 count_dispatches):
+    test_overflowing_tenant_falls_back_alone(tmp_path, count_dispatches)
+    steps = [e["fields"] for e in twin_events(obs_twin, "recovery.step")]
+    assert any(f["from"] == "delta" and f["to"] == "full"
+               for f in steps)
+    (tick,) = twin_events(obs_twin, "serve.tick")
+    assert tick["fields"]["fallbacks"] == 1

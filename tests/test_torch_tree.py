@@ -291,3 +291,81 @@ def test_merge_all_validates_dangling_cause():
             ct.merge_all(a, bad)
     with pytest.raises(ct.CausalError):
         t_shared.union_nodes_many([])
+
+
+# ------------------------------------------------ the telemetry halves
+
+
+def _tree_obs_run(tw, fleet, obs_mod):
+    from test_torch_obs import reset_all
+
+    reset_all()
+    obs_mod.configure(enabled=True)
+    root, rep = tw.pkg.merge_tree_report(fleet) if tw is PORT else \
+        j_tree.merge_tree_report(fleet)
+    evs = obs_mod.events()
+    obs_mod.configure(enabled=False)
+    return root, rep, evs
+
+
+def test_tree_level_events_and_gap_join():
+    """``tests/test_merge_tree.py``'s case on an 8-replica twin fleet:
+    one ``tree.level``, ``wave.digest(source="tree")`` and ``wave.cost``
+    per level, no divergence incident, level 0 full and the rest delta,
+    the gap report's per-level decomposition; the port's stream equals
+    the reference's record for record."""
+    from cause_tpu import obs as j_obs
+    from cause_tpu_torch import obs as t_obs
+    from cause_tpu_torch.obs import costmodel
+    from test_torch_obs import normalize, reset_all
+
+    jf, tf = (make_fleet(tw, make_base(tw, 40, uuid="tree-obs-doc"), 8,
+                         n_div=3) for tw in (JAX, PORT))
+    _jr, _jrep, j_evs = _tree_obs_run(JAX, jf, j_obs)
+    root, rep, evs = _tree_obs_run(PORT, tf, t_obs)
+    reset_all()
+    assert_identical(root, fold([pure(h) for h in jf]))
+    assert normalize(evs) == normalize(j_evs)
+
+    def fields(name):
+        return [e["fields"] for e in evs if e.get("ev") == "event"
+                and e.get("name") == name
+                and e["fields"].get("source", "tree") == "tree"]
+
+    tl, wd, wc = fields("tree.level"), fields("wave.digest"), \
+        fields("wave.cost")
+    assert not fields("divergence")
+    rounds = t_tree.tree_rounds(8)
+    assert len(tl) == len(wd) == len(wc) == rounds
+    assert [f["level"] for f in wc] == list(range(rounds))
+    assert wc[0]["path"] == "full"
+    assert all(f["path"] == "delta" for f in wc[1:])
+    assert all(f["dispatches"] == 1 for f in wc)
+    assert all(f["delta_ops"] > 0 for f in wc[1:])
+    assert tl[-1]["final"] is True
+    dec = costmodel.tree_decomposition(evs)
+    assert dec["rounds"] == rounds and dec["post_level0_delta_share"] == 1.0
+    rendered = costmodel.render_gap(costmodel.gap_report([], evs))
+    assert "merge tree" in rendered and "level 0" in rendered
+
+
+def test_tree_obs_off_invariance():
+    """``tests/test_merge_tree.py``'s ``test_obs_off_invariance``: obs
+    off records nothing and keeps no monitor or cost state; obs on
+    takes the same route to the same root."""
+    from cause_tpu_torch import obs as t_obs
+    from cause_tpu_torch.obs import costmodel, lag, semantic
+    from test_torch_obs import reset_all
+
+    reset_all()
+    _jf, tf = twin_fleets(6, 3)
+    root, rep = t_tree.merge_tree_report(tf)
+    assert t_obs.events() == []
+    assert costmodel._PROGRAMS == {} and costmodel._PENDING_OPS == {}
+    assert semantic._MON == {} and lag._DOCS == {}
+    t_obs.configure(enabled=True)
+    root_on, rep_on = t_tree.merge_tree_report(tf)
+    reset_all()
+    assert_identical(root, root_on)
+    assert [lv["path"] for lv in rep["levels"]] == \
+        [lv["path"] for lv in rep_on["levels"]]

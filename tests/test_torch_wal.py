@@ -7,10 +7,11 @@ Mirrors ``tests/test_wal.py``: each scenario runs in both packages
 records themselves and, where the stamps are fixed, the segment bytes;
 the port's record must equal the reference's. The chaos ``disk`` plans
 are armed in each package's own engine. The telemetry halves
-(``serve.disk``/``serve.shed`` events) and the two telemetry-only cases
-(``test_live_fold_disk_axes_and_default_rules``,
-``test_prometheus_exports_disk_metrics``) wait for the telemetry port
-(ROADMAP A.13).
+(``serve.disk``/``serve.shed`` events) are the ``<name>_obs`` cases
+(``test_torch_serve.py``'s ``obs_twin``);
+``test_live_fold_disk_axes_and_default_rules`` is mirrored whole;
+``test_prometheus_exports_disk_metrics`` waits for the ``watch``
+dashboard (the networked half of the telemetry port).
 """
 
 import json
@@ -19,7 +20,7 @@ import os
 import pytest
 
 from test_torch_serve import (PORT, REF, _fresh_state, both,  # noqa: F401
-                              payload)
+                              obs_twin, payload, twin_events)
 
 
 def _arm(P, faults, seed=7):
@@ -598,3 +599,80 @@ def test_reference_wal_scrubbed_and_replayed_by_the_port(tmp_path):
     assert (p.corrupt, p.skipped, p._seq) == (r.corrupt, r.skipped, r._seq)
     r.close()
     p.close()
+
+
+# ------------------------------------------------ the telemetry halves
+
+
+def _disks(streams):
+    return [e["fields"] for e in twin_events(streams, "serve.disk")]
+
+
+def test_enospc_refuses_append_via_durability_rung_obs(tmp_path, obs_twin):
+    test_enospc_refuses_append_via_durability_rung(tmp_path)
+    sheds = [e["fields"] for e in twin_events(obs_twin, "serve.shed")]
+    assert [f["rung"] for f in sheds] == ["durability"]
+    assert [(d["op"], d["why"]) for d in _disks(obs_twin)] == [
+        ("append", "enospc")]
+
+
+def test_fsync_failure_rotates_with_evidence_obs(tmp_path, obs_twin):
+    test_fsync_failure_rotates_with_evidence(tmp_path)
+    assert [d["op"] for d in _disks(obs_twin)] == ["fsync"]
+
+
+def test_fsync_failure_during_rotation_replays_exactly_once_obs(
+        tmp_path, obs_twin):
+    test_fsync_failure_during_rotation_replays_exactly_once(tmp_path)
+    assert [d["op"] for d in _disks(obs_twin)] == ["fsync"]
+
+
+def test_gc_rename_failure_aborts_with_segments_intact_obs(tmp_path,
+                                                           obs_twin):
+    test_gc_rename_failure_aborts_with_segments_intact(tmp_path)
+    assert [d["op"] for d in _disks(obs_twin)] == ["gc"]
+
+
+def test_wal_gauges_track_segments_and_bytes(tmp_path, obs_twin):
+    """The segment gauges a live fold reads, identical in both
+    packages over the same appends and rotations."""
+    def scen(P, root):
+        w = P.WriteAheadLog(str(root / "wal"), rotate_bytes=150,
+                            fsync="none")
+        _fill(w, 6)
+        n = len(_segs(w.path))
+        w.close()
+        return n
+
+    assert both(scen, tmp_path) >= 2
+    gauges = [e for e in obs_twin["port"] if e.get("ev") == "gauge"
+              and e["name"] == "serve.wal_segments"]
+    assert gauges and gauges[-1]["value"] >= 2
+    twin_events(obs_twin)
+
+
+def test_live_fold_disk_axes_and_default_rules():
+    """``tests/test_wal.py``'s case, whole, in the port."""
+    from cause_tpu_torch.obs import live
+
+    fold = live.LiveFold()
+    ts = 1_000_000
+    fold.feed({"ev": "event", "name": "serve.tick", "ts_us": ts,
+               "fields": {"t_batch_ms": 5.0}})
+    fold.feed({"ev": "event", "name": "serve.disk", "ts_us": ts + 1,
+               "fields": {"op": "append", "why": "enospc"}})
+    fold.feed({"ev": "event", "name": "serve.journal_torn",
+               "ts_us": ts + 2, "fields": {"skipped": 2, "corrupt": 1,
+                                           "journal": "/w"}})
+    fold.feed({"ev": "gauge", "name": "serve.wal_bytes", "ts_us": ts,
+               "value": 4096})
+    fold.feed({"ev": "gauge", "name": "serve.wal_segments",
+               "ts_us": ts, "value": 3})
+    srv = fold.snapshot()["serve"]
+    assert srv["active"] and srv["disk_faults"] == 1
+    assert srv["journal_torn"] == 3
+    assert srv["wal_bytes"] == 4096 and srv["wal_segments"] == 3
+    snap = fold.snapshot()
+    names = {f["rule"] for f in (r.check(snap)
+                                 for r in live.default_rules()) if f}
+    assert {"disk_faults>0", "journal_torn>0"} <= names
