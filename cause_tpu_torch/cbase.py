@@ -143,7 +143,7 @@ def new_cb(weaver: str = "pure") -> CB:
         last_redo_lamport_ts=None,
         root_uuid=None,
         collections={},
-        weaver=weaver,
+        weaver=s.weaver_name(weaver),
     )
 
 

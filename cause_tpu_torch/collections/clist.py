@@ -51,7 +51,7 @@ def new_causal_tree(weaver: str = "pure", lazy: bool = False) -> CausalTree:
         nodes={ROOT_ID: (None, None)},
         yarns={"0": [ROOT_NODE]},
         weave=[ROOT_NODE],
-        weaver=weaver,
+        weaver=s.weaver_name(weaver),
         lazy_weave=lazy,
     )
 

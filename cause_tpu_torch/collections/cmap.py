@@ -88,7 +88,7 @@ def new_causal_tree(weaver: str = "pure") -> CausalTree:
         nodes={},
         yarns={},
         weave={},
-        weaver=weaver,
+        weaver=s.weaver_name(weaver),
     )
 
 

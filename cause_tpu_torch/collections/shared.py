@@ -57,6 +57,7 @@ __all__ = [
     "union_nodes_many",
     "merge_trees",
     "causal_to_edn",
+    "weaver_name",
 ]
 
 LIST_TYPE = "list"
@@ -64,6 +65,13 @@ MAP_TYPE = "map"
 # the list-shaped tree types of the set and counter collections
 SET_TYPE = "set"
 COUNTER_TYPE = "counter"
+
+
+def weaver_name(name: str) -> str:
+    """The weave backend a new tree or base gets: the reference's device
+    weaver (``"jax"``) is this package's (``"torch"``); any other name
+    is kept, as the reference keeps it."""
+    return "torch" if name == "jax" else name
 
 
 class CausalError(Exception):

@@ -1,9 +1,8 @@
 """The serve-side acceptor: inbound replication frames → admission.
 
-A copy of ``cause_tpu.net.server`` without the ``net.*`` events,
-gauges, clock stamps and trace continuation, which come with the
-networked half of the telemetry port; replies are byte-identical to the reference's obs-off
-replies.
+A copy of ``cause_tpu.net.server``. Its replies are the reference's:
+byte for byte with telemetry off, and with it on they carry the same
+clock stamps.
 
 One :class:`ReplicationServer` fronts a :class:`~cause_tpu_torch.serve
 .service.SyncService` (or anything exposing its ``queue``/``tenants``
@@ -24,14 +23,16 @@ WHOLE admission refusal ladder speaks wire protocol:
   everything ever wire-admitted) and advanced on each admission — and
   filters re-delivered ops below it before they reach the queue, so a
   client resending after a lost ack can never double-journal an op
-  (exact counts in ``stats``);
+  (``net.dup_ops`` evidence, exact counts);
 - **wire-duplicate frames are detected and re-acked**: each connection
   carries a client sequence number; ``seq == last`` re-sends the
   stored reply (at-least-once delivery), ``seq < last`` rejects as
-  out-of-order — a chaos-duplicated or reordered
+  out-of-order (``net.ooo_frame``) — a chaos-duplicated or reordered
   frame is evidence, never double work;
-- a connection silent past the idle deadline closes server-side —
-  heartbeat ``ping`` frames keep a healthy-but-quiet client alive.
+- a connection silent past the idle deadline closes server-side
+  (``net.idle_close``) — heartbeat ``ping`` frames keep a
+  healthy-but-quiet client alive and emit the ``net.heartbeat``
+  events the default ``absence:net.heartbeat`` live rule watches.
 
 Crash safety: the watermark registry is derived state — a restarted
 server reseeds it from the journal the restored service already
@@ -56,8 +57,10 @@ import socket
 import threading
 from typing import Dict, List, Optional
 
+from .. import obs
 from .. import sync
 from ..collections import shared as s
+from ..obs import xtrace
 from . import transport
 from .transport import FrameStream
 
@@ -226,6 +229,10 @@ class ReplicationServer:
             with self._conns_lock:
                 self._conns.append(conn)
                 self._bump("connections")
+                n_open = sum(1 for c_ in self._conns
+                             if not c_.fs.closed)
+            if obs.enabled():
+                obs.gauge("net.connections").set(n_open)
             t = threading.Thread(target=self._handle, args=(conn,),
                                  name=f"net-conn-{conn.peer}",
                                  daemon=True)
@@ -255,6 +262,10 @@ class ReplicationServer:
                         # idle deadline is dead weight — heartbeats
                         # keep a healthy client well inside it
                         self._bump("idle_closes")
+                        if obs.enabled():
+                            obs.counter("net.idle_closes").inc()
+                            obs.event("net.idle_close", peer=conn.peer,
+                                      idle_s=self.idle_timeout_s)
                     return
                 except OSError:
                     return
@@ -287,6 +298,11 @@ class ReplicationServer:
                     return
         finally:
             fs.close()
+            with self._conns_lock:
+                n_open = sum(1 for c_ in self._conns
+                             if not c_.fs.closed)
+            if obs.enabled():
+                obs.gauge("net.connections").set(n_open)
 
     def _welcome(self, conn: _Conn, frame: dict) -> dict:
         uuids = frame.get("uuids")
@@ -300,7 +316,21 @@ class ReplicationServer:
                 unknown.append(uuid)
             else:
                 wm[uuid] = {site: list(h) for site, h in w.items()}
+        if obs.enabled():
+            # net.hello, NOT net.connect: the server answers a hello
+            # on every RE-connect too, so counting it as a connect
+            # would inflate the client-side connect/reconnect
+            # arithmetic the evidence gates read from a shared stream
+            obs.counter("net.hellos").inc()
+            obs.event("net.hello", peer=conn.peer,
+                      client=str(frame.get("client") or ""),
+                      tenants=len(wm), unknown=len(unknown))
         reply = {"op": "welcome", "wm": wm, "unknown": unknown}
+        if obs.enabled():
+            # wall-clock stamp for the client's NTP-style offset
+            # estimate (xtrace.clock_sample); obs-off replies stay
+            # byte-identical
+            reply.update(xtrace.reply_stamp())
         return reply
 
     def _seq_guard(self, conn: _Conn, seq: int) -> Optional[dict]:
@@ -311,9 +341,16 @@ class ReplicationServer:
         the frame is fresh."""
         if seq == conn.last_seq and conn.last_reply is not None:
             self._bump("dup_frames")
+            if obs.enabled():
+                obs.counter("net.dup_frames").inc()
+                obs.event("net.dup_frame", seq=seq, peer=conn.peer)
             return dict(conn.last_reply)
         if seq <= conn.last_seq:
             self._bump("ooo_frames")
+            if obs.enabled():
+                obs.counter("net.ooo_frames").inc()
+                obs.event("net.ooo_frame", seq=seq,
+                          last_seq=conn.last_seq, peer=conn.peer)
             return {"op": "nack", "seq": seq, "reason": "out-of-order"}
         return None
 
@@ -323,7 +360,13 @@ class ReplicationServer:
         if guarded is not None:
             return guarded
         self._bump("heartbeats")
+        if obs.enabled():
+            obs.counter("net.heartbeats").inc()
+            obs.event("net.heartbeat", peer=conn.peer, side="server")
         reply = {"op": "pong", "seq": seq}
+        if obs.enabled():
+            # heartbeat = recurring clock-offset sample (see _welcome)
+            reply.update(xtrace.reply_stamp())
         conn.last_seq = seq
         conn.last_reply = dict(reply)
         return reply
@@ -335,6 +378,13 @@ class ReplicationServer:
         reply = {"op": "nack", "seq": seq, "reason": reason}
         if retry_after_ms is not None:
             reply["retry_after_ms"] = retry_after_ms
+        if obs.enabled():
+            obs.counter("net.nacks").inc()
+            fields = {"seq": seq, "reason": reason, "uuid": uuid,
+                      "site": site}
+            if retry_after_ms is not None:
+                fields["retry_after_ms"] = retry_after_ms
+            obs.event("net.nack", **fields)
         return reply
 
     def _admit(self, conn: _Conn, frame: dict) -> dict:
@@ -374,6 +424,34 @@ class ReplicationServer:
             self._bump("poison_nacks")
             sync.note_reject(site, uuid=uuid, why=why)
             return finish(self._nack(seq, why, uuid=uuid, site=site))
+        # --- trace continuation: an obs-on client attached
+        # wire contexts; continue each chain with a "recv" hop and
+        # hand the trace ids to admission so journal/tick/wave hops
+        # stay linked. Garbage ctx degrades to an untraced frame —
+        # never an exception on the admission path. Runs AFTER the
+        # validate boundary: a poison frame earns no hops.
+        traces: List[str] = []
+        if obs.enabled():
+            raw_ctx = frame.get("ctx")
+            if isinstance(raw_ctx, list):
+                for c in raw_ctx[:16]:
+                    tr, parent = xtrace.continue_from(c)
+                    if not tr:
+                        continue
+                    xtrace.hop("recv", tr, parent=parent,
+                               peer=conn.peer, seq=seq, uuid=uuid,
+                               site=site)
+                    ids = c.get("ids")
+                    if isinstance(ids, list):
+                        # bind this batch's op ids server-side so the
+                        # lag tracer's converged/apply hops and the
+                        # op.lag trace field can join (suppressed ids
+                        # bind too — harmless, they never re-apply)
+                        xtrace.bind_ops(
+                            tr, [tuple(i) for i in ids[:64]
+                                 if isinstance(i, list)
+                                 and len(i) == 3])
+                    traces.append(tr)
         # --- idempotent re-delivery: the lamport watermark filter.
         # Filter -> offer -> advance runs ATOMICALLY under the
         # watermark lock: a client that reconnects while an old
@@ -395,12 +473,17 @@ class ReplicationServer:
             suppressed = len(items) - len(kept)
             if suppressed:
                 self._bump("dup_ops_suppressed", suppressed)
+                if obs.enabled():
+                    obs.counter("net.dup_suppressed").inc(suppressed)
+                    obs.event("net.dup_ops", ops=suppressed,
+                              uuid=uuid, site=site, seq=seq)
             if not kept:
                 sync.note_clean(site)
                 self._bump("acks")
                 return finish({"op": "ack", "seq": seq, "admitted": 0,
                                "dup": suppressed})
-            adm = self.queue.offer(uuid, site, kept)
+            adm = self.queue.offer(uuid, site, kept,
+                                   traces=traces or None)
             if adm.admitted:
                 last = kept[-1][0]
                 wm[site] = [int(last[0]), int(last[2])]
@@ -408,6 +491,8 @@ class ReplicationServer:
             sync.note_clean(site)
             self._bump("acks")
             self._bump("admitted_ops", len(kept))
+            if obs.enabled():
+                obs.counter("net.admitted_ops").inc(len(kept))
             return finish({"op": "ack", "seq": seq,
                            "admitted": len(kept), "dup": suppressed})
         # a refusal at any rung becomes a wire NACK carrying the

@@ -1,8 +1,7 @@
 """Resumable client replication sessions: the producer side of the
-replication transport (a copy of ``cause_tpu.net.session``, without the
-``net.*`` events, gauges and trace contexts, which come with the
-networked half of the telemetry port; frames are byte-identical to the reference's obs-off
-frames).
+replication transport (a copy of ``cause_tpu.net.session``). Its frames
+are the reference's: byte for byte with telemetry off, and with it on
+they carry the same trace contexts.
 
 A :class:`NetClient` is the thin front-end a real fleet runs millions
 of: it mints per-site op batches locally, queues them in a BOUNDED
@@ -28,10 +27,12 @@ never a wedge or an exception on the caller's loop:
   bucket per reason), so server overload propagates to the producer
   instead of turning into a hot retry loop;
 - **bounded outbound** — ``queue_ops`` refuses past
-  ``max_pending_ops`` (the ``client-overflow`` shed rung), the client-side twin of the server's shed
+  ``max_pending_ops`` with an evidenced ``net.shed`` (rung
+  ``client-overflow``), the client-side twin of the server's shed
   ladder: a partitioned producer's memory is a declared policy too;
 - **heartbeats** — an idle connected session pings inside the
-  server's idle deadline.
+  server's idle deadline, emitting the ``net.heartbeat`` evidence the
+  ``absence:net.heartbeat:<t>`` live rule watches.
 
 Protocol is strictly request-response per frame (send one ``delta``,
 read replies until the matching seq — stale re-acks from wire
@@ -49,9 +50,11 @@ import zlib
 from typing import Dict, List, Optional, Tuple
 
 from .. import chaos as _chaos
+from .. import obs
 from .. import serde
 from .. import sync
 from ..collections import shared as s
+from ..obs import xtrace
 from . import transport
 from .transport import Backoff, FrameStream
 
@@ -88,6 +91,10 @@ class NetClient:
             seed=zlib.crc32(self.client_id.encode()))
         # (uuid, site) -> ordered op triples [(id, cause, value)]
         self._pending: Dict[Tuple[str, str], List[tuple]] = {}
+        # (uuid, site) -> [(trace_id, [op ids])] for still-pending
+        # batches (populated only while obs is on — obs-off ships
+        # byte-identical frames)
+        self._pending_traces: Dict[Tuple[str, str], List[tuple]] = {}
         self._pending_ops = 0
         self._server_wm: Dict[str, Dict[str, list]] = {}
         self._fs: Optional[FrameStream] = None
@@ -127,10 +134,30 @@ class NetClient:
             return True
         if self._pending_ops + len(triples) > self.max_pending_ops:
             self.stats["shed_ops"] += len(triples)
+            if obs.enabled():
+                obs.counter("net.client_shed_ops").inc(len(triples))
+                obs.event("net.shed", rung="client-overflow",
+                          client=self.client_id, uuid=str(uuid),
+                          site=str(site), ops=len(triples),
+                          depth=self._pending_ops)
             return False
         key = (str(uuid), str(site))
         self._pending.setdefault(key, []).extend(triples)
         self._pending_ops += len(triples)
+        if obs.enabled():
+            obs.gauge(f"net.outbound_depth.{self.client_id}").set(
+                self._pending_ops)
+            # mint the batch's causal identity at the producer: one
+            # trace per queued batch, root "mint" hop, op ids bound
+            # for the lag→journey drill-down
+            trace = xtrace.new_trace()
+            xtrace.hop("mint", trace, parent="",
+                       client=self.client_id, uuid=str(uuid),
+                       site=str(site), ops=len(triples))
+            op_ids = [t[0] for t in triples]
+            xtrace.bind_ops(trace, op_ids)
+            self._pending_traces.setdefault(key, []).append(
+                (trace, op_ids))
         return True
 
     # ------------------------------------------------------ plumbing
@@ -155,6 +182,12 @@ class NetClient:
         self.stats["backoff_hist"][key] = \
             self.stats["backoff_hist"].get(key, 0) + 1
         self.stats["disconnects"] += 1
+        if obs.enabled():
+            obs.counter("net.disconnects").inc()
+            obs.event("net.disconnect", client=self.client_id,
+                      reason=reason,
+                      backoff_ms=round(delay_ms, 3),
+                      outbound=self._pending_ops)
 
     def _connect(self) -> None:
         """Dial + hello/welcome + watermark resume. Raises CausalError
@@ -162,11 +195,20 @@ class NetClient:
         fs = transport.dial(self.host, self.port, site=self.site,
                             connect_timeout_s=self.connect_timeout_s,
                             read_timeout_s=self.read_timeout_s)
+        t0_us = time.time_ns() // 1000
         transport.send_msg(fs, {"op": "hello",
                                 "client": self.client_id,
                                 "uuids": self.uuids})
         welcome = transport.recv_msg(fs,
                                      timeout_s=self.read_timeout_s)
+        t1_us = time.time_ns() // 1000
+        if obs.enabled():
+            # the welcome is a request/response pair with a server
+            # wall-clock stamp (obs-on servers only): one NTP-style
+            # clock-offset sample per (re)connect for journey's
+            # cross-host ordering
+            xtrace.clock_sample(welcome if isinstance(welcome, dict)
+                                else {}, t0_us, t1_us, via="hello")
         if not (isinstance(welcome, dict)
                 and welcome.get("op") == "welcome"
                 and isinstance(welcome.get("wm"), dict)):
@@ -187,13 +229,25 @@ class NetClient:
         now = self._now()
         self._last_io = now
         self._last_hb = now  # heartbeat cadence starts at connect
+        mttr = None
         if self._down_since is not None:
-            self.partition_mttr_s.append(now - self._down_since)
+            mttr = now - self._down_since
+            self.partition_mttr_s.append(mttr)
             self._down_since = None
         self.backoff.reset()
         # resume: drop queued ops the server already admitted — the
         # missed suffix is what remains, and ONLY that ships
-        self._resume_filter()
+        skipped = self._resume_filter()
+        if obs.enabled():
+            name = "net.reconnect" if reconnect else "net.connect"
+            fields = {"client": self.client_id, "side": "client",
+                      "resumed_skipped_ops": skipped,
+                      "outbound": self._pending_ops}
+            if mttr is not None:
+                fields["mttr_ms"] = round(mttr * 1000.0, 3)
+            obs.counter("net.reconnects" if reconnect
+                        else "net.connects").inc()
+            obs.event(name, **fields)
 
     def _resume_filter(self) -> int:
         skipped = 0
@@ -212,8 +266,15 @@ class NetClient:
                     self._pending[(uuid, site_id)] = fresh
                 else:
                     del self._pending[(uuid, site_id)]
+                    # batch fully resumed away: the server admitted
+                    # it before the link died — its journey continues
+                    # from the server-side hops, nothing left to ship
+                    self._pending_traces.pop((uuid, site_id), None)
         if skipped:
             self.stats["resumed_skipped_ops"] += skipped
+            if obs.enabled():
+                obs.gauge(f"net.outbound_depth.{self.client_id}").set(
+                self._pending_ops)
         return skipped
 
     def _recv_matching(self, seq: int) -> dict:
@@ -227,6 +288,10 @@ class NetClient:
             if int(reply.get("seq") or 0) == seq:
                 return reply
             self.stats["stale_replies"] += 1
+        if obs.enabled():
+            obs.counter("net.desyncs").inc()
+            obs.event("net.desync", expected=seq,
+                      drained=_STALE_REPLY_MAX)
         raise s.CausalError(
             "net: reply stream desynced",
             {"causes": {"bad-frame"}, "expected": f"seq {seq}"})
@@ -300,6 +365,28 @@ class NetClient:
         seq = self._seq
         frame = {"op": "delta", "seq": seq, "uuid": uuid,
                  "site": site_id, "nodes": enc, "crc": crc}
+        if obs.enabled():
+            # one "send" hop per coalesced batch in this frame; the
+            # frame carries their contexts so the server continues
+            # the chain with "recv". A retransmit (blackhole, ack
+            # lost) emits fresh send hops on the SAME traces — the
+            # retry is journey-visible. Obs-off: no ctx key, the
+            # frame bytes unchanged.
+            ctxs = []
+            for tr, op_ids in self._pending_traces.get(
+                    (uuid, site_id), ()):
+                span = xtrace.hop("send", tr, client=self.client_id,
+                                  seq=seq, uuid=uuid, site=site_id,
+                                  ops=len(ops))
+                ctx = xtrace.wire_context(tr, span)
+                if ctx:
+                    # the batch's op ids ride along so the SERVER can
+                    # bind ops→trace in its own registry (the lag→
+                    # journey drill-down is server-side)
+                    ctx["ids"] = [list(i) for i in op_ids[:64]]
+                    ctxs.append(ctx)
+            if ctxs:
+                frame["ctx"] = ctxs
         self.stats["sent_frames"] += 1
         if not transport.send_msg(self._fs, frame):
             # blackhole: the frame "went out" but never arrives; the
@@ -312,6 +399,7 @@ class NetClient:
         if op == "ack":
             self._pending_ops -= len(ops)
             self._pending.pop((uuid, site_id), None)
+            self._pending_traces.pop((uuid, site_id), None)
             self.stats["acked_ops"] += int(reply.get("admitted") or 0)
             # ops the server suppressed as re-delivery (a lost ack's
             # resend): cleared from pending too, accounted separately
@@ -320,6 +408,9 @@ class NetClient:
             # is rebuilt wholesale from the next welcome, which is
             # its only reader's input — the server owns the horizon.)
             self.stats["dup_acked_ops"] += int(reply.get("dup") or 0)
+            if obs.enabled():
+                obs.gauge(f"net.outbound_depth.{self.client_id}").set(
+                self._pending_ops)
             return True
         if op == "nack":
             reason = str(reply.get("reason") or "nack")
@@ -330,6 +421,8 @@ class NetClient:
                        if isinstance(retry_ms, (int, float))
                        else _no_hint_retry_s(reason))
             self._not_before = self._now() + retry_s
+            if obs.enabled():
+                obs.counter("net.client_nacks").inc()
             return False
         raise s.CausalError(
             "net: unexpected reply",
@@ -337,8 +430,14 @@ class NetClient:
 
     def _heartbeat(self) -> None:
         self._seq += 1
+        t0_us = time.time_ns() // 1000
         transport.send_msg(self._fs, {"op": "ping", "seq": self._seq})
         reply = self._recv_matching(self._seq)
+        if obs.enabled():
+            # every heartbeat refreshes the clock-offset estimate
+            # (pong carries ts_us/pid from obs-on servers)
+            xtrace.clock_sample(reply, t0_us,
+                                time.time_ns() // 1000, via="ping")
         if reply.get("op") != "pong":
             raise s.CausalError(
                 "net: unexpected heartbeat reply",
@@ -346,6 +445,10 @@ class NetClient:
         self._last_io = self._now()
         self._last_hb = self._last_io
         self.stats["heartbeats"] += 1
+        if obs.enabled():
+            obs.counter("net.heartbeats").inc()
+            obs.event("net.heartbeat", client=self.client_id,
+                      side="client")
 
     def flush(self, timeout_s: float = 30.0,
               poll_s: float = 0.01) -> bool:

@@ -1,12 +1,13 @@
 """cause_tpu_torch.obs — the unified trace/metrics subsystem.
 
-The port of ``cause_tpu.obs``'s in-process half: spans,
-counters/gauges, a bounded event ring with JSONL streaming, the
-Chrome-trace/Perfetto exporter, the CRDT-semantic events, the
-convergence-lag tracer and journeys, the fleet and cost folds, the
-perf ledger, the live fold the serving loop reads, and the
-device-side ``devprof`` and ``stages`` (imported on demand). The same
-event names, fields and environment variables as the reference, so
+The port of ``cause_tpu.obs``: spans, counters/gauges, a bounded event
+ring with JSONL streaming, the Chrome-trace/Perfetto exporter, the
+CRDT-semantic events, the convergence-lag tracer and journeys, the
+fleet and cost folds, the perf ledger, the live fold the serving loop
+reads, the device-side ``devprof`` and ``stages``, and the networked
+half: the ``ship`` uplink, the ``collector`` and the ``watch``
+dashboard (all imported on demand, as the reference imports them). The
+same event names, fields and environment variables as the reference, so
 either package's folds read the other's streams. A no-op unless
 ``CAUSE_TPU_OBS=1`` (or ``configure(enabled=True)``). See ``core.py``'s
 module docstring for the full contract and

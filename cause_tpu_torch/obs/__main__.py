@@ -8,6 +8,7 @@
     python -m cause_tpu_torch.obs gap [--obs events.jsonl]     # gap report
     python -m cause_tpu_torch.obs lag events.jsonl             # lag tracer
     python -m cause_tpu_torch.obs journey <trace|--worst N> .. # journeys
+    python -m cause_tpu_torch.obs watch events.jsonl [--once]  # live watch
 
 The default (first) form converts an obs JSONL event stream to a
 Perfetto trace — open the output at https://ui.perfetto.dev (or
@@ -15,8 +16,8 @@ chrome://tracing); with ``--summary`` it also prints per-span-name
 aggregate wall times and the final counter values. ``stages`` runs
 the v5 stage-prefix profiler on the card (``cause_tpu_torch.obs.stages``;
 ``--device cpu`` on the CPU); ``ledger`` manages the persistent perf
-ledger (``cause_tpu_torch.obs.ledger``). The reference's ``watch``
-dashboard is not ported yet.
+ledger (``cause_tpu_torch.obs.ledger``); ``watch`` is the live
+dashboard over streams or a collector (``cause_tpu_torch.obs.watch``).
 """
 
 from __future__ import annotations
@@ -57,6 +58,10 @@ def main(argv=None) -> int:
         from .journey import main as journey_main
 
         return journey_main(argv[1:])
+    if argv and argv[0] == "watch":
+        from .watch import main as watch_main
+
+        return watch_main(argv[1:])
     return _convert_main(argv)
 
 

@@ -9,7 +9,8 @@ of cache idempotency.
 
 The ``weaver`` field names the weave backend. The reference's device
 weaver is ``"jax"``; this package's is ``"torch"``, and decoding maps
-``"jax"`` to ``"torch"``, so a reference checkpoint of a device tree
+``"jax"`` to ``"torch"`` (``collections.shared.weaver_name``, which the
+constructors also apply), so a reference checkpoint of a device tree
 loads onto this package's device path. ``"pure"`` and ``"native"``
 decode as they are.
 
@@ -60,12 +61,6 @@ __all__ = [
 ]
 
 _INF = float("inf")
-
-
-def _weaver(name: str) -> str:
-    """A decoded ``weaver`` field: the reference's device weaver
-    (``"jax"``) is this package's (``"torch"``)."""
-    return "torch" if name == "jax" else name
 
 
 def _encode_id(nid) -> list:
@@ -122,7 +117,7 @@ def _decode_tree(d: dict) -> CausalTree:
     then restore the recorded clock (it may run ahead of the max node
     ts, e.g. after tombstone-only activity elsewhere in a base)."""
     kind = d["~causal"]
-    weaver = _weaver(d["weaver"])
+    weaver = d["weaver"]  # the constructors map "jax" to "torch"
     nodes = decode_node_items(d["nodes"])
     if kind == s.LIST_TYPE:
         fresh, weave_fn = c_list.new_causal_tree(weaver), c_list.weave
@@ -172,7 +167,7 @@ def _decode_base(d: dict) -> CausalBase:
         last_redo_lamport_ts=d["last_redo_lamport_ts"],
         root_uuid=d["root_uuid"],
         collections=collections,
-        weaver=_weaver(d["weaver"]),
+        weaver=s.weaver_name(d["weaver"]),
     )
     return CausalBase(cb)
 

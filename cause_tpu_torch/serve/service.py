@@ -43,8 +43,11 @@ callback; each tick polls it and feeds the snapshot to
 ``BatchController.update``, emits ``serve.tick`` and a
 ``run.heartbeat``, and reads the tick's ``wave_dispatches`` from the
 cost model's ``costmodel.dispatches`` counter (0 with telemetry off, as
-in the reference). ``close()`` detaches the subscriber. The
-reference's telemetry uplink (``CAUSE_TPU_OBS_SHIP``) is not ported.
+in the reference). With ``CAUSE_TPU_OBS_SHIP=host:port`` set,
+construction also attaches the telemetry uplink
+(``obs.ship.attach_exporter``), whose pump thread ships every record to
+that collector from the host. ``close()`` detaches the subscriber and
+flushes and closes the uplink.
 """
 
 from __future__ import annotations
@@ -118,11 +121,28 @@ class SyncService:
         self._watchdog_stop = threading.Event()
         self._watchdog_firing = False
         self._live = None
+        self._ship = None
         if obs.enabled():
             from ..obs import live as _live
 
             self._live = _live.attach(
                 on_alert=[self.controller.on_alert], source="serve")
+            # the fleet telemetry uplink — every obs record this
+            # process mints ships to the collector named by
+            # CAUSE_TPU_OBS_SHIP ("host:port"). Best-effort by
+            # contract: an unreachable collector costs a bounded
+            # buffer + evidenced drops, never admission latency; an
+            # unparseable endpoint is ignored (the local sidecar
+            # still has everything). The exporter's pump thread stays
+            # on the host.
+            endpoint = ship_mod = None
+            raw = os.environ.get("CAUSE_TPU_OBS_SHIP")
+            if raw:
+                from ..obs import ship as ship_mod
+
+                endpoint = ship_mod.parse_endpoint(raw)
+            if endpoint is not None:
+                self._ship = ship_mod.attach_exporter(*endpoint)
 
     # ------------------------------------------------------- tenants
 
@@ -414,8 +434,9 @@ class SyncService:
 
     def close(self) -> None:
         """Release the service's process-global hooks: stop the
-        watchdog, detach the live subscription and unhook the queue's
-        tenant predicate. A crash/restore loop builds a fresh
+        watchdog, detach the live subscription, flush and detach the
+        telemetry uplink and unhook the queue's tenant predicate. A
+        crash/restore loop builds a fresh
         SyncService per incarnation — without this, every dead
         incarnation's subscriber stays registered on the obs sink and
         every later record pays an enqueue into it. Idempotent;
@@ -424,6 +445,12 @@ class SyncService:
         if self._live is not None:
             self._live.close()
             self._live = None
+        if self._ship is not None:
+            # best-effort final flush then detach — whatever cannot
+            # ship in the bounded window is counted in
+            # stats["unshipped"], never waited on
+            self._ship.close()
+            self._ship = None
         if self.queue.tenant_known == self._knows_tenant:
             # a retired queue handle must not pin this service's whole
             # object graph (residency -> every tenant's device state)

@@ -10,7 +10,8 @@ through the v5 pipeline and the fused v5f pipeline, the handle-level
 ``merge_wave`` API through both, the session, the merge tree and the
 map-fleet wave, bases, sync rounds, the quarantined wave, the chaos
 ladder and compaction, a served fleet of 32 tenants behind the
-network transport, the telemetry over those paths, and checks that
+network transport, the telemetry over those paths and shipped over the
+wire to a collector, and checks that
 the kernels really
 carried those paths (launch counts) and that the results are
 bit-identical to the plain path on the card, to each other and to the
@@ -148,8 +149,8 @@ Phases, one line each (times from CUDA events unless named host):
    number of times with bit-identical outputs: the API wave (v5, then
    v5f) over phase 4's 32 pairs, a ``FleetSession`` over them (a full
    wave, a round the reference also runs full, a delta round) and its
-   ``converge()`` (the merge tree over the 64 replicas), and two
-   offered rounds of phase 10's served fleet (32 tenants, capacity 16,
+   ``converge()`` (the merge tree over the 64 replicas), and one
+   offered round of phase 10's served fleet (32 tenants, capacity 16,
    its default drain) under a 1 ms lag SLO. With telemetry on: every
    ``wave.cost``'s dispatches against the B3 launches they ran (the
    reference's count: kernel + digest, delta + splice, one a tree level
@@ -165,9 +166,33 @@ Phases, one line each (times from CUDA events unless named host):
    ``memory_allocated``; the stage ladder (A-E, FULL) at the north star
    with FULL within 25% of phase 3's v5 dispatch p50; the overhead on
    the wave and on the tick; the JSONL sidecar holding every record.
+12. the wire: one offered round of phase 10's served fleet (32 tenants,
+   capacity 16, ``d_max`` 64, 8 ``NetClient``s on the loopback
+   ``ReplicationServer``, the zipf-hot offers and the 200-op burst, one
+   heartbeat a client after the ticks), three times: telemetry off;
+   telemetry on with ``CAUSE_TPU_OBS_SHIP`` naming a ``CollectorServer``
+   in a process of its own (``chip_smoke.py --collector DIR``, started
+   and stopped by the smoke); and on again under the chaos engine's ship
+   faults (``dup`` and ``reorder``). The three runs launch the same
+   kernels (B1, B2 and B3 among them) with the same ticks and converged
+   digests. Each shipped run is held to exact accounting: the exporter
+   ends with nothing dropped or unshipped, and the collector accepted
+   each record once, missed none, and archived exactly the serving
+   process's sidecar from the uplink's ``ship.attach`` on. In the
+   collector's stream: every client's ``net.connect`` and the server's
+   ``net.hello``, heartbeats on both sides, the ``net.admitted_ops``
+   counter equal to the ops admitted, the ``net.connections`` gauge,
+   nacks and sheds as counted, and one journey a queued batch linked
+   from ``mint`` through ``send`` and ``recv`` to the tick's ``wave``,
+   its tenant's ``wave.digest`` agreeing. ``python -m cause_tpu_torch.obs
+   watch --collector HOST:PORT --once --json`` in a subprocess exits 0
+   with the serve, net and ship sections and no alert but the lag burn;
+   ``/metrics`` of ``watch --serve-port`` carries the ship, net and serve
+   families. Prints the tick p50 and p99 without and with the uplink,
+   the records and bytes shipped and the emit-to-admit lag.
 
-Phases 5-11 each reset or read the launch counts around their runs
-(phases 10 and 11 tick by tick) and read them after: a phase that did
+Phases 5-12 each reset or read the launch counts around their runs
+(phases 10-12 tick by tick) and read them after: a phase that did
 not launch B1, B2 and B3 fails.
 
 Before the last line it prints the card's ``name, power.limit`` (as
@@ -211,6 +236,9 @@ SERVE_CAPACITY, SERVE_DMAX, SERVE_ROUNDS, SERVE_CLIENTS = 16, 64, 6, 8
 SERVE_OFFERS, SERVE_BURST, SERVE_BURST_ROUND, SERVE_BURST_TENANT = \
     24, 200, 2, 31
 SERVE_ORACLE, SERVE_SEED = 4, 10
+# phase 11's queue-only served rounds, off then on (cut from 2 to keep
+# the smoke near 450 s once phase 12 came)
+TELEMETRY_SERVE_ROUNDS = 1
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 I32_MAX = int(np.iinfo(np.int32).max)
 
@@ -2013,7 +2041,7 @@ class ServeProducer:
 
 
 def serve_offer(clients, owner, producers, rng, weights, rnd: int,
-                burst: bool):
+                burst: bool, tag: str = "[10 serve]"):
     """One round's offered load: SERVE_OFFERS zipf-hot draws (alpha 1.2)
     of a tenant, one of its two sites and 1-16 ops, queued on the
     tenant's client, plus one 200-op batch for the burst tenant; every
@@ -2025,7 +2053,7 @@ def serve_offer(clients, owner, producers, rng, weights, rnd: int,
         st = p.sites[rng.randrange(2)]
         if not clients[owner[t]].queue_ops(p.uuid, st,
                                            p.mint(st, rng.randint(1, 16))):
-            fail(f"[10 serve] round {rnd}: the client shed an offer")
+            fail(f"{tag} round {rnd}: the client shed an offer")
     if burst:
         p = producers[SERVE_BURST_TENANT]
         clients[owner[SERVE_BURST_TENANT]].queue_ops(
@@ -2035,7 +2063,7 @@ def serve_offer(clients, owner, producers, rng, weights, rnd: int,
         while cl.outbound_depth and time.monotonic() < deadline:
             cl.pump()
         if cl.outbound_depth:
-            fail(f"[10 serve] round {rnd}: client {cl.client_id} could "
+            fail(f"{tag} round {rnd}: client {cl.client_id} could "
                  f"not ship its ops: {cl.status()}")
 
 
@@ -2635,7 +2663,7 @@ def phase_telemetry(torch, dev, card: str, pairs, v5, u_max: int,
         f"divergence incident; {resolved[-1]['converged_total']} ops "
         f"converged, 0 pending; host ms off {off_ms:.3f} on {on_ms:.3f}")
 
-    # ---- two offered rounds of the served fleet, the lag SLO out of
+    # ---- offered rounds of the served fleet, the lag SLO out of
     # reach (1 ms): the controller must move
     def serve_run(root):
         def run():
@@ -2649,7 +2677,7 @@ def phase_telemetry(torch, dev, card: str, pairs, v5, u_max: int,
             ticker = ServeTicker(svc)
             t_batch0 = svc.controller.t_batch_ms
             firing, ticks = [], []
-            for k in range(2):
+            for k in range(TELEMETRY_SERVE_ROUNDS):
                 for _ in range(SERVE_OFFERS):
                     t = rng.choices(range(len(producers)), weights=weights)[0]
                     p = producers[t]
@@ -2723,7 +2751,8 @@ def phase_telemetry(torch, dev, card: str, pairs, v5, u_max: int,
         fail(f"{tag} serve: a tenant wave disagreed or minted an incident")
     tick_off = [t["ms"] for t in ticks_off]
     tick_on = [t["ms"] for t in ticks_on]
-    say(f"{tag} serve: {len(tenants)} tenants, 2 offered rounds, "
+    say(f"{tag} serve: {len(tenants)} tenants, {TELEMETRY_SERVE_ROUNDS} "
+        f"offered round(s), "
         f"{len(ticks_on)} ticks, digests and tick shapes bit-identical "
         f"with telemetry on (launches {counts}); T_batch "
         f"{moved_on[0]:.3f} -> {moved_on[1]:.3f} ms in {len(control)} "
@@ -2837,6 +2866,489 @@ def phase_telemetry(torch, dev, card: str, pairs, v5, u_max: int,
     return total
 
 
+# ------------------------------------------------------------ 12. the wire
+
+# phase 12: the clients' heartbeat interval (each pings once after the
+# round's ticks), the ship faults of the second run, and the alerts the
+# collector's default rules may fire on this traffic (its ops wait out
+# ticks of hundreds of ms against the 100 ms lag SLO)
+WIRE_HEARTBEAT_S = 1.0
+WIRE_CHAOS = {"seed": 12, "faults": [
+    {"family": "ship", "site": "obs.ship", "mode": "dup", "at": [2, 6, 11]},
+    {"family": "ship", "site": "obs.ship", "mode": "reorder",
+     "at": [4, 9]}]}
+WIRE_ALERTS = ("burn>2",)
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def collector_child(out: str) -> int:
+    """``--collector DIR``: a ``CollectorServer`` in a process of its own
+    (the fleet's topology: the collector's fold and archive stay off the
+    serving interpreter), archiving under DIR/wal, its port written to
+    DIR/port, serving until its standard input closes."""
+    from cause_tpu_torch.obs.collector import CollectorServer
+
+    srv = CollectorServer(dir=os.path.join(out, "wal")).start()
+    with open(os.path.join(out, "port.tmp"), "w") as f:
+        f.write(str(srv.port))
+    os.replace(os.path.join(out, "port.tmp"), os.path.join(out, "port"))
+    try:
+        sys.stdin.read()
+    finally:
+        srv.stop()
+    return 0
+
+
+def no_obs_env() -> dict:
+    return {k: v for k, v in os.environ.items()
+            if not k.startswith("CAUSE_TPU_OBS")}
+
+
+class CollectorProcess:
+    """Phase 12's collector: ``collector_child`` started by the smoke and
+    stopped by it; ``snap()`` asks it for its snapshot over its socket,
+    as the dashboard does; ``records()`` reads its archive once it has
+    stopped."""
+
+    def __init__(self, root: str, tag: str):
+        os.makedirs(root)
+        self.root, self.tag = root, tag
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(REPO_ROOT, "chip_smoke.py"),
+             "--collector", root],
+            stdin=subprocess.PIPE, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, env=no_obs_env(), cwd=REPO_ROOT)
+        path = os.path.join(root, "port")
+        deadline = time.monotonic() + 120.0
+        while not os.path.exists(path):
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                self.stop()
+                fail(f"{tag}: the collector process did not start: "
+                     f"{self.proc.stderr.read().decode()[-2000:]}")
+            time.sleep(0.05)
+        with open(path) as f:
+            self.port = int(f.read())
+
+    def snap(self) -> dict:
+        from cause_tpu_torch import sync
+        from cause_tpu_torch.net import transport
+
+        fs = transport.dial("127.0.0.1", self.port, site="smoke.snap",
+                            read_timeout_s=30.0)
+        try:
+            sync.send_frame(fs, {"op": "snap"})
+            reply = transport.recv_msg(fs, 30.0)
+        finally:
+            fs.close()
+        if reply.get("op") != "snap":
+            fail(f"{self.tag}: the collector answered {reply.get('op')!r}")
+        return reply["snapshot"]
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            try:
+                self.proc.stdin.close()
+                self.proc.wait(timeout=30)
+            except (OSError, subprocess.TimeoutExpired):
+                self.proc.kill()
+                self.proc.wait()
+
+    def records(self) -> dict:
+        """The archive: ``{"host:pid:epoch": [(admit ts_us, record)]}``."""
+        from cause_tpu_torch.serve import wal
+
+        path = os.path.join(self.root, "wal")
+        out = {}
+        for _no, name in wal.list_segments(path):
+            for kind, rec in wal.scan_segment_file(os.path.join(path, name)):
+                if kind == "rec":
+                    out.setdefault(rec["uuid"], []).extend(
+                        (rec["ts_us"], r) for r in rec["items"])
+        return out
+
+
+def wire_round(torch, root: str, tenants, tag: str) -> dict:
+    """One offered round of phase 10's served fleet over the wire: a
+    fresh ``SyncService`` (batched, capacity 16, ``d_max`` 64, a WAL)
+    with the 32 tenants, the loopback ``ReplicationServer`` fed by 8
+    ``NetClient``s, SERVE_OFFERS zipf-hot offers and the 200-op burst,
+    ticked at the default drain until the queue is empty, then one
+    heartbeat a client. The service's uplink (``svc._ship``) is armed
+    by its construction when telemetry is on and CAUSE_TPU_OBS_SHIP is
+    set; ``close()`` flushes it."""
+    import random
+
+    from cause_tpu_torch import obs
+    from cause_tpu_torch.net import NetClient, ReplicationServer
+
+    t0 = time.perf_counter()
+    svc = serve_service(root, batched=True)
+    exp = svc._ship
+    if obs.enabled() and os.environ.get("CAUSE_TPU_OBS_SHIP") \
+            and exp is None:
+        fail(f"{tag}: the service armed no uplink")
+    uuids = [svc.add_tenant(a, b) for a, b, _tail in tenants]
+    wall = {"build": time.perf_counter() - t0}
+    srv = ReplicationServer(svc).start()
+    n = len(tenants)
+    owner = {t: t // (n // SERVE_CLIENTS) for t in range(n)}
+    clients = [NetClient("127.0.0.1", srv.port,
+                         [uuids[t] for t in range(n) if owner[t] == c],
+                         client_id=f"wire-{c}", read_timeout_s=30.0,
+                         heartbeat_s=WIRE_HEARTBEAT_S)
+               for c in range(SERVE_CLIENTS)]
+    producers = [ServeProducer(i, tenants[i]) for i in range(n)]
+    rng = random.Random(SERVE_SEED)
+    weights = [1.0 / ((i + 1) ** 1.2) for i in range(n)]
+    rng.shuffle(weights)
+    ticker = ServeTicker(svc)
+    try:
+        with launches_in() as counts:
+            t0 = time.perf_counter()
+            serve_offer(clients, owner, producers, rng, weights, 0,
+                        burst=True, tag=tag)
+            t_offered = time.monotonic()
+            wall["offer"] = time.perf_counter() - t0
+            ticks = ticker.until_empty(torch, f"{tag} round")
+            wall["ticks"] = time.perf_counter() - t0 - wall["offer"]
+            time.sleep(max(0.0, WIRE_HEARTBEAT_S
+                           - (time.monotonic() - t_offered)))
+            for cl in clients:
+                cl.pump()
+        # the tenants the round served, and whatever else is resident
+        # (a spilled tenant's digest would cost a restore)
+        t0 = time.perf_counter()
+        served = {e.uuid for d in ticker.drained for e in d}
+        check = [u for u in uuids
+                 if u in served or u in svc.residency.resident()]
+        out = {"digests": {u: svc.converged_digest(u) for u in check},
+               "ticks": ticks, "counts": counts, "exp": exp,
+               "clients": [dict(cl.stats) for cl in clients],
+               "server": dict(srv.stats),
+               "minted": sum(p.minted for p in producers), "wall": wall}
+        wall["digests"] = time.perf_counter() - t0
+        if obs.enabled():
+            obs.flush()  # the counters record ships with the rest
+    finally:
+        t0 = time.perf_counter()
+        for cl in clients:
+            cl.close()
+        srv.stop()
+        svc.close()
+        wall["close"] = time.perf_counter() - t0
+    return out
+
+
+def shipped_round(torch, root: str, name: str, tenants, port: int,
+                  tag: str) -> dict:
+    """``wire_round`` with telemetry on, streaming to a sidecar and
+    shipping to the collector on ``port``; adds the sidecar's records."""
+    from cause_tpu_torch import obs
+    from cause_tpu_torch.obs import perfetto
+
+    sidecar = os.path.join(root, f"{name}.jsonl")
+    obs_fresh(sidecar)
+    os.environ["CAUSE_TPU_OBS_SHIP"] = f"127.0.0.1:{port}"
+    obs.configure(enabled=True)
+    try:
+        r = wire_round(torch, os.path.join(root, name), tenants,
+                       f"{tag} {name}")
+    finally:
+        obs.configure(enabled=False)
+        os.environ.pop("CAUSE_TPU_OBS_SHIP", None)
+    r["sidecar"] = perfetto.load_jsonl(sidecar)
+    return r
+
+
+def check_shipped(tag: str, r: dict, archive: dict, origins) -> list:
+    """Exact accounting of one shipped run: the exporter ended with
+    nothing unshipped or dropped; the collector accepted, missed
+    nothing, and holds exactly the records the serving process's
+    sidecar holds from the uplink's ``ship.attach`` to the last
+    shipped one. Returns ``[(admit ts_us, record)]`` of the origin."""
+    exp = r["exp"]
+    st = exp.stats
+    org = [o for o in origins if o["pid"] == exp.pid
+           and o["epoch"] == exp.epoch]
+    got = archive.get(f"{exp.origin_host}:{exp.pid}:{exp.epoch}", [])
+    if st["unshipped"] or exp.total_dropped() or len(org) != 1:
+        fail(f"{tag}: exporter {st}, dropped {exp.total_dropped()}, "
+             f"{len(org)} origin rows")
+    (org,) = org
+    if not (len(got) == org["accepted"] == org["watermark"]
+            == st["acked_seq"]) or org["missed"]:
+        fail(f"{tag}: the collector archived {len(got)} records, "
+             f"accepted {org['accepted']} (watermark {org['watermark']}, "
+             f"missed {org['missed']}) against {st['acked_seq']} acked")
+    keys = [json.dumps(x, sort_keys=True) for x in r["sidecar"]]
+    shipped = [json.dumps(x, sort_keys=True) for _ts, x in got]
+    start = next((i for i, x in enumerate(r["sidecar"])
+                  if x.get("name") == "ship.attach"), None)
+    if start is None or not shipped or shipped[-1] not in keys:
+        fail(f"{tag}: the sidecar has no ship.attach or not the last "
+             f"shipped record")
+    end = len(keys) - 1 - keys[::-1].index(shipped[-1])
+    if sorted(shipped) != sorted(keys[start:end + 1]):
+        fail(f"{tag}: the collector's {len(shipped)} records differ from "
+             f"the sidecar's {end + 1 - start} from ship.attach on")
+    return got
+
+
+def check_wire_events(tag: str, r: dict, recs) -> dict:
+    """The net layer's evidence in the collector's stream: every client's
+    connect and the server's hello, heartbeats on both sides, the
+    admitted-ops counter, the connection gauge, nacks and sheds exactly
+    as the server and clients counted them; and one journey per queued
+    batch, linked from its mint through send and recv to the tick's
+    wave, whose tenant reached an agreeing ``wave.digest``."""
+    from collections import Counter
+
+    from cause_tpu_torch.obs import journey
+
+    evs = [e for e in recs if e.get("ev") == "event"]
+    names = Counter(e["name"] for e in evs)
+    sides = Counter(e["fields"].get("side") for e in evs
+                    if e["name"] == "net.heartbeat")
+    flushed = [e for e in recs if e.get("ev") == "counters"]
+    counters = flushed[-1]["counters"] if flushed else {}
+    nacks = r["server"]["nacks"]
+    shed = sum(c["shed_ops"] for c in r["clients"])
+    gauges = {e["name"] for e in recs if e.get("ev") == "gauge"}
+    problems = []
+    if names["net.hello"] != SERVE_CLIENTS \
+            or names["net.connect"] != SERVE_CLIENTS:
+        problems.append(f"hello {names['net.hello']}, connect "
+                        f"{names['net.connect']}")
+    if sides["client"] < SERVE_CLIENTS or sides["server"] < SERVE_CLIENTS:
+        problems.append(f"heartbeats {dict(sides)}")
+    if counters.get("net.admitted_ops") != r["server"]["admitted_ops"] \
+            or r["server"]["admitted_ops"] != r["minted"]:
+        problems.append(f"net.admitted_ops {counters.get('net.admitted_ops')}"
+                        f" against {r['server']['admitted_ops']} admitted, "
+                        f"{r['minted']} minted")
+    if "net.connections" not in gauges:
+        problems.append("no net.connections gauge")
+    if names["net.nack"] != nacks or sum(
+            e["fields"]["ops"] for e in evs if e["name"] == "net.shed") \
+            != shed:
+        problems.append(f"{names['net.nack']} net.nack for {nacks} nacks, "
+                        f"net.shed against {shed} shed ops")
+    fold = journey.JourneyFold(retain_all=True)
+    fold.feed_many(recs)
+    mints = [e["fields"] for e in evs if e["name"] == "xtrace.hop"
+             and e["fields"]["hop"] == "mint"
+             and str(e["fields"].get("client", "")).startswith("wire-")]
+    agreed = {e["fields"]["uuid"] for e in evs
+              if e["name"] == "wave.digest" and e["fields"].get("agreed")}
+    batches = SERVE_OFFERS + 1
+    if len(mints) != batches:
+        problems.append(f"{len(mints)} minted traces for {batches} batches")
+    need = ("mint", "send", "recv", "admit", "journal", "tick", "wave")
+    hops, orphans = Counter(), 0
+    for m in mints:
+        j = fold.journey(m["trace"])
+        got = [h["hop"] for h in j["hops"]] if j else []
+        hops.update(set(got))
+        orphans += j["orphans"] if j else 1
+        if not j or [h for h in need if h not in got] \
+                or m["uuid"] not in agreed:
+            problems.append(f"trace {m['trace']}: hops {got}, tenant "
+                            f"{m['uuid']} agreed {m['uuid'] in agreed}")
+            break
+    if orphans:
+        problems.append(f"{orphans} orphan hops")
+    if problems:
+        fail(f"{tag}: " + "; ".join(problems))
+    return {"events": names, "heartbeats": dict(sides),
+            "admitted": counters.get("net.admitted_ops"),
+            "journeys": len(mints), "hops": dict(hops), "nacks": nacks,
+            "shed": shed}
+
+
+def check_dashboard(tag: str, port: int) -> str:
+    """``watch --collector --once --json`` in a subprocess: exit 0, the
+    serve, net and ship sections active and rendered, no alert outside
+    WIRE_ALERTS; then ``watch --serve-port`` in a subprocess, whose
+    ``/metrics`` must carry the ship, net and serve families."""
+    import socket
+    import urllib.request
+
+    from cause_tpu_torch.obs import watch
+
+    addr = f"127.0.0.1:{port}"
+    out = subprocess.run(
+        [sys.executable, "-m", "cause_tpu_torch.obs", "watch",
+         "--collector", addr, "--once", "--json"],
+        capture_output=True, text=True, timeout=120, cwd=REPO_ROOT,
+        env=no_obs_env())
+    if out.returncode:
+        fail(f"{tag}: watch --once exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    doc = json.loads(out.stdout)
+    snap, alerts = doc["snapshot"], doc["alerts"]
+    text = watch.render(snap, alerts, [addr])
+    lines = {ln.split(":")[0].strip() for ln in text.splitlines()}
+    missing = [s for s in ("serve", "net", "ship")
+               if not (snap.get(s) or {}).get("active") or s not in lines]
+    extra = [a["rule"] for a in alerts if a["rule"] not in WIRE_ALERTS]
+    if missing or extra or snap["alerts_total"] > len(alerts):
+        fail(f"{tag}: watch --once: sections missing {missing}, alerts "
+             f"{[a['rule'] for a in alerts]} ({snap['alerts_total']} in "
+             f"all; expected only {WIRE_ALERTS})")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        mport = s.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cause_tpu_torch.obs", "watch",
+         "--collector", addr, "--serve-port", str(mport), "--json",
+         "--interval", "0.25", "--duration", "120"],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        env=no_obs_env(), cwd=REPO_ROOT)
+    families = ("cause_tpu_live_ship_", "cause_tpu_live_net_",
+                "cause_tpu_live_serve_")
+    body = ""
+    try:
+        deadline = time.monotonic() + 90.0
+        while time.monotonic() < deadline and proc.poll() is None:
+            try:
+                body = urllib.request.urlopen(
+                    f"http://127.0.0.1:{mport}/metrics", timeout=10
+                ).read().decode()
+            except OSError:
+                body = ""
+            if all(f in body for f in families):
+                break
+            time.sleep(0.25)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    if not all(f in body for f in families):
+        fail(f"{tag}: /metrics lacks {[f for f in families if f not in body]}"
+             f": {body[:500]!r} {proc.stderr.read().decode()[-1000:]}")
+    return (f"watch --once: sections {sorted(lines & {'serve', 'net', 'ship'})}"
+            f", alerts {[a['rule'] for a in alerts]}; /metrics "
+            f"{len(body.splitlines())} lines with the ship, net and serve "
+            f"families")
+
+
+def tick_line(r) -> str:
+    ms = [t["ms"] for t in r["ticks"]]
+    return (f"p50 {float(np.median(ms)):.3f} ms, p99 "
+            f"{float(np.percentile(ms, 99)):.3f} ms over {len(ms)} ticks "
+            f"{[round(t, 3) for t in ms]}")
+
+
+def phase_wire(torch, dev, card: str, tenants) -> dict:
+    """Phase 12: one offered round of phase 10's fleet over the wire,
+    telemetry off and then shipped to a collector process, then again
+    under ship faults. Returns the shipped run's launch counts."""
+    import tempfile
+
+    from cause_tpu_torch import chaos
+
+    tag = "[12 wire]"
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="wire-smoke-")
+    col = CollectorProcess(os.path.join(tmp.name, "collector"), tag)
+    t_col = time.perf_counter() - t_phase
+    try:
+        obs_fresh()
+        off = wire_round(torch, os.path.join(tmp.name, "off"), tenants,
+                         f"{tag} off")
+        on = shipped_round(torch, tmp.name, "on", tenants, col.port, tag)
+        origins_on = col.snap()["origins"]
+        t0 = time.perf_counter()
+        dash = check_dashboard(tag, col.port)
+        t_dash = time.perf_counter() - t0
+        chaos.configure(plan=WIRE_CHAOS, enabled=True)
+        try:
+            faulty = shipped_round(torch, tmp.name, "faults", tenants,
+                                   col.port, tag)
+            injected = [f["mode"] for f in chaos.injected()
+                        if f["family"] == "ship"]
+        finally:
+            chaos.reset()
+        snap = col.snap()
+    finally:
+        col.stop()
+        obs_fresh()
+    keys = ("ops", "tenants", "depth", "buckets", "batch_rows")
+    for name, r in (("on", on), ("faults", faulty)):
+        if r["counts"] != off["counts"]:
+            fail(f"{tag} {name}: launches {r['counts']} against "
+                 f"{off['counts']} with telemetry off")
+        if r["digests"] != off["digests"]:
+            fail(f"{tag} {name}: tenant digests differ from the run with "
+                 f"telemetry off")
+        if [{k: t["summary"][k] for k in keys} for t in r["ticks"]] != \
+                [{k: t["summary"][k] for k in keys} for t in off["ticks"]]:
+            fail(f"{tag} {name}: the ticks drained or dispatched "
+                 f"differently")
+    if not all(off["counts"][n] for n in V5_LAUNCHES):
+        fail(f"{tag}: the round launched no B1-B3 kernel: {off['counts']}")
+    archive = col.records()
+    got_on = check_shipped(f"{tag} on", on, archive, origins_on)
+    got_f = check_shipped(f"{tag} faults", faulty, archive,
+                          snap["origins"])
+    ev = check_wire_events(f"{tag} on", on, [x for _ts, x in got_on])
+    check_wire_events(f"{tag} faults", faulty, [x for _ts, x in got_f])
+    (org_f,) = [o for o in snap["origins"]
+                if o["epoch"] == faulty["exp"].epoch]
+    if sorted(set(injected)) != ["dup", "reorder"] \
+            or not org_f["dup_records"] or snap["ship"]["unexplained_gaps"]:
+        fail(f"{tag} faults: injected {injected}, the collector skipped "
+             f"{org_f['dup_records']} duplicate records, "
+             f"{snap['ship']['unexplained_gaps']} unexplained gaps")
+    lags = [(adm - x["ts_us"]) / 1e3 for adm, x in got_on
+            if isinstance(x.get("ts_us"), int)]
+    nbytes = sum(len(json.dumps(x)) for _ts, x in got_on)
+    exp = on["exp"]
+    say(f"{tag} one offered round of {len(tenants)} tenants over the "
+        f"wire ({SERVE_CLIENTS} clients, {SERVE_OFFERS} zipf-hot offers + "
+        f"the {SERVE_BURST}-op burst, {on['minted']} ops), telemetry off, "
+        f"shipped, and shipped under ship faults: the same launches "
+        f"{off['counts']}, tick shapes and converged digests (the "
+        f"{len(off['digests'])} tenants served or resident) in all three")
+    say(f"{tag} host s a run (build = service + add_tenant, offer, ticks, "
+        f"digests, close): "
+        + "; ".join(f"{n} " + ", ".join(f"{k} {v:.2f}" for k, v
+                                          in r["wall"].items())
+                    for n, r in (("off", off), ("on", on),
+                                 ("faults", faulty)))
+        + f"; the collector process started in {t_col:.2f} s, the "
+        f"dashboard checks {t_dash:.2f} s (host clock); {card}")
+    say(f"{tag} ticks without the uplink {tick_line(off)}; with it "
+        f"{tick_line(on)}; under ship faults {tick_line(faulty)} (host "
+        f"clock, synchronized); {card}")
+    say(f"{tag} shipped {len(got_on)} records ({nbytes} bytes of JSON) in "
+        f"{exp.stats['sent_frames']} frames to the collector process, "
+        f"every one accepted once: 0 missed, 0 dropped, 0 unshipped, the "
+        f"set equal to the sidecar's from ship.attach on; emit to admit "
+        f"p50 {float(np.median(lags)):.3f} ms, p99 "
+        f"{float(np.percentile(lags, 99)):.3f} ms, max {max(lags):.3f} ms "
+        f"(host clock); {card}")
+    say(f"{tag} net evidence: {ev['events']['net.hello']} net.hello, "
+        f"{ev['events']['net.connect']} net.connect, heartbeats "
+        f"{ev['heartbeats']}, net.admitted_ops {ev['admitted']}, "
+        f"{ev['nacks']} nacks, {ev['shed']} shed ops; {ev['journeys']} "
+        f"journeys, each linked mint -> send -> recv -> admit -> journal "
+        f"-> tick -> wave with its tenant's agreeing wave.digest, 0 "
+        f"orphan hops")
+    say(f"{tag} {dash}")
+    say(f"{tag} ship faults {injected}: the collector skipped "
+        f"{org_f['dup_records']} duplicate records and healed the "
+        f"reordered frames ({len(got_f)} records accepted once, 0 missed, "
+        f"0 unexplained gaps); phase {time.perf_counter() - t_phase:.1f} s "
+        f"(host clock); {card}")
+    tmp.cleanup()
+    return on["counts"]
+
+
+
 # --------------------------------------------------------------- main
 
 
@@ -2851,7 +3363,11 @@ def main() -> int:
                     help="also split K2's and K4's time at the north star "
                          "between load/store, scans and sorts, in both "
                          "forms, from builds stamped with clock64()")
+    ap.add_argument("--collector", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.collector:
+        # phase 12's collector process, started by the smoke itself
+        return collector_child(args.collector)
 
     import torch
 
@@ -3162,7 +3678,11 @@ def main() -> int:
     # ------------------------------------------------ 11. telemetry
     obs_counts = phase_telemetry(torch, dev, card, pairs, v5, u_max, k_p50,
                                  tenants)
-    del pairs, tenants
+    del pairs
+
+    # ------------------------------------------------ 12. the wire
+    wire_counts = phase_wire(torch, dev, card, tenants)
+    del tenants
 
     # ------------------------------------------------ result
     recs = []
@@ -3189,9 +3709,12 @@ def main() -> int:
             "serve_bound_ms": serve_per.get(name, {}).get("bound_ms"),
             "serve_library_ms": serve_per.get(name, {}).get("library_ms"),
             # phase 11's telemetry-on runs (the api wave twice, the
-            # session and its tree, two served rounds, the stage ladder
+            # session and its tree, the served round, the stage ladder
             # excluded)
             "telemetry_launches": obs_counts[name],
+            # phase 12's shipped wire round (the served fleet's round
+            # over the sockets with telemetry on, shipped to a collector)
+            "wire_launches": wire_counts[name],
         })
     say(f"total {time.perf_counter() - t_start:.1f} s (host clock)")
     print(card, flush=True)

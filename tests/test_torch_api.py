@@ -259,3 +259,93 @@ def test_run_dispatch_retries_only_transient_failures():
     with pytest.raises(recovery.TransientDispatchError):
         recovery.run_dispatch("wave", down, retries=1, backoff_s=0)
     assert len(calls) == 2
+
+
+# ------------------------------------- the reference's weaver name (C.4)
+
+
+def _jax_named(kind):
+    """A collection built with the reference's device weaver name, and
+    the full reweave of its tree (a base: its list collection's)."""
+    from cause_tpu_torch.collections import clist as t_clist
+    from cause_tpu_torch.collections import cmap as t_cmap
+
+    if kind == "list":
+        return ct.clist(*"abc", weaver="jax"), t_clist.weave
+    if kind == "map":
+        return ct.cmap("x", 1, "y", 2, weaver="jax"), t_cmap.weave
+    if kind == "set":
+        return ct.cset("a", "b", weaver="jax"), t_clist.weave
+    if kind == "counter":
+        return ct.ccounter(weaver="jax").increment(3), t_clist.weave
+    cb = ct.transact(ct.base(weaver="jax"),
+                     [[None, None, {ct.K("l"): list("abcd")}]])
+    assert cb.cb.weaver == "torch"
+    lists = [h for h in cb.cb.collections.values()
+             if isinstance(h, TList)]
+    assert len(lists) == 1
+    return lists[0], t_clist.weave
+
+
+KINDS = ("list", "map", "set", "counter", "base")
+
+
+@pytest.fixture
+def device_calls(monkeypatch):
+    """Counts the device route's calls on the CPU: the v5 sites of B1, B2
+    and B3 (lists, sets, counters) and the map forest's linearization
+    (PyTorch ops, no kernel)."""
+    from cause_tpu_torch.weaver import torchw5
+
+    calls = {}
+
+    def counting(mod, name):
+        real = getattr(mod, name)
+
+        def wrapper(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return real(*a, **k)
+
+        monkeypatch.setattr(mod, name, wrapper)
+
+    for name in ("sort_pairs", "euler_walk", "fphase_expand"):
+        counting(torchw5, name)
+    counting(torchw, "linearize_map_forest")
+    return calls
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_reference_weaver_name_takes_the_device_route(on_cpu, device_calls,
+                                                      kind):
+    """ROADMAP C.4: ``weaver="jax"`` builds a ``"torch"`` collection, whose
+    full reweave takes the device route (on the CPU through the plain
+    versions) and equals the pure weave."""
+    h, weave_fn = _jax_named(kind)
+    assert h.ct.weaver == "torch"
+    before = torchw.pure_fallbacks
+    got = weave_fn(h.ct)
+    assert torchw.pure_fallbacks == before
+    if kind == "map":
+        assert device_calls == {"linearize_map_forest": 1}
+    else:
+        assert device_calls == {"sort_pairs": 6, "euler_walk": 1,
+                                "fphase_expand": 1}
+    assert got.weave == weave_fn(h.ct.evolve(weaver="pure")).weave
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_reference_weaver_name_raises_without_a_card(kind):
+    """With no card and the default device, a ``weaver="jax"``
+    collection's reweave refuses as a ``weaver="torch"`` one does."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: nothing to refuse")
+    before = ct.default_device()
+    ct.use_device("cuda")
+    try:
+        h, weave_fn = _jax_named(kind)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            weave_fn(h.ct)
+    finally:
+        ct.use_device(before)

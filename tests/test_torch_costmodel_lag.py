@@ -2,9 +2,11 @@
 against the JAX package's.
 
 Mirrors ``tests/test_costmodel.py``, ``test_lag.py``, ``test_ledger.py``,
-``test_live.py`` (all but the ``watch`` dashboard and its Prometheus
-endpoint, which are not ported yet) and the in-process cases of
-``test_xtrace.py``. Host-side cases run against BOTH packages (the
+``test_live.py`` (its ``watch`` dashboard and Prometheus endpoint cases
+are in ``tests/test_torch_watch.py``) and the in-process cases of
+``test_xtrace.py`` (its wire cases are in ``tests/test_torch_net.py``,
+its journey across a restore in ``tests/test_torch_serve.py`` and its
+cross-process journey cases in ``tests/test_torch_watch.py``). Host-side cases run against BOTH packages (the
 ``P`` fixture); the fleet cases build ``weaver="jax"`` fleets in the
 reference and ``weaver="torch"`` fleets in the port, whose device paths
 run on the CPU through the kernels' plain versions.

@@ -337,14 +337,17 @@ def test_lanes_from_numpy_fixes_dtypes():
 OBS_HOST = ["obs/__init__.py", "obs/__main__.py", "obs/core.py",
             "obs/perfetto.py", "obs/semantic.py", "obs/xtrace.py",
             "obs/lag.py", "obs/journey.py", "obs/fleet.py",
-            "obs/costmodel.py", "obs/ledger.py", "obs/live.py"]
+            "obs/costmodel.py", "obs/ledger.py", "obs/live.py",
+            "obs/ship.py", "obs/collector.py", "obs/watch.py"]
 
 
 @pytest.mark.parametrize("rel", OBS_HOST)
 def test_obs_host_modules_hold_no_tensor_code(rel):
     """The telemetry substrate is host bookkeeping: only ``devprof``
     (the allocator's statistics) and ``stages`` (it runs kernels) touch
-    torch, and those import it inside their functions."""
+    torch, and those import it inside their functions. The uplink's
+    pump thread, the collector's and the dashboard's threads never
+    reach the card."""
     tree = ast.parse((ROOT / "cause_tpu_torch" / rel).read_text())
     names = []
     for node in ast.walk(tree):

@@ -19,8 +19,11 @@ event stream equal to the reference's, record for record, after
 ``test_torch_obs.normalize`` (its docstring lists the fields left out),
 plus the reference test's own event assertions.
 ``test_live_snapshot_serve_fields_and_default_rules`` is mirrored
-whole; ``test_watch_renders_serve_line`` waits for the ``watch``
-dashboard.
+whole, and ``test_watch_renders_serve_line`` is in
+``tests/test_torch_watch.py`` with the dashboard's other cases. The
+journey across a crash and a restore (``tests/test_xtrace.py:330``) is
+``test_journey_across_restore_relinks_journal_traces``, twins with
+telemetry on.
 
 The module also holds the twin-package helpers the other
 ``test_torch_serve_batch``/``wal``/``net`` files import.
@@ -175,16 +178,32 @@ def obs_twin(monkeypatch):
     STREAMS.clear()
 
 
-def twin_events(streams, name=None):
+def twin_events(streams, name=None, ordered=True):
     """The port's events of the last twin run after checking its
     normalized stream equals the reference's (paths read from each
-    package's own scenario directory); ``name`` filters."""
+    package's own scenario directory); ``name`` filters.
+    ``ordered=False`` compares the streams as multisets, for scenarios
+    whose records come from several threads (a server's connection
+    threads beside its client), and leaves out the ``peer`` field (an
+    ephemeral port)."""
     from test_torch_obs import normalize
 
     # each package ran in its own scenario directory (.../ref, .../port)
     ref = normalize(streams["ref"])
     port = json.loads(json.dumps(normalize(streams["port"])).replace(
         "/port/", "/ref/"))
+    if not ordered:
+        def canon(recs):
+            for r in recs:
+                r.get("fields", {}).pop("peer", None)
+            return sorted(json.dumps(r, sort_keys=True) for r in recs)
+
+        port, ref = canon(port), canon(ref)
+        assert [r for r in port if r not in ref] == \
+            [r for r in ref if r not in port] == []
+        assert port == ref
+        return [e for e in streams["port"] if e.get("ev") == "event"
+                and (name is None or e["name"] == name)]
     for i, (a, b) in enumerate(zip(port, ref)):
         assert a == b, (i, a.get("name"), {
             k: (a.get("fields", {}).get(k), b.get("fields", {}).get(k))
@@ -1379,3 +1398,60 @@ def test_controller_moves_under_an_unmeetable_slo(tmp_path, monkeypatch):
     from cause_tpu_torch.obs import core
 
     assert core._STATE.subscribers == ()
+
+
+def test_journey_across_restore_relinks_journal_traces(tmp_path, obs_twin):
+    """``tests/test_xtrace.py:330``: a crash between admission and the
+    tick does not orphan the journey. The mutation funnel binds the op
+    at creation, the offer continues that trace (no second mint), the
+    journal row carries it, and the restore's replay re-links it, so
+    the restored service's wave continues the same trace."""
+    def scen(P, root):
+        from importlib import import_module
+
+        journey = import_module(f"{P.obs.__name__}.journey")
+        svc = service(P, root)
+        a, r = pair(P, base(P, 12))
+        uuid = svc.add_tenant(a, r)
+        svc.checkpoint()
+        left, _right = svc.residency.get(uuid).pairs[0]
+        l2 = left.conj("x1")
+        items = delta_items(P, l2, left)
+        nid = tuple(P.serde.decode_node_items(items).keys())[0]
+        tr = P.obs.xtrace.trace_of(nid)
+        assert tr
+        adm = svc.queue.offer(uuid, l2.ct.site_id, items)
+        assert adm.admitted
+        assert not [e for e in P.obs.events()
+                    if e.get("name") == "xtrace.hop"
+                    and e["fields"]["hop"] == "mint"
+                    and e["fields"].get("source") == "offer"]
+        with open(root / "wal.jsonl") as f:
+            recs = [json.loads(ln) for ln in f
+                    if ln.strip() and "seq" in ln]
+        assert any(rec.get("trace") == [tr] for rec in recs), recs
+        P.chaos.configure(plan={"seed": 7, "faults": [
+            {"family": "crash", "site": "serve.tick", "at": [1]}]})
+        with pytest.raises(P.ServiceCrashed):
+            svc.tick()
+        del svc
+        P.chaos.reset()
+        svc2 = P.SyncService.restore(str(root / "ckpt"))
+        svc2.tick()
+        fold = journey.JourneyFold(retain_all=True)
+        fold.feed_many(P.obs.events())
+        j = fold.journey(tr)
+        assert j is not None
+        names = [h["hop"] for h in j["hops"]]
+        for need in ("mint", "admit", "journal", "replay", "wave"):
+            assert need in names, (need, names)
+        assert names.index("journal") < names.index("replay") \
+            < names.index("wave")
+        assert j["orphans"] == 0
+        assert P.obs.xtrace.trace_of(nid) == tr
+        digest = svc2.converged_digest(uuid)
+        svc2.close()
+        return names, j["orphans"], digest
+
+    both(scen, tmp_path)
+    assert twin_events(obs_twin, "serve.restored")

@@ -4,7 +4,7 @@ Mirrors ``tests/test_sync.py`` — version vectors, delta exchange,
 convergence over real sockets, the full-bag fallback, the frame
 protocol's rejections, base-level sync and undo after it — apart from
 its two cases on the network transport's ``FrameStream`` (``:279``,
-``:316``), which wait for the transport's port. Also the ``sync_pair``
+``:316``), which ``tests/test_torch_net.py`` mirrors. Also the ``sync_pair``
 half of ``tests/test_delta_weave.py:202`` (a session over sync-shared
 suffix nodes). Each scenario runs as twins in both packages (uid
 generators seeded alike: the same uuids and site ids) under

@@ -9,9 +9,9 @@ the port's record must equal the reference's. The chaos ``disk`` plans
 are armed in each package's own engine. The telemetry halves
 (``serve.disk``/``serve.shed`` events) are the ``<name>_obs`` cases
 (``test_torch_serve.py``'s ``obs_twin``);
-``test_live_fold_disk_axes_and_default_rules`` is mirrored whole;
-``test_prometheus_exports_disk_metrics`` waits for the ``watch``
-dashboard (the networked half of the telemetry port).
+``test_live_fold_disk_axes_and_default_rules`` is mirrored whole, and
+``test_prometheus_exports_disk_metrics`` is in ``tests/test_torch_watch.py``
+with the dashboard's other cases.
 """
 
 import json
