@@ -1,12 +1,17 @@
-"""Synthetic divergent-replica generators and the v5 marshal helpers.
+"""Synthetic divergent-replica generators, the marshal helpers and the
+scalar merge program.
 
-The subset of ``cause_tpu.benchgen`` the port's main path needs: the
-lane-level batch generators (a shared append-only base chain plus two
-divergent suffixes per replica pair, every ``hide_every``-th suffix node
-a ``hide`` tombstone), the v5 segment-table marshal, the host-side token
-budget, the handle-level fleet generator, and ``lanes_from_numpy``,
-which turns the marshalled numpy batch into the port's tensors — so one
-marshalled batch feeds both packages.
+The port's copy of ``cause_tpu.benchgen``: the lane-level batch
+generators (a shared append-only base chain plus two divergent suffixes
+per replica pair, every ``hide_every``-th suffix node a ``hide``
+tombstone; ``fleet_lanes`` for a whole fleet in one row), the host run
+estimator and run budget of the v2-v4 kernels, the v5 segment-table
+marshal and token budget, the handle-level fleet generator,
+``merge_wave_scalar`` (one batched merge of any kernel generation
+reduced to a checksum), and ``lanes_from_numpy``, which turns the
+marshalled numpy batch into the port's tensors — so one marshalled
+batch feeds both packages. ``time_dispatch`` and the reference's
+compile cache are not ported.
 
 Site-id strings never exist in the lane generators: sites are
 materialized directly as order-preserving ranks (root "0" < base <
@@ -34,7 +39,11 @@ __all__ = [
     "divergent_pair_lanes",
     "batched_pair_lanes",
     "delta_sweep_inputs",
+    "fleet_lanes",
     "tree_fleet_handles",
+    "estimate_pair_runs",
+    "pair_run_budget",
+    "merge_wave_scalar",
     "v5_inputs",
     "batched_v5_inputs",
     "v5_token_budget",
@@ -74,6 +83,174 @@ def lanes_from_numpy(lanes: Dict[str, np.ndarray], device="cuda") -> dict:
         arr = np.ascontiguousarray(lanes[k])
         out[k] = torch.from_numpy(arr).to(device=dev, dtype=dt)
     return out
+
+
+def _union_lanes_np(hi, lo, chi, clo, vc, valid):
+    """Numpy twin of the merge kernel's front half (id lexsort, dup
+    drop, sort-join cause resolution) — host-side, so run budgets can
+    be derived from the real post-union lane structure before any
+    device dispatch."""
+    order = np.lexsort((lo, hi))
+    hi_s, lo_s = hi[order], lo[order]
+    dup = np.concatenate(
+        [[False], (hi_s[1:] == hi_s[:-1]) & (lo_s[1:] == lo_s[:-1])]
+    )
+    keep = valid[order] & ~dup
+    vc_s = vc[order]
+    chi_s, clo_s = chi[order], clo[order]
+    kept_idx = np.flatnonzero(keep)
+    key = (
+        (hi_s[kept_idx].astype(np.int64) << 32)
+        | (lo_s[kept_idx].astype(np.int64) & 0xFFFFFFFF)
+    )
+    q = (
+        (chi_s.astype(np.int64) << 32)
+        | (clo_s.astype(np.int64) & 0xFFFFFFFF)
+    )
+    pos = np.searchsorted(key, q)
+    pos_c = np.clip(pos, 0, max(0, len(key) - 1))
+    found = (len(key) > 0) & (key[pos_c] == q)
+    cause_idx = np.where(found, kept_idx[pos_c], -1).astype(np.int32)
+    return cause_idx, vc_s, keep
+
+
+def estimate_pair_runs(row: Dict[str, np.ndarray]) -> int:
+    """Chain-contracted run count of one replica-pair merge, computed
+    host-side: emulate the union front half in numpy, then run the same
+    ``estimate_runs`` the API dispatch uses."""
+    from .weaver.torchw import estimate_runs
+
+    cause_idx, vc_s, keep = _union_lanes_np(
+        row["hi"], row["lo"], row["chi"], row["clo"], row["vc"], row["valid"]
+    )
+    return estimate_runs(cause_idx, vc_s, keep)
+
+
+def pair_run_budget(batch: Dict[str, np.ndarray], sample_rows: int = 4) -> int:
+    """Run budget for the compressed (v2-v4) kernels, derived from the
+    generated lanes: the host run estimator on sampled rows (all of them
+    for a single row dict), plus headroom for unsampled rows — the
+    kernel's overflow flag still backstops an underestimate."""
+    hi = batch["hi"]
+    if hi.ndim == 1:
+        rows = [batch]
+    else:
+        B = hi.shape[0]
+        picks = sorted({0, B // 3, (2 * B) // 3, B - 1})[:sample_rows]
+        rows = [{k: batch[k][i] for k in LANE_KEYS} for i in picks]
+    worst = max(estimate_pair_runs(r) for r in rows)
+    return int(worst + max(64, worst // 8))
+
+
+def _float_checksum(order, rank, visible, conflict):
+    """The v1-v4 scalar: the float32 sums of the four outputs."""
+    import torch
+
+    f32 = torch.float32
+    return (rank.to(f32).sum() + order.to(f32).sum()
+            + visible.to(f32).sum() + conflict.to(f32).sum())
+
+
+def _u32(x):
+    """int64 holding the low 32 bits of ``x`` (a uint32 value)."""
+    return x & 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """``x * c`` mod 2**32 for int64 ``x`` in [0, 2**32) and a uint32
+    constant, in two 16-bit halves so no product leaves int64."""
+    lo = x * (c & 0xFFFF)
+    hi = _u32(x * (c >> 16)) & 0xFFFF
+    return _u32(lo + (hi << 16))
+
+
+def _v5_digest(rank, visible, conflict, overflow):
+    """The v5-family scalar (``cause_tpu.benchgen.merge_wave_scalar``):
+    an exact uint32 avalanche digest of (rank, visibility, lane,
+    conflict) per row, each row rotated left by ``row & 31`` bits, the
+    rows summed mod 2**32, as int32 bits beside the count of
+    overflowed rows."""
+    import torch
+
+    B, N = rank.shape
+    lane = torch.arange(N, dtype=torch.int64, device=rank.device)
+    x = _u32(_mul32(_u32(rank.long()), 0x9E3779B1)
+             + _mul32(visible.long(), 0x85EBCA77)
+             + _mul32(lane, 0xC2B2AE35)[None] + 1)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    row = _u32(x.sum(dim=1)) ^ (conflict.long() * 0x27D4EB2F)
+    rix = torch.arange(B, dtype=torch.int64, device=rank.device) & 31
+    row = _u32((row << rix) | (row >> ((32 - rix) & 31)))
+    digest = _u32(row.sum())
+    digest = torch.where(digest >= 1 << 31, digest - (1 << 32), digest)
+    return torch.stack([digest, overflow.long().sum()]).to(torch.int32)
+
+
+def merge_wave_scalar(*args, k_max: int = 0, kernel: str = "v2",
+                      u_max: int = 0, device=None):
+    """The timed program of the merge benchmarks: one batched
+    merge+weave on ``device`` (the package default, ``use_device``, when
+    None) reduced to a scalar on the device.
+
+    ``k_max`` > 0 selects a compressed kernel — ``kernel`` picks which
+    ("v2" chain-compressed, "v3" sparse-irregular, "v4"
+    marshal-resolved causes, "v4w" = v4 with the Euler walk, "v5"
+    segment-union with token budget ``u_max``, "v5w" = v5 with the Euler
+    walk, "v5f" = v5 with the fused token pipeline) — with that run
+    budget, returning a length-2 tensor ``[checksum,
+    n_overflowed_rows]``; ``k_max=0`` runs the uncompressed v1 kernel
+    and returns just the checksum. For the v5 family the checksum is
+    the reference's EXACT int32 avalanche digest of (rank, visibility,
+    lane, conflict), row-rotated, equal integer for integer; v1-v4 keep
+    the float32 sum (its summation order differs from the reference's).
+    v1-v3 take the ``LANE_KEYS`` lanes, v4/v4w the ``LANE_KEYS4`` lanes,
+    v5 the ``LANE_KEYS5`` lanes. The port has no program cache: each
+    call runs the kernels, and with telemetry on it counts one dispatch
+    at the reference's site, under an identity that names the kernel
+    sources' hash where the reference names its switch settings."""
+    import torch
+
+    from . import kernels
+    from .device import default_device
+    from .obs import costmodel
+
+    dev = default_device() if device is None else device
+    name = kernel if k_max > 0 else "v1"
+    if costmodel.enabled():
+        costmodel.record_dispatch(
+            f"scalar:{name}:k{int(k_max)}:u{int(u_max)}"
+            f":s{kernels.source_hash()}", site="benchgen")
+    if k_max > 0 and kernel in ("v5", "v5w", "v5f"):
+        if kernel == "v5f":
+            from .weaver.torchw5f import batched_merge_weave_v5f as run
+        else:
+            from .weaver.torchw5 import batched_merge_weave_v5 as run
+        return _v5_digest(*run(*args, u_max=int(u_max), k_max=int(k_max),
+                               device=dev))
+    if k_max > 0:
+        if kernel in ("v4", "v4w"):
+            from .weaver.torchw4 import batched_merge_weave_v4
+
+            out = batched_merge_weave_v4(
+                *args, k_max=k_max, device=dev,
+                euler="walk" if kernel == "v4w" else "doubling")
+        elif kernel == "v3":
+            from .weaver.torchw3 import batched_merge_weave_v3
+
+            out = batched_merge_weave_v3(*args, k_max=k_max, device=dev)
+        else:
+            from .weaver.torchw import batched_merge_weave_v2
+
+            out = batched_merge_weave_v2(*args, k_max=k_max, device=dev)
+        return torch.stack([_float_checksum(*out[:4]),
+                            out[4].to(torch.float32).sum()])
+    from .weaver.torchw import batched_merge_weave
+
+    return _float_checksum(*batched_merge_weave(*args, device=dev))
 
 
 def v5_inputs(row: Dict[str, np.ndarray], capacity: int,
@@ -292,6 +469,40 @@ def divergent_pair_lanes(
         b["cci"] >= 0, b["cci"] + capacity, -1
     )
     return out
+
+
+def fleet_lanes(
+    n_replicas: int,
+    n_base: int,
+    n_div: int,
+    capacity: int,
+    hide_every: int = 0,
+    spec: PackSpec = DEFAULT_PACK,
+) -> Dict[str, np.ndarray]:
+    """Flattened ``[n_replicas * capacity]`` lanes of a whole fleet: K
+    divergent replicas of one shared base chain, each with its own
+    suffix site and tombstone phase. Feed straight into
+    ``merge_weave_kernel`` — its sort-dedupe union front half is K-ary
+    for free — to converge the entire fleet into ONE tree on device
+    (the north star's "1024 replicas into one" reading)."""
+    n_sites = SITE_A + n_replicas
+    if n_sites > (1 << spec.site_bits):
+        raise OverflowError(f"{n_sites} sites exceed {spec.site_bits} bits")
+    rows = []
+    for r in range(n_replicas):
+        row = chain_tree_lanes(
+            n_base, n_div, SITE_A + r, capacity,
+            hide_every=0, spec=spec,
+        )
+        if hide_every > 0 and n_div > 0:
+            j = np.arange(1, n_div + 1)
+            is_hide = ((j + r) % hide_every) == 0
+            row["vc"][1 + n_base:1 + n_base + n_div][is_hide] = VCLASS_HIDE
+        row["cci"] = np.where(
+            row["cci"] >= 0, row["cci"] + r * capacity, -1
+        ).astype(np.int32)
+        rows.append(row)
+    return {k: np.concatenate([row[k] for row in rows]) for k in rows[0]}
 
 
 def delta_sweep_inputs(

@@ -28,11 +28,12 @@ host-jump the list path uses.
 
 ``merge_map_wave`` runs the forest lanes through the v5 segment-union
 kernel (``torchw5.batched_merge_weave_v5``: on the card its six sorts
-are the B1 kernel, the forest walk B2 and the lane expansion B3). The
-reference's full-width v4 route (``kernel="v4"``,
-``batched_merge_map_weave``) waits for the older kernel generations
-(ROADMAP A.14), and its sharded twins for the multi-device port
-(A.15): they raise.
+are the B1 kernel, the forest walk B2 and the lane expansion B3) or,
+with ``kernel="v4"``, through the reference's original full-width route
+(``batched_merge_map_weave``: ``torchw4.batched_merge_weave_v4`` at a
+run budget of the full row, its two sorts B1 and its forest walk B2).
+The sharded twins wait for the multi-device port (ROADMAP A.15): they
+raise.
 """
 
 from __future__ import annotations
@@ -231,11 +232,23 @@ def pair_rows(pairs: Sequence[Tuple[dict, dict]],
         return lanes, {"rows": meta, "capacity": cap, "key_rank": krank}
 
 
-def batched_merge_map_weave(lanes: Dict[str, np.ndarray], k_max: int = 0):
-    """The reference's full-width v4 forest route: not ported yet."""
-    raise NotImplementedError(
-        "batched_merge_map_weave: the v4 map route needs the v4 kernel, "
-        "which is not ported yet (ROADMAP A.14); use the v5 route")
+def batched_merge_map_weave(lanes: Dict[str, np.ndarray], k_max: int = 0,
+                            device=None):
+    """The full-width v4 forest route on ``device`` (the package default,
+    ``use_device``, when None): ``torchw4.batched_merge_weave_v4`` over
+    ``[B, 2*cap]`` forest lanes. ``k_max`` 0 sizes the run budget at
+    full width (map forests have no chain runs to compress — every
+    key-caused node is a sibling, so the run count ~ lane count).
+    Returns ``(order, rank, visible, conflict, overflow)`` tensors per
+    row, rank and visibility per SORTED lane."""
+    from ..benchgen import LANE_KEYS4
+    from .torchw4 import batched_merge_weave_v4
+
+    if k_max <= 0:
+        k_max = int(lanes["hi"].shape[1])
+    dev = default_device() if device is None else device
+    return batched_merge_weave_v4(*(lanes[k] for k in LANE_KEYS4),
+                                  k_max=k_max, device=dev)
 
 
 def map_v5_inputs(lanes: Dict[str, np.ndarray], cap: int):
@@ -299,7 +312,7 @@ def merged_map_weave(lanes, meta, order, rank, row: int):
     Key subtrees are contiguous in Euler order; each key's segment
     starts at its key-root lane.
 
-    ``order`` is a sorted-lane permutation (the reference's v4 route);
+    ``order`` is a sorted-lane permutation (the v4 route);
     ``None`` means the v5 contract — ``rank`` is already indexed by
     concat lane."""
     from ..ids import ROOT_ID, ROOT_NODE
@@ -341,7 +354,7 @@ def map_row_digest(lanes, order, rank, visible):
     """Per-row uint32 digests over the forest lanes, on the host — the
     reference's ``map_row_digest`` bit for bit. ``order=None`` is the
     v5 contract: rank/visible already index concat lanes, and the mix
-    is lane-order-invariant. An ``order`` (the reference's v4 route
+    is lane-order-invariant. An ``order`` (the v4 route
     reports rank/visible per SORTED lane) re-sorts the id lanes first."""
     if order is None:
         hi = np.asarray(lanes["hi"]).astype(np.uint32)
@@ -431,24 +444,19 @@ def merge_map_wave(pairs, kernel: str = "v5", device=None) -> MapWaveResult:
 
     ``kernel``: "v5", the segment-union route (the shared parts of a
     map fleet union at segment granularity, so the union cost scales
-    with divergence). The reference's "v4" full-width route is not
-    ported yet and raises."""
+    with divergence), or "v4", the original full-width forest route."""
     pairs = list(pairs)
     if not pairs:
         raise s.CausalError("Nothing to merge.",
                             {"causes": {"empty-fleet"}})
-    if kernel == "v4":
-        raise NotImplementedError(
-            "merge_map_wave(kernel='v4'): the v4 map route is not ported "
-            "yet (ROADMAP A.14); the default 'v5' route is")
-    if kernel != "v5":
+    if kernel not in ("v5", "v4"):
         raise ValueError(
             f"merge_map_wave kernel must be 'v5' or 'v4', got {kernel!r}")
     from ..obs import span as _span
 
     dev = default_device() if device is None else device
     with _span("mapw.merge_wave", pairs=len(pairs), kernel=kernel):
-        return _merge_map_wave(pairs, dev)
+        return _merge_map_wave(pairs, dev, kernel)
 
 
 def _dispatch_v5(lanes, cap, u, v5b, device):
@@ -460,7 +468,19 @@ def _dispatch_v5(lanes, cap, u, v5b, device):
             overflow.cpu().numpy().astype(bool))
 
 
-def _merge_map_wave(pairs, device) -> MapWaveResult:
+def _dispatch_v4(lanes, device):
+    """One full-width v4 forest dispatch; host numpy ``(order, rank,
+    visible)``. A full-width run budget cannot overflow (a row has no
+    more runs than lanes)."""
+    order, rank, visible, _conflict, overflow = batched_merge_map_weave(
+        lanes, device=device)
+    if bool(overflow.any()):  # pragma: no cover
+        raise s.CausalError("map wave overflowed its run budget",
+                            {"causes": {"token-overflow"}})
+    return order.cpu().numpy(), rank.cpu().numpy(), visible.cpu().numpy()
+
+
+def _merge_map_wave(pairs, device, kernel: str) -> MapWaveResult:
     for a, b in pairs:
         s.check_mergeable(a.ct, b.ct)
         if a.ct.type != s.MAP_TYPE:
@@ -499,20 +519,27 @@ def _merge_map_wave(pairs, device) -> MapWaveResult:
     N = 2 * cap
     lanes, meta_rows = _assemble(live_rows, cap)
 
-    # segment-union route; the overflow flag backstops the sampled
-    # token estimate — double and re-dispatch (the segment marshal is
-    # done once, only the device program re-runs), and rows that STILL
-    # overflow fall back to the host merge per row
-    v5b, u = map_v5_inputs(lanes, cap)
-    for _ in range(3):
-        rank, visible, row_ovf = _dispatch_v5(lanes, cap, u, v5b, device)
-        if not row_ovf.any():
-            break
-        u *= 2
-    live_digest = map_row_digest(lanes, None, rank, visible)
+    if kernel == "v4":
+        order, rank, visible = _dispatch_v4(lanes, device)
+        row_ovf = np.zeros(len(live), bool)
+    else:
+        # segment-union route; the overflow flag backstops the sampled
+        # token estimate — double and re-dispatch (the segment marshal
+        # is done once, only the device program re-runs), and rows that
+        # STILL overflow fall back to the host merge per row
+        order = None
+        v5b, u = map_v5_inputs(lanes, cap)
+        for _ in range(3):
+            rank, visible, row_ovf = _dispatch_v5(lanes, cap, u, v5b,
+                                                  device)
+            if not row_ovf.any():
+                break
+            u *= 2
+    live_digest = map_row_digest(lanes, order, rank, visible)
 
     # expand live rows back to the full index space; overflowed rows
     # carry unspecified ranks — they join the host-merge fallback
+    full_order = None if order is None else np.zeros((B, N), np.int32)
     full_rank = np.full((B, N), N, np.int32)
     full_vis = np.zeros((B, N), bool)
     full_meta = [None] * B
@@ -521,6 +548,8 @@ def _merge_map_wave(pairs, device) -> MapWaveResult:
             a, b = pairs[i]
             fallback[i] = a.merge(b)
             continue
+        if order is not None:
+            full_order[i] = order[j]
         full_rank[i] = rank[j]
         full_vis[i] = visible[j]
         full_meta[i] = meta_rows[j]
@@ -534,5 +563,5 @@ def _merge_map_wave(pairs, device) -> MapWaveResult:
         for k in full_lanes:
             full_lanes[k][i] = lanes[k][j]
     meta_full = {"rows": full_meta, "capacity": cap, "key_rank": krank}
-    return MapWaveResult(pairs, full_lanes, meta_full, None, full_rank,
-                         full_vis, digest, fallback, dig_valid)
+    return MapWaveResult(pairs, full_lanes, meta_full, full_order,
+                         full_rank, full_vis, digest, fallback, dig_valid)

@@ -11,7 +11,8 @@ through the v5 pipeline and the fused v5f pipeline, the handle-level
 map-fleet wave, bases, sync rounds, the quarantined wave, the chaos
 ladder and compaction, a served fleet of 32 tenants behind the
 network transport, the telemetry over those paths and shipped over the
-wire to a collector, and checks that
+wire to a collector, and the older kernel generations (v1-v4) with the
+device weaver's ladder, and checks that
 the kernels really
 carried those paths (launch counts) and that the results are
 bit-identical to the plain path on the card, to each other and to the
@@ -191,7 +192,25 @@ Phases, one line each (times from CUDA events unless named host):
    families. Prints the tick p50 and p99 without and with the uplink,
    the records and bytes shipped and the emit-to-admit lag.
 
-Phases 5-12 each reset or read the launch counts around their runs
+13. the older generations: the north-star batch through the v1, v2, v3,
+   v4 and v4w merge kernels (``torchw``, ``torchw3``, ``torchw4``) at
+   ``pair_run_budget``: each dispatch's launches (3, 3 and 2 B1 sorts;
+   v4 and v4w 2 B1 and one B2), 0 overflowed rows, order, rank,
+   visibility and conflict bit-identical across the five (v1 the oracle)
+   and each to its plain path with every kernel call held against its
+   plain version and timed once a shape (B1's sites with P and form,
+   ``torch.sort`` beside it), each generation's ``merge_wave_scalar``
+   p50 of 3; the ladder: ``weaver="torch"`` handles of a 10,000-node
+   list whose cursor jumps every 3 ops and of a 1,000-member set with
+   every third member discarded (v1: one B1 sort), and of 10 pastes of
+   1,000 whose deleted ends are undeleted later (v5 overflows its
+   tokens, then v4), reweaved and merged with a twin, each equal to the
+   pure weaver's with ``pure_fallbacks`` unchanged; config 6's own map
+   wave through ``merge_map_wave(pairs, "v4")`` (2 B1, one B2), digests
+   and every ``merged(i)`` equal to the v5 route's, bit-identical to its
+   plain path; ``matrix_sort`` on v4's run-sort rows against B1.
+
+Phases 5-13 each reset or read the launch counts around their runs
 (phases 10-12 tick by tick) and read them after: a phase that did
 not launch B1, B2 and B3 fails.
 
@@ -351,17 +370,22 @@ def plain_fns():
 @contextlib.contextmanager
 def plain_path(record=None):
     """Route the kernel sites of the v5 pipeline (``torchw5``: sort, walk,
-    expansion) and of the v5f pipeline (``torchw5f``: the same three and
-    K1, K2, K4) to their plain PyTorch versions (the reference on the
-    card), optionally recording every call's inputs. Restores the kernel
-    wrappers on exit."""
-    from cause_tpu_torch.weaver import torchw5, torchw5f
+    expansion), of the v5f pipeline (``torchw5f``: the same three and
+    K1, K2, K4) and of the older generations (``torchw``, ``torchw3``:
+    sort; ``torchw4``: sort, walk) to their plain PyTorch versions (the
+    reference on the card), optionally recording every call's inputs.
+    Restores the kernel wrappers on exit."""
+    from cause_tpu_torch.weaver import (torchw, torchw3, torchw4, torchw5,
+                                        torchw5f)
 
     plain = plain_fns()
     attr = {"sort": "sort_pairs", "euler_walk": "euler_walk",
             "fphase": "fphase_expand"}
     sites = [(torchw5, attr[n], n) for n in attr]
     sites += [(torchw5f, attr.get(n, n), n) for n in plain]
+    sites += [(torchw, "sort_pairs", "sort"), (torchw3, "sort_pairs", "sort"),
+              (torchw4, "sort_pairs", "sort"),
+              (torchw4, "euler_walk", "euler_walk")]
     saved = [(mod, a, getattr(mod, a)) for mod, a, _ in sites]
 
     def wrap(name):
@@ -407,12 +431,24 @@ def call_bytes(ops, outs) -> int:
 
 def library_fn(torch, ops, num_keys):
     """One ``torch.sort`` call that orders the same rows: stable, on the
-    first key, packed with the second into int64 for two-key sites. The
-    payloads are not moved (the yardstick is the sort alone)."""
+    first key, packed with the second into int64 for two-key sites; for
+    more keys, each key's dense rank over the call (order-preserving)
+    packed into one int64, or None when the ranks need more than 63
+    bits. The payloads are not moved (the yardstick is the sort alone)."""
     if num_keys == 1:
         key = ops[0]
-    else:
+    elif num_keys == 2:
         key = (ops[0].long() << 32) + (ops[1].long() + (1 << 31))
+    else:
+        key = torch.zeros(ops[0].shape, dtype=torch.int64,
+                          device=ops[0].device)
+        bits = 0
+        for k in reversed(ops[:num_keys]):  # least significant first
+            vals, inv = torch.unique(k, sorted=True, return_inverse=True)
+            key += inv.long() << bits
+            bits += max(1, (len(vals) - 1).bit_length())
+        if bits > 63:
+            return None
     return lambda: torch.sort(key, dim=-1, stable=True)
 
 
@@ -459,8 +495,8 @@ def check_call(torch, name, ops, kw, time_it: bool, flags_only=False):
         rec["ms"] = cuda_ms(torch, lambda: run(kern))
         rec["plain_ms"] = cuda_ms(torch, lambda: run(plain))
         if name == "sort":
-            rec["library_ms"] = cuda_ms(
-                torch, library_fn(torch, ops, kw.get("num_keys", 1)))
+            lib = library_fn(torch, ops, kw.get("num_keys", 1))
+            rec["library_ms"] = cuda_ms(torch, lib) if lib else float("nan")
         rec["bound_ms"] = bound_ms(call_bytes(ops, want))
     return rec
 
@@ -986,20 +1022,23 @@ def b1_form(ops, num_keys: int) -> str:
     return f"P={P} {form}"
 
 
-def check_recorded(torch, calls, tag: str) -> dict:
+def check_recorded(torch, calls, tag: str, sites=SORT_SITES,
+                   timed=None) -> dict:
     """Every kernel call a path made (recorded under ``plain_path``)
     against its plain version on the card; the first call of each
-    distinct kernel, shape and keyword set also timed against its plain
-    version and its bound, one line each (a B1 call with its v5 site,
-    its width and its form). Returns the timed calls' sums per
-    kernel."""
-    timed = set()
+    distinct kernel, shape and keyword set (not yet in ``timed``, which
+    the caller may share between paths) also timed against its plain
+    version and its bound, one line each (a B1 call with its site, its
+    width and its form: ``sites`` names a dispatch's sorts in call
+    order, the v5 dispatch's by default). Returns the timed calls' sums
+    per kernel."""
+    timed = set() if timed is None else timed
     per = {}
-    n_sorts = 0
+    n_sorts = n_timed = 0
     for name, ops, kw in calls:
         site = ""
-        if name == "sort":  # a v5 dispatch sorts its six sites in order
-            site = (f" site {SORT_SITES[n_sorts % len(SORT_SITES)]} "
+        if name == "sort":  # a dispatch sorts its sites in order
+            site = (f" site {sites[n_sorts % len(sites)]} "
                     f"{b1_form(ops, kw.get('num_keys', 1))}")
             n_sorts += 1
         key = (name, tuple(tuple(x.shape) for x in ops),
@@ -1012,6 +1051,7 @@ def check_recorded(torch, calls, tag: str) -> dict:
         if key in timed:
             continue
         timed.add(key)
+        n_timed += 1
         tot = per.setdefault(name, {"ms": 0.0, "plain_ms": 0.0,
                                     "bound_ms": 0.0})
         if name == "sort":
@@ -1025,7 +1065,7 @@ def check_recorded(torch, calls, tag: str) -> dict:
             + (f" library_ms {rec['library_ms']:.4f}"
                if name == "sort" else ""))
     say(f"{tag}: {len(calls)} kernel calls, each equal to its plain "
-        f"version on the card ({len(timed)} distinct shapes timed)")
+        f"version on the card ({n_timed} distinct shapes timed)")
     return per
 
 
@@ -3352,6 +3392,338 @@ def phase_wire(torch, dev, card: str, tenants) -> dict:
 # --------------------------------------------------------------- main
 
 
+# ------------------------------------------- 13. the older generations
+
+# phase 13: the north-star pairs through v1-v4 (v1-v3's are cut first
+# when the phase runs long; v4 always takes all of them), the ladder's
+# trees (a list of appends whose cursor jumps every LADDER_JUMP ops; a
+# set of LADDER_SET adds with every third discarded; LADDER_PASTES runs
+# of LADDER_PASTE characters whose deleted ends are undeleted later),
+# and the timed reps of each generation's scalar program
+GEN_PAIRS = 1024
+LADDER_LIST, LADDER_JUMP, LADDER_SET = 10_000, 3, 1_000
+LADDER_PASTES, LADDER_PASTE = 10, 1_000
+GEN_REPS = 3
+# launches of one dispatch of each generation, and its sorts in call
+# order (torchw, torchw3, torchw4)
+GEN_LAUNCHES = {
+    "v1": {"sort": 3}, "v2": {"sort": 3}, "v3": {"sort": 2},
+    "v4": {"sort": 2, "euler_walk": 1}, "v4w": {"sort": 2, "euler_walk": 1},
+}
+GEN_SITES = {
+    "v1": ("v1 id sort", "v1 sort-join", "v1 child sort"),
+    "v2": ("v2 id sort", "v2 sort-join", "v2 run sort"),
+    "v3": ("v3 id sort", "v3 run sort"),
+    "v4": ("v4 id sort", "v4 run sort"),
+    "v4w": ("v4w id sort", "v4w run sort"),
+}
+LADDER_SITE, LADDER_TWIN = "sLADDER000000", "sLADDERTWIN00"
+
+
+def add_sums(total, per) -> None:
+    """Add ``check_recorded``'s per-kernel sums into ``total``."""
+    for kern, v in per.items():
+        tot = total.setdefault(kern, dict.fromkeys(v, 0.0))
+        for k in v:
+            tot[k] += v[k]
+
+
+def ladder_trees():
+    """Phase 13's ladder trees (pure-weaver handles, lazy lists), with
+    the rung the ladder must take: ``{name: (handle, rung)}``. Built as
+    ``tests/test_torch_ladder.py`` builds them, at full size."""
+    import random
+
+    import cause_tpu_torch as ct
+    from cause_tpu_torch.collections import clist as c_list
+
+    def fresh_list():
+        h = c_list.CausalList(c_list.new_causal_tree("pure", lazy=True))
+        return type(h)(h.ct.evolve(site_id=LADDER_SITE,
+                                   uuid="ladderTreeUuid0000000"))
+
+    rng = random.Random(5)
+    h = fresh_list()
+    ids, cursor = [ct.root_id], ct.root_id
+    for i in range(LADDER_LIST):
+        if i and i % LADDER_JUMP == 0:
+            cursor = ids[rng.randrange(len(ids))]
+        h = h.append(cursor, f"v{i}")
+        cursor = (h.ct.lamport_ts, LADDER_SITE, 0)
+        ids.append(cursor)
+    jump = h
+
+    h = ct.cset()
+    h = type(h)(h.ct.evolve(site_id=LADDER_SITE,
+                            uuid="ladderTreeUuid0000000"))
+    for i in range(LADDER_SET):
+        h = h.add(f"m{i}")
+    for i in range(0, LADDER_SET, 3):
+        h = h.discard(f"m{i}")
+    discards = h
+
+    h = fresh_list()
+    prev_hide = None
+    for r in range(LADDER_PASTES):
+        cause = ct.root_id
+        for i in range(LADDER_PASTE):
+            h = h.append(cause, f"r{r}.{i}")
+            cause = (h.ct.lamport_ts, LADDER_SITE, 0)
+        h = h.append(cause, ct.hide)
+        hide = (h.ct.lamport_ts, LADDER_SITE, 0)
+        if prev_hide is not None:
+            h = h.append(prev_hide, ct.h_show)
+        prev_hide = hide
+    return {
+        f"list of {LADDER_LIST} appends, cursor jump every {LADDER_JUMP}":
+            (jump, "v1"),
+        f"set of {LADDER_SET} adds, every third discarded": (discards, "v1"),
+        f"{LADDER_PASTES} pastes of {LADDER_PASTE}, ends undeleted later":
+            (h, "v4"),
+    }
+
+
+def gen_north_star(torch, dev, batch, timed):
+    """Phase 13, step 1: the north-star batch through v1, v2, v3, v4 and
+    v4w on the card: each dispatch's launches, 0 overflowed rows, the
+    five bit-identical (v1 the oracle), each bit-identical to its plain
+    path with every kernel call checked and timed once a shape, and the
+    p50 of each generation's ``merge_wave_scalar``. Returns the phase's
+    launches, ``check_recorded``'s sums and v4's recorded calls."""
+    from cause_tpu_torch import benchgen, kernels
+    from cause_tpu_torch.weaver import torchw, torchw3, torchw4
+
+    tag = "[13 generations]"
+    k_max = benchgen.pair_run_budget(batch)
+    B = batch["hi"].shape[0]
+    cut = min(GEN_PAIRS, B)
+
+    def upload(keys, rows):
+        return [torch.from_numpy(np.ascontiguousarray(batch[k][:rows])).to(
+            dev, dtype=torch.bool if k == "valid" else torch.int32)
+            for k in keys]
+
+    a1 = upload(benchgen.LANE_KEYS, cut)
+    a4 = upload(benchgen.LANE_KEYS4, B)
+    runs = {
+        "v1": (lambda: torchw.batched_merge_weave(*a1, device=dev), a1, 0),
+        "v2": (lambda: torchw.batched_merge_weave_v2(
+            *a1, k_max=k_max, device=dev), a1, k_max),
+        "v3": (lambda: torchw3.batched_merge_weave_v3(
+            *a1, k_max=k_max, device=dev), a1, k_max),
+        "v4": (lambda: torchw4.batched_merge_weave_v4(
+            *a4, k_max=k_max, device=dev), a4, k_max),
+        "v4w": (lambda: torchw4.batched_merge_weave_v4(
+            *a4, k_max=k_max, euler="walk", device=dev), a4, k_max),
+    }
+    counts = {n: 0 for n in kernels.SOURCES}
+    per, outs, v4_calls = {}, {}, []
+    for name, (run, args, _k) in runs.items():
+        with launches_in() as got:
+            out, ms = timed_ms(torch, run)
+        expect_launches(got, GEN_LAUNCHES[name], f"{tag} {name}")
+        for k, v in got.items():
+            counts[k] += v
+        if name != "v1" and bool(out[4].any()):
+            fail(f"{tag} {name}: {int(out[4].sum())} rows overflowed "
+                 f"k_max={k_max}")
+        outs[name] = out[:4]
+        say(f"{tag} {name}: B={args[0].shape[0]} M={args[0].shape[1]} "
+            f"k_max={k_max}: first dispatch {ms:.3f} ms (host clock, "
+            f"synchronized), launches {got}, 0 overflowed rows")
+        calls = []
+        with plain_path(record=calls):
+            ref = run()
+        for nm, g, w in zip(("order", "rank", "visible", "conflict"),
+                            out, ref):
+            if not torch.equal(g, w):
+                fail(f"{tag} {name}: {nm} differs from the plain path")
+        add_sums(per, check_recorded(torch, calls, f"{tag} {name}",
+                                     sites=GEN_SITES[name], timed=timed))
+        if name == "v4":
+            v4_calls = calls
+        del ref, calls
+    for name in ("v2", "v3", "v4", "v4w"):
+        for nm, g, w in zip(("order", "rank", "visible", "conflict"),
+                            outs[name], outs["v1"]):
+            if not torch.equal(g[:cut], w):
+                fail(f"{tag} {name}: {nm} differs from v1's")
+    say(f"{tag} order, rank, visible and conflict bit-identical across v1, "
+        f"v2, v3, v4 and v4w (first {cut} rows) and each to its plain path "
+        f"on the card; conflicts {int(outs['v1'][3].sum())}")
+    del outs
+
+    # each generation's timed program: the scalar, p50 of GEN_REPS
+    for name, (_run, args, k) in runs.items():
+        def scalar():
+            return benchgen.merge_wave_scalar(
+                *args, k_max=k, kernel=name, device=dev).cpu()
+        val = scalar()  # warm
+        times = [timed_ms(torch, scalar)[1] for _ in range(GEN_REPS)]
+        say(f"{tag} merge_wave_scalar {name} at B={args[0].shape[0]}: "
+            f"p50 {float(np.median(times)):.3f} ms "
+            f"({[round(t, 3) for t in times]}; host clock, synchronized), "
+            f"value {val.tolist()}")
+    if cut < B:
+        say(f"{tag} CUT: v1-v3 ran {cut} of {B} pairs (GEN_PAIRS) to keep "
+            f"the phase near 60 s; v4 and v4w ran all {B}")
+    return counts, per, v4_calls
+
+
+def gen_ladder(torch, timed):
+    """Phase 13, step 2: the ladder's trees as ``weaver="torch"``
+    handles on the card: the reweave and the merge with a twin each take
+    the rung the tree needs (launches: v1 one B1 sort, v4 v5's 6/1/1
+    then 2/1/0), equal the pure weaver's weave and merge, and leave
+    ``pure_fallbacks`` where it was; the reweave again on the plain path,
+    every kernel call of it checked and timed once a shape. Returns the
+    launches and ``check_recorded``'s sums."""
+    from cause_tpu_torch.collections import clist as c_list
+    from cause_tpu_torch.weaver import torchw
+
+    tag = "[13 ladder]"
+    want_launches = {"v1": {"sort": 1},
+                     "v4": {"sort": 8, "euler_walk": 2, "fphase": 1}}
+    sites = {"v1": ("ladder v1 child sort",),
+             "v4": SORT_SITES + ("ladder v4 id sort", "ladder v4 run sort")}
+    counts, per = {}, {}
+    t0 = time.perf_counter()
+    trees = ladder_trees()
+    say(f"{tag} {len(trees)} trees built in {time.perf_counter() - t0:.1f} "
+        f"s (host clock)")
+    fallbacks0 = torchw.pure_fallbacks
+    for name, (h, rung) in trees.items():
+        t0 = time.perf_counter()
+        pure_ct = c_list.weave(h.ct.evolve(weaver="pure", lazy_weave=False))
+        pure = type(h)(pure_ct)
+        twin = type(h)(pure_ct.evolve(site_id=LADDER_TWIN))
+        twin = twin.add("twin") if hasattr(twin, "add") else \
+            twin.conj("twin")
+        want_m = pure.merge(twin)
+        pure_s = time.perf_counter() - t0
+        with launches_in() as got:
+            woven, rw_ms = timed_ms(torch, lambda: torchw.refresh_list_weave(
+                h.ct.evolve(weaver="torch", lazy_weave=False)))
+        expect_launches(got, want_launches[rung], f"{tag} {name} reweave")
+        if woven.weave != pure_ct.weave:
+            fail(f"{tag} {name}: the device reweave differs from the pure "
+                 f"weave")
+        a = type(h)(pure_ct.evolve(weaver="torch"))
+        b = type(h)(twin.ct.evolve(weaver="torch"))
+        with launches_in() as got_m:
+            merged, mg_ms = timed_ms(torch, lambda: a.merge(b))
+        expect_launches(got_m, want_launches[rung], f"{tag} {name} merge")
+        if merged.get_weave() != want_m.get_weave() \
+                or merged.causal_to_edn() != want_m.causal_to_edn():
+            fail(f"{tag} {name}: the device merge differs from the pure "
+                 f"merge")
+        for k in set(got) | set(got_m):
+            counts[k] = counts.get(k, 0) + got.get(k, 0) + got_m.get(k, 0)
+        calls = []
+        with plain_path(record=calls):
+            woven_p = torchw.refresh_list_weave(
+                h.ct.evolve(weaver="torch", lazy_weave=False))
+        if woven_p.weave != woven.weave:
+            fail(f"{tag} {name}: the reweave differs from the plain path")
+        add_sums(per, check_recorded(torch, calls, f"{tag} {name}",
+                                     sites=sites[rung], timed=timed))
+        say(f"{tag} {name}: {len(h.ct.nodes)} nodes, rung {rung}; reweave "
+            f"{rw_ms:.3f} ms, merge with a twin {mg_ms:.3f} ms (host clock, "
+            f"synchronized), launches {got} each; both equal the pure "
+            f"weaver's ({pure_s:.1f} s on the host)")
+    if torchw.pure_fallbacks != fallbacks0:
+        fail(f"{tag} a tree went to the pure weaver")
+    say(f"{tag} 0 trees to the pure weaver")
+    return counts, per
+
+
+def gen_map_v4(torch, dev, timed):
+    """Phase 13, step 3: config 6's own map wave through the v4 route:
+    launches a dispatch, ``merged(i)`` and digests equal to the v5
+    route's, the plain path bit-identical with every kernel call checked
+    and timed, the wave's p50."""
+    import cause_tpu_torch as ct
+
+    tag = "[13 maps v4]"
+    _base, pairs = map_fleet(MAP_SMALL, 24, 1, 12, 4, 0)
+    res5 = ct.merge_map_wave(pairs, device=dev)
+    with launches_in() as got:
+        res4, ms = timed_ms(torch, lambda: ct.merge_map_wave(
+            pairs, "v4", device=dev))
+    expect_launches(got, {"sort": 2, "euler_walk": 1}, f"{tag} wave")
+    if res4.fallback or not res4.digest_valid.all():
+        fail(f"{tag} rows to the host merge: {res4.fallback}")
+    if not np.array_equal(res4.digest, res5.digest):
+        fail(f"{tag} digests differ from the v5 route's")
+    for i in range(len(pairs)):
+        if res4.merged(i).ct.weave != res5.merged(i).ct.weave:
+            fail(f"{tag} merged({i}) differs from the v5 route's")
+    calls = []
+    with plain_path(record=calls):
+        res_p = ct.merge_map_wave(pairs, "v4", device=dev)
+    for nm, g, w in (("order", res4._order, res_p._order),
+                     ("rank", res4._rank, res_p._rank),
+                     ("visible", res4._visible, res_p._visible),
+                     ("digest", res4.digest, res_p.digest)):
+        if not np.array_equal(g, w):
+            fail(f"{tag} {nm} differs from the plain path")
+    per = check_recorded(torch, calls, tag,
+                         sites=("map v4 id sort", "map v4 run sort"),
+                         timed=timed)
+    times = [timed_ms(torch, lambda: ct.merge_map_wave(
+        pairs, "v4", device=dev))[1] for _ in range(GEN_REPS)]
+    N = res4._rank.shape[1]
+    say(f"{tag} {len(pairs)} pairs, N={N} lanes a row, k_max={N}: first "
+        f"wave {ms:.3f} ms, p50 {float(np.median(times)):.3f} ms "
+        f"({[round(t, 3) for t in times]}; host clock, synchronized), "
+        f"launches {got}; digests and all {len(pairs)} merged(i) equal the "
+        f"v5 route's")
+    return got, per
+
+
+def gen_matrix_sort(torch, v4_calls):
+    """Phase 13, step 4: ``matrix_sort`` on the card on v4's recorded
+    contracted-sort rows, against B1 on the same rows."""
+    from cause_tpu_torch.weaver.bitonic import sort_pairs_cuda
+    from cause_tpu_torch.weaver.matsort import matrix_sort
+
+    sorts = [(ops, kw) for name, ops, kw in v4_calls if name == "sort"]
+    ops, kw = sorts[-1]  # the run sort, after the id sort
+    got = matrix_sort(ops, **kw)
+    want = sort_pairs_cuda(ops, **kw)
+    err = max_err(torch, got, want)
+    if err:
+        fail(f"[13 matrix_sort] differs from B1 (max_abs_err {err})")
+    ms = cuda_ms(torch, lambda: matrix_sort(ops, **kw), reps=3, warm=1)
+    say(f"[13 matrix_sort] v4 run-sort rows {tuple(ops[0].shape)} "
+        f"n_ops={len(ops)} {kw}: equal to B1 (max_abs_err 0), {ms:.4f} ms "
+        f"(CUDA events, mean of 3)")
+
+
+def phase_generations(torch, dev, card: str, batch) -> tuple:
+    """Phase 13: the older weaver generations (v1-v4), the ladder, the
+    v4 map route and ``matrix_sort`` on the card. Returns the phase's
+    launches and ``check_recorded``'s per-kernel sums."""
+    from cause_tpu_torch import kernels
+
+    t_phase = time.perf_counter()
+    timed = set()
+    counts, per, v4_calls = gen_north_star(torch, dev, batch, timed)
+    for got, step_per in (gen_ladder(torch, timed),
+                          gen_map_v4(torch, dev, timed)):
+        for k, v in got.items():
+            counts[k] += v
+        add_sums(per, step_per)
+    gen_matrix_sort(torch, v4_calls)
+    del v4_calls
+    expect_launches(counts, ("sort", "euler_walk", "fphase"),
+                    "[13 generations]")
+    say(f"[13 generations] launches over the phase {counts}; kernels at "
+        f"the phase's distinct shapes: {kernel_sums_line(per)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s (host clock); {card}")
+    return {n: counts.get(n, 0) for n in kernels.SOURCES}, per
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -3684,6 +4056,10 @@ def main() -> int:
     wire_counts = phase_wire(torch, dev, card, tenants)
     del tenants
 
+    # ------------------------------------------------ 13. generations
+    gen_counts, gen_per = phase_generations(torch, dev, card, batch)
+    del batch
+
     # ------------------------------------------------ result
     recs = []
     for name in kernels.SOURCES:
@@ -3715,6 +4091,15 @@ def main() -> int:
             # phase 12's shipped wire round (the served fleet's round
             # over the sockets with telemetry on, shipped to a collector)
             "wire_launches": wire_counts[name],
+            # phase 13's runs (v1-v4 at the north star, the ladder's
+            # reweaves and merges, the v4 map wave), and its calls'
+            # kernel time at their own shapes
+            "generations_launches": gen_counts[name],
+            "generations_ms": gen_per.get(name, {}).get("ms"),
+            "generations_plain_ms": gen_per.get(name, {}).get("plain_ms"),
+            "generations_bound_ms": gen_per.get(name, {}).get("bound_ms"),
+            "generations_library_ms": gen_per.get(name, {}).get(
+                "library_ms"),
         })
     say(f"total {time.perf_counter() - t_start:.1f} s (host clock)")
     print(card, flush=True)

@@ -144,15 +144,22 @@ def test_merge_wave_matches_jax_and_port_pure(on_cpu):
     assert twin.digest[0] == twin.digest[1]
 
 
-def test_tree_outside_v5_budget_goes_to_pure_weaver(on_cpu):
-    """A small tree with more segments than the v5 table budget is woven
-    by the pure weaver (the v4/v2/v1 rungs are not ported), counted in
-    ``pure_fallbacks``, and still equals the JAX package's weave."""
+def test_tree_outside_v5_budget_takes_the_device_ladder(on_cpu,
+                                                       monkeypatch):
+    """A small tree with more segments than the v5 table budget skips the
+    v5 rung and is woven on the device by a lower rung of the ladder
+    (here v1: its runs exceed v4's budget too), with ``pure_fallbacks``
+    unchanged, equal to the JAX package's weave."""
     jreps = replay(c, JList, 0, n_ops=40, n_base=(2, 3))
     treps = replay(ct, TList, 0, n_ops=40, n_base=(2, 3))
+    calls = []
+    real = torchw._linearize
+    monkeypatch.setattr(torchw, "_linearize",
+                        lambda *a: calls.append(1) or real(*a))
     before = torchw.pure_fallbacks
     got = to_torch(treps[0]).merge(to_torch(treps[1]))
-    assert torchw.pure_fallbacks == before + 1
+    assert torchw.pure_fallbacks == before
+    assert calls == [1]
     want = jreps[0].merge(jreps[1])
     assert same(got, want)
 

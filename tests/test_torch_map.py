@@ -9,9 +9,9 @@ reference runs its v5 kernel on the CPU as its own tests do; the port's
 kernels run through their plain versions. Merged weaves are also held
 against the port's pure weaver.
 
-Mirrors ``tests/test_mapw.py`` (the v5 route; the v4 and sharded routes
-raise until ROADMAP A.14/A.15), all of ``tests/test_map.py`` (over the
-pure and torch weavers) and the map cases of ``tests/test_serde.py``.
+Mirrors ``tests/test_mapw.py`` (the v5 and v4 routes; the sharded routes
+raise until ROADMAP A.15), all of ``tests/test_map.py`` (over the pure
+and torch weavers) and the map cases of ``tests/test_serde.py``.
 """
 
 import json
@@ -319,11 +319,48 @@ def test_v5_route_digest_convergence():
     assert np.array_equal(*digests)
 
 
+@pytest.mark.parametrize("n_pairs, n_keys, edits, seed, call", [
+    (8, 5, 5, 21, "positional"), (5, 4, 3, 33, "keyword"),
+    (6, 6, 4, 7, "keyword"), (5, 3, 6, 11, "batched"),
+    (4, 2, 8, 3, "batched")])
+def test_v4_route_matches_reference_and_v5_route(n_pairs, n_keys, edits,
+                                                 seed, call):
+    """The full-width v4 forest route: ``merge_map_wave(kernel="v4")``
+    (positional or keyword) and ``batched_merge_map_weave`` give the
+    reference's order, ranks, visibility and digests, and the v5 route's
+    merged weaves and digests (``test_mapw.py``'s
+    ``test_map_fuzz_batched_parity`` and the v4 half of
+    ``test_v5_route_matches_pure_and_v4``)."""
+    tp = make_pairs(ct, n_pairs, n_keys=n_keys, edits=edits, seed=seed)
+    jp = make_pairs(c, n_pairs, n_keys=n_keys, edits=edits, seed=seed)
+    if call == "batched":
+        lanes, meta = t_mapw.pair_rows(pair_nodes(tp))
+        jlanes, _ = j_mapw.pair_rows(pair_nodes(jp))
+        got = t_mapw.batched_merge_map_weave(lanes)
+        want = j_mapw.batched_merge_map_weave(jlanes)
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy(), np.asarray(w))
+        assert not got[4].any()
+        order, rank = got[0].numpy(), got[1].numpy()
+        for i, (a, b) in enumerate(tp):
+            weave = t_mapw.merged_map_weave(lanes, meta, order, rank, i)
+            assert weave == pure_merge(a, b).ct.weave, i
+        return
+    res4 = (t_mapw.merge_map_wave(tp, "v4") if call == "positional"
+            else t_mapw.merge_map_wave(tp, kernel="v4"))
+    res5 = t_mapw.merge_map_wave(tp)
+    ref4 = j_mapw.merge_map_wave(jp, kernel="v4")
+    assert res4.fallback == [] and res4.digest_valid.all()
+    assert np.array_equal(res4.digest, ref4.digest)
+    assert np.array_equal(res4.digest, res5.digest)
+    for i, (a, b) in enumerate(tp):
+        ref = pure_merge(a, b)
+        assert res4.merged(i).ct.weave == ref.ct.weave, i
+        assert res4.merged(i).ct.weave == res5.merged(i).ct.weave, i
+        assert res4.merged(i).causal_to_edn() == ref.causal_to_edn()
+
+
 @pytest.mark.parametrize("call, item", [
-    (lambda p: t_mapw.merge_map_wave(p, "v4"), "A.14"),
-    (lambda p: t_mapw.merge_map_wave(p, kernel="v4"), "A.14"),
-    (lambda p: t_mapw.batched_merge_map_weave(
-        t_mapw.pair_rows(pair_nodes(p))[0]), "A.14"),
     (lambda p: t_mapw.sharded_merge_map_weave(
         None, t_mapw.pair_rows(pair_nodes(p))[0]), "A.15"),
     (lambda p: t_mapw.sharded_merge_map_weave_v5(
