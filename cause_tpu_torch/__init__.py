@@ -45,7 +45,6 @@ handle-level paths run on the package default, which only
 
 from __future__ import annotations
 
-from .benchgen import LANE_KEYS5, lanes_from_numpy
 from .cbase import (
     CausalBase,
     Ref,
@@ -58,7 +57,6 @@ from .collections.clist import CausalList, new_causal_list
 from .collections.cmap import CausalMap, new_causal_map
 from .collections.cset import CausalSet, new_causal_set
 from .collections.shared import CausalError, CausalTree, causal_to_edn
-from .device import default_device, resolve_device, use_device
 from .ids import (
     H_HIDE,
     H_SHOW,
@@ -72,15 +70,50 @@ from .ids import (
     new_uid,
     node,
 )
-from .parallel.session import FleetSession
-from .parallel.tree import flat_fold, merge_tree, merge_tree_report
-from .parallel.wave import WaveBuffers, WaveResult, merge_wave
-from .weaver.mapw import MapWaveResult, merge_map_wave
-from .weaver.torchw5 import batched_merge_weave_v5
-from .weaver.torchw5f import batched_merge_weave_v5f
-from .weaver.torchwd import batched_delta_weave, batched_weave_digest
 
 __version__ = "0.1.0"
+
+# The device names, each by the module that holds it. They resolve on
+# first use (``__getattr__`` below), so ``import cause_tpu_torch`` and
+# its host names (bases, collections, ids, serde, sync, gc) load
+# neither torch nor numpy: the analyser's CLI runs where neither is
+# installed.
+_DEVICE_NAMES = {
+    "LANE_KEYS5": "benchgen",
+    "lanes_from_numpy": "benchgen",
+    "default_device": "device",
+    "resolve_device": "device",
+    "use_device": "device",
+    "FleetSession": "parallel.session",
+    "flat_fold": "parallel.tree",
+    "merge_tree": "parallel.tree",
+    "merge_tree_report": "parallel.tree",
+    "WaveBuffers": "parallel.wave",
+    "WaveResult": "parallel.wave",
+    "merge_wave": "parallel.wave",
+    "MapWaveResult": "weaver.mapw",
+    "merge_map_wave": "weaver.mapw",
+    "batched_merge_weave_v5": "weaver.torchw5",
+    "batched_merge_weave_v5f": "weaver.torchw5f",
+    "batched_delta_weave": "weaver.torchwd",
+    "batched_weave_digest": "weaver.torchwd",
+}
+
+
+def __getattr__(name):
+    mod = _DEVICE_NAMES.get(name)
+    if mod is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(f".{mod}", __name__), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_DEVICE_NAMES))
 
 # Special values have special effects on causal collections. Specials
 # do not compose: applying hide to a hide is not a show (core.cljc:13-14).

@@ -67,18 +67,20 @@ V5_BOOL_KEYS = frozenset({"valid", "sg_dense", "sg_tail_special",
                           "sg_valid"})
 
 
-def lanes_from_numpy(lanes: Dict[str, np.ndarray], device="cuda") -> dict:
-    """The ``LANE_KEYS5`` numpy batch (``batched_v5_inputs``) as the
-    port's tensors on ``device``, with dtypes fixed: int32 for ids,
-    causes, classes, segment ids and tables, bool for the valid and
-    dense flags."""
+def lanes_from_numpy(lanes: Dict[str, np.ndarray], device="cuda",
+                     keys=LANE_KEYS5) -> dict:
+    """The ``keys`` lanes of a numpy batch (by default the ``LANE_KEYS5``
+    lanes of ``batched_v5_inputs``; ``LANE_KEYS`` or ``LANE_KEYS4`` of
+    ``batched_pair_lanes`` for v1-v4) as the port's tensors on
+    ``device``, with dtypes fixed: int32 for ids, causes, classes,
+    segment ids and tables, bool for the valid and dense flags."""
     import torch
 
     from .device import resolve_device
 
     dev = resolve_device(device)
     out = {}
-    for k in LANE_KEYS5:
+    for k in keys:
         dt = torch.bool if k in V5_BOOL_KEYS else torch.int32
         arr = np.ascontiguousarray(lanes[k])
         out[k] = torch.from_numpy(arr).to(device=dev, dtype=dt)

@@ -180,6 +180,7 @@ def library(name: str) -> ctypes.CDLL:
             # it runs under the devprof.compile span
             with obs.span("devprof.compile", kernels=len(SOURCES),
                           library=source_hash() if obs.enabled() else ""):
+                # causelint: disable-next-line=LCK003 -- one-time nvcc build under the init lock IS the design: double-checked init (two threads must not run nvcc into the same _build/ files), every later caller takes the fast path above the lock
                 for n, p in build_all().items():
                     if n not in _LIBS:
                         _LIBS[n] = load(p)

@@ -72,8 +72,7 @@ def lib() -> Optional[ctypes.CDLL]:
         with _lock:
             if _lib is None and not _build_failed:
                 try:
-                    # one-time lazy build under the init lock: double-
-                    # checked, every later caller takes the fast path
+                    # causelint: disable-next-line=LCK003 -- one-time lazy cc build under the init lock IS the design: double-checked init, every later caller takes the fast path above the lock
                     _lib = _build()
                 except (OSError, subprocess.CalledProcessError) as e:
                     _build_failed = True

@@ -667,6 +667,7 @@ class SyncService:
             manifest = json.load(f)
         if not (isinstance(manifest, dict)
                 and manifest.get("~serve_manifest") == MANIFEST_VERSION):
+            # causelint: disable-next-line=EVD001 -- restore() runs pre-stream at process start; the raise reaches the operator directly and there is no obs stream to evidence into yet
             raise s.CausalError(
                 "not a serve manifest (or unknown version)",
                 {"causes": {"checkpoint-mismatch"}})

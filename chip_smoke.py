@@ -11,8 +11,8 @@ through the v5 pipeline and the fused v5f pipeline, the handle-level
 map-fleet wave, bases, sync rounds, the quarantined wave, the chaos
 ladder and compaction, a served fleet of 32 tenants behind the
 network transport, the telemetry over those paths and shipped over the
-wire to a collector, and the older kernel generations (v1-v4) with the
-device weaver's ladder, and checks that
+wire to a collector, the older kernel generations (v1-v4) with the
+device weaver's ladder, and the benchmark CLI, and checks that
 the kernels really
 carried those paths (launch counts) and that the results are
 bit-identical to the plain path on the card, to each other and to the
@@ -209,8 +209,19 @@ Phases, one line each (times from CUDA events unless named host):
    wave through ``merge_map_wave(pairs, "v4")`` (2 B1, one B2), digests
    and every ``merged(i)`` equal to the v5 route's, bit-identical to its
    plain path; ``matrix_sort`` on v4's run-sort rows against B1.
+14. the benchmark CLI: ``python -m cause_tpu_torch.benchmarks`` in a
+   subprocess at its defaults (exit 0, one JSON record a line with the
+   reference's keys, configs 1-4 under ``pure`` and ``native`` or its
+   skip record, config 1's bulk and lazy rows, config 5 ``torch-v4``,
+   config 6 ``torch-v5`` and ``torch-v4``); config 5 in-process at the
+   north star through v5 and v4 (launches of each step: 6/1/1 and 2/1/0;
+   every step's ``[checksum, overflowed]`` equal to the plain path's on
+   the card, 0 overflowed rows, every kernel call of the plain step held
+   against its plain version and timed), its reported ms beside phase
+   3's and phase 13's p50s; ``--profile`` on config 5 (v4, and v5),
+   whose torch.profiler traces name B1 and B2 (and B3).
 
-Phases 5-13 each reset or read the launch counts around their runs
+Phases 5-14 each reset or read the launch counts around their runs
 (phases 10-12 tick by tick) and read them after: a phase that did
 not launch B1, B2 and B3 fails.
 
@@ -3489,7 +3500,8 @@ def gen_north_star(torch, dev, batch, timed):
     five bit-identical (v1 the oracle), each bit-identical to its plain
     path with every kernel call checked and timed once a shape, and the
     p50 of each generation's ``merge_wave_scalar``. Returns the phase's
-    launches, ``check_recorded``'s sums and v4's recorded calls."""
+    launches, ``check_recorded``'s sums, v4's recorded calls and the
+    scalar p50s (ms, host clock) by generation."""
     from cause_tpu_torch import benchgen, kernels
     from cause_tpu_torch.weaver import torchw, torchw3, torchw4
 
@@ -3554,12 +3566,14 @@ def gen_north_star(torch, dev, batch, timed):
     del outs
 
     # each generation's timed program: the scalar, p50 of GEN_REPS
+    p50s = {}
     for name, (_run, args, k) in runs.items():
         def scalar():
             return benchgen.merge_wave_scalar(
                 *args, k_max=k, kernel=name, device=dev).cpu()
         val = scalar()  # warm
         times = [timed_ms(torch, scalar)[1] for _ in range(GEN_REPS)]
+        p50s[name] = float(np.median(times))
         say(f"{tag} merge_wave_scalar {name} at B={args[0].shape[0]}: "
             f"p50 {float(np.median(times)):.3f} ms "
             f"({[round(t, 3) for t in times]}; host clock, synchronized), "
@@ -3567,7 +3581,7 @@ def gen_north_star(torch, dev, batch, timed):
     if cut < B:
         say(f"{tag} CUT: v1-v3 ran {cut} of {B} pairs (GEN_PAIRS) to keep "
             f"the phase near 60 s; v4 and v4w ran all {B}")
-    return counts, per, v4_calls
+    return counts, per, v4_calls, p50s
 
 
 def gen_ladder(torch, timed):
@@ -3703,12 +3717,13 @@ def gen_matrix_sort(torch, v4_calls):
 def phase_generations(torch, dev, card: str, batch) -> tuple:
     """Phase 13: the older weaver generations (v1-v4), the ladder, the
     v4 map route and ``matrix_sort`` on the card. Returns the phase's
-    launches and ``check_recorded``'s per-kernel sums."""
+    launches, ``check_recorded``'s per-kernel sums and each generation's
+    ``merge_wave_scalar`` p50."""
     from cause_tpu_torch import kernels
 
     t_phase = time.perf_counter()
     timed = set()
-    counts, per, v4_calls = gen_north_star(torch, dev, batch, timed)
+    counts, per, v4_calls, p50s = gen_north_star(torch, dev, batch, timed)
     for got, step_per in (gen_ladder(torch, timed),
                           gen_map_v4(torch, dev, timed)):
         for k, v in got.items():
@@ -3721,7 +3736,208 @@ def phase_generations(torch, dev, card: str, batch) -> tuple:
     say(f"[13 generations] launches over the phase {counts}; kernels at "
         f"the phase's distinct shapes: {kernel_sums_line(per)}; phase "
         f"{time.perf_counter() - t_phase:.1f} s (host clock); {card}")
-    return {n: counts.get(n, 0) for n in kernels.SOURCES}, per
+    return {n: counts.get(n, 0) for n in kernels.SOURCES}, per, p50s
+
+
+# ------------------------------------------- 14. the benchmark CLI
+
+# phase 14: config 5's timed reps at the north star (each run is one
+# warm step and BENCH_REPS timed ones), the CLI's own time limit, and the
+# keys of a benchmark record and of the native skip record
+BENCH_REPS = 3
+BENCH_CLI_TIMEOUT = 600
+BENCH_KEYS = {"config", "metric", "weaver", "value", "unit"}
+BENCH_SKIP_KEYS = {"config", "weaver", "skipped"}
+# the B1-B3 kernels' names in a torch.profiler trace (csrc/)
+BENCH_KERNEL_NAMES = {"sort": "sort_rows_", "euler_walk": "euler_walk_kernel",
+                      "fphase": "fphase_row_kernel"}
+# launches of one config-5 step of each kernel, and its sorts in order
+BENCH_LAUNCHES = {"v5": V5_LAUNCHES, "v4": GEN_LAUNCHES["v4"]}
+BENCH_SITES = {"v5": SORT_SITES, "v4": GEN_SITES["v4"]}
+
+
+def bench_cli() -> list:
+    """Phase 14, step (a): ``python -m cause_tpu_torch.benchmarks`` in a
+    subprocess with every config at its defaults: exit 0, one JSON
+    record a line with the reference's keys, configs 1-4 under ``pure``
+    and ``native`` (or native's skip record), config 1's bulk and lazy
+    rows, one config 5 row (``torch-v4``) and config 6's two
+    (``torch-v5``, ``torch-v4``). Returns the records."""
+    tag = "[14 benchmarks cli]"
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "cause_tpu_torch.benchmarks"], cwd=root,
+        capture_output=True, text=True, timeout=BENCH_CLI_TIMEOUT)
+    secs = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"{tag} exited {out.returncode}: {out.stderr[-2000:]}")
+    recs = bench_cli_rows(out.stdout)
+    say(f"{tag} {len(recs)} records, each with the reference's keys; "
+        f"configs 1-4 under pure and native (or its skip record), config "
+        f"1's bulk and lazy rows, config 5 torch-v4, config 6 torch-v5 and "
+        f"torch-v4; {secs:.1f} s (host clock, the subprocess's start "
+        f"included)")
+    return recs
+
+
+def bench_cli_rows(stdout: str) -> list:
+    """The CLI's records from its output, each checked: one JSON object
+    a line with the reference's keys, and the rows ``bench_cli`` names,
+    in the CLI's order."""
+    tag = "[14 benchmarks cli]"
+    recs = []
+    for line in stdout.strip().splitlines():
+        try:
+            rec = json.loads(line)
+        except json.JSONDecodeError:
+            fail(f"{tag} a line is not JSON: {line!r}")
+        if set(rec) not in (BENCH_KEYS, BENCH_SKIP_KEYS):
+            fail(f"{tag} a record's keys {sorted(rec)} are not the "
+                 f"reference's")
+        recs.append(rec)
+        say(f"{tag} {json.dumps(rec)}")
+    rows = [(r["config"], r["weaver"], r.get("metric", "skipped").split(
+        " x")[0].split(",")[0]) for r in recs]
+    native_skipped = any("skipped" in r for r in recs)
+    want = []
+    for num in (1, 2, 3, 4):
+        for w in ("pure", "native"):
+            if w == "native" and native_skipped:
+                want.append((num, w, "skipped"))
+                continue
+            name = {1: "append-only conj", 2: "3-site concurrent insert+hide",
+                    3: "map overwrite+undo/redo",
+                    4: "base rich-text doc"}[num]
+            want.append((num, w, name))
+            if num == 1:
+                want.append((1, w, "bulk extend"))
+        if num == 1:
+            want.append((1, "lazy+native" if not native_skipped
+                         else "lazy+torch", "lazy conj"))
+    want += [(5, "torch-v4", "batched merge"),
+             (6, "torch-v5", "map fleet wave"),
+             (6, "torch-v4", "map fleet wave")]
+    if rows != want:
+        fail(f"{tag} rows {rows}, expected {want}")
+    if any(r.get("value", 1) <= 0 for r in recs):
+        fail(f"{tag} a record's value is not positive")
+    return recs
+
+
+def bench_north_star(torch, dev, kernel: str, timed) -> tuple:
+    """Phase 14, step (b): config 5 in-process at the north star (1,024
+    pairs of 10,000-node lists) with ``kernel``: the launches of each
+    step (a warm step and ``BENCH_REPS`` timed), every step's
+    ``[checksum, overflowed]`` equal to one plain-path step on the card
+    with 0 overflowed rows, and every kernel call of that plain step
+    held against its plain version. Returns (record, launches, the
+    per-kernel sums of ``check_recorded``)."""
+    from cause_tpu_torch import benchgen, benchmarks
+
+    tag = f"[14 benchmarks config 5 {kernel}]"
+    steps = []
+    real = benchgen.merge_wave_scalar
+
+    def recorded(*args, **kw):
+        out = real(*args, **kw)
+        steps.append((args, kw, out.clone()))
+        return out
+
+    benchgen.merge_wave_scalar = recorded
+    try:
+        with launches_in() as got:
+            rec = benchmarks.config5_batched_merge(
+                n_replicas=PAIRS, n_base=N_BASE, n_div=N_DIV, cap=CAP,
+                reps=BENCH_REPS, kernel=kernel, device=dev)
+    finally:
+        benchgen.merge_wave_scalar = real
+    n = 1 + BENCH_REPS
+    if len(steps) != n:
+        fail(f"{tag} {len(steps)} steps, expected {n}")
+    expect_launches(got, {k: v * n for k, v in
+                          BENCH_LAUNCHES[kernel].items()},
+                    f"{tag} {n} steps")
+    args, kw, _out = steps[0]
+    calls = []
+    with plain_path(record=calls):
+        want = real(*args, **kw)
+    torch.cuda.synchronize()
+    for i, (_a, _k, out) in enumerate(steps):
+        if not torch.equal(out, want):
+            fail(f"{tag} step {i}'s [checksum, overflowed] "
+                 f"{out.tolist()} differs from the plain path's "
+                 f"{want.tolist()}")
+    if int(want[1]) != 0:
+        fail(f"{tag} {int(want[1])} rows overflowed")
+    per = check_recorded(torch, calls, tag, sites=BENCH_SITES[kernel],
+                         timed=timed)
+    B, M = args[0].shape
+    say(f"{tag} B={B} M={M} k_max={kw['k_max']} u_max={kw['u_max']}: "
+        f"{n} steps, launches {got} ({BENCH_LAUNCHES[kernel]} a step); "
+        f"every step's [checksum, overflowed] {want.tolist()} equals the "
+        f"plain path's on the card (exact), 0 overflowed rows; reported "
+        f"{rec['value']:.3f} ms ({rec['weaver']}, best of {BENCH_REPS}, "
+        f"host clock, the copy to the host included)")
+    return rec, got, per
+
+
+def bench_profile(torch) -> None:
+    """Phase 14, step (c): ``--profile DIR`` on config 5 (the CLI's v4)
+    and on config 5 with ``kernel="v5"`` at the CLI's default size: each
+    writes a torch.profiler trace, and the kernels of its path appear in
+    it by name (B1 and B2; B1, B2 and B3)."""
+    import tempfile
+
+    from cause_tpu_torch import benchmarks
+
+    tag = "[14 benchmarks profile]"
+    with tempfile.TemporaryDirectory() as tmp:
+        benchmarks.main(["-c", "5", "--profile", os.path.join(tmp, "v4")])
+        benchmarks.config5_batched_merge(
+            kernel="v5", profile_dir=os.path.join(tmp, "v5"))
+        for kernel, want in (("v4", ("sort", "euler_walk")),
+                             ("v5", ("sort", "euler_walk", "fphase"))):
+            trace = os.path.join(tmp, kernel, "config5.json")
+            with open(trace) as f:
+                names = [e["name"] for e in json.load(f)["traceEvents"]
+                         if e.get("cat") == "kernel"]
+            seen = {k: sum(BENCH_KERNEL_NAMES[k] in nm for nm in names)
+                    for k in want}
+            if not all(seen.values()):
+                fail(f"{tag} config 5 {kernel}'s trace lacks a kernel of "
+                     f"its path: {seen}")
+            say(f"{tag} config 5 {kernel}: the trace holds {len(names)} "
+                f"device kernels; of the port's, by name: {seen}")
+
+
+def phase_benchmarks(torch, dev, card: str, k_p50: float,
+                     gen_p50: dict) -> tuple:
+    """Phase 14: the benchmark CLI in a subprocess, config 5 at the north
+    star through v5 and v4 (its reported ms beside phase 3's dispatch
+    p50 ``k_p50`` and phase 13's scalar p50s ``gen_p50``), and
+    ``--profile``. Returns the phase's launches (step b) and
+    ``check_recorded``'s per-kernel sums."""
+    from cause_tpu_torch import kernels
+
+    t_phase = time.perf_counter()
+    bench_cli()
+    timed, counts, per = set(), {n: 0 for n in kernels.SOURCES}, {}
+    for kernel in ("v5", "v4"):
+        rec, got, step_per = bench_north_star(torch, dev, kernel, timed)
+        for k, v in got.items():
+            counts[k] += v
+        add_sums(per, step_per)
+        beside = (f"phase 13's merge_wave_scalar v4 p50 "
+                  f"{gen_p50['v4']:.3f} ms" if kernel == "v4" else
+                  f"phase 3's v5 dispatch p50 {k_p50:.3f} ms (no scalar)")
+        say(f"[14 benchmarks] config 5 {kernel} at the north star: "
+            f"{rec['value']:.3f} ms beside {beside}")
+    bench_profile(torch)
+    say(f"[14 benchmarks] launches over step (b) {counts}; kernels at the "
+        f"phase's distinct shapes: {kernel_sums_line(per)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s (host clock); {card}")
+    return counts, per
 
 
 def main() -> int:
@@ -4057,8 +4273,13 @@ def main() -> int:
     del tenants
 
     # ------------------------------------------------ 13. generations
-    gen_counts, gen_per = phase_generations(torch, dev, card, batch)
+    gen_counts, gen_per, gen_p50 = phase_generations(torch, dev, card,
+                                                     batch)
     del batch
+
+    # ------------------------------------------------ 14. benchmarks
+    bench_counts, bench_per = phase_benchmarks(torch, dev, card, k_p50,
+                                               gen_p50)
 
     # ------------------------------------------------ result
     recs = []
@@ -4099,6 +4320,14 @@ def main() -> int:
             "generations_plain_ms": gen_per.get(name, {}).get("plain_ms"),
             "generations_bound_ms": gen_per.get(name, {}).get("bound_ms"),
             "generations_library_ms": gen_per.get(name, {}).get(
+                "library_ms"),
+            # phase 14's config 5 at the north star (v5 and v4, four
+            # steps each), and its calls' kernel time at their own shapes
+            "benchmarks_launches": bench_counts[name],
+            "benchmarks_ms": bench_per.get(name, {}).get("ms"),
+            "benchmarks_plain_ms": bench_per.get(name, {}).get("plain_ms"),
+            "benchmarks_bound_ms": bench_per.get(name, {}).get("bound_ms"),
+            "benchmarks_library_ms": bench_per.get(name, {}).get(
                 "library_ms"),
         })
     say(f"total {time.perf_counter() - t_start:.1f} s (host clock)")

@@ -7,12 +7,14 @@
   ``device="cpu"`` raises — the batched programs, the waves, the
   session, the routes that reach the device through a base, a sync
   round, a compaction or a load, and the serving plane (a tenant's
-  first wave, a service or residency restore, the bucket dispatch) —
+  first wave, a service or residency restore, the bucket dispatch), and
+  the benchmark CLI's device configs (5 and 6) —
   and the kernel wrappers refuse CPU tensors: nothing carries on
   quietly on the CPU. The serving plane's host side (admission, the
   journal, the controller, the scrubber, the wire, the native weaver)
-  holds no tensor code: its modules import no torch themselves (the
-  package facade does).
+  holds no tensor code: its modules import no torch themselves, and
+  neither does the package facade, whose device names load torch on
+  first use.
 - The kernels are built and loaded only on first launch, never at
   import time, and each wrapper counts only its own launches.
 - Telemetry (``obs``): off, it records nothing, keeps no registry
@@ -107,6 +109,25 @@ def test_device_entry_points_raise_without_cuda(no_card):
     r, v, cf, ov = ct.batched_merge_weave_v5(*args, u_max=u, k_max=u,
                                              device="cpu")
     assert r.device.type == "cpu" and not ov.any()
+
+
+def test_benchmark_device_configs_raise_without_cuda(no_card):
+    """The benchmark CLI's device configs (5: the batched merge, 6: the
+    map-fleet wave) run on the package default and refuse without a
+    card; asked for the CPU, they run."""
+    from cause_tpu_torch import benchmarks
+
+    tiny5 = dict(n_replicas=2, n_base=24, n_div=8, cap=64, reps=1)
+    tiny6 = dict(n_pairs=2, n_keys=4, edits=2, reps=1)
+    for kernel in ("v5", "v4"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            benchmarks.config5_batched_merge(kernel=kernel, **tiny5)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            benchmarks.config6_map_fleet(kernel=kernel, **tiny6)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        benchmarks.main(["-c", "5"])
+    assert benchmarks.config5_batched_merge(device="cpu", **tiny5)["value"] > 0
+    assert benchmarks.config6_map_fleet(device="cpu", **tiny6)["value"] > 0
 
 
 def test_handle_paths_follow_the_package_default(no_card):
@@ -239,7 +260,8 @@ def test_host_side_serving_modules_hold_no_tensor_code(rel):
     and the native weaver are host work: none of them imports torch
     itself, so the ingest and connection threads reach the card only
     through the ticking thread's session calls. This reads each
-    module's own imports; ``import cause_tpu_torch`` does load torch."""
+    module's own imports; ``import cause_tpu_torch`` loads torch only
+    when a device name of the facade is first used."""
     tree = ast.parse((ROOT / "cause_tpu_torch" / rel).read_text())
     names = []
     for node in ast.walk(tree):
