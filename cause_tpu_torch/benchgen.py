@@ -48,6 +48,7 @@ __all__ = [
     "batched_v5_inputs",
     "v5_token_budget",
     "estimate_tokens",
+    "lane_tensor",
     "lanes_from_numpy",
     "LANE_KEYS",
     "LANE_KEYS4",
@@ -74,17 +75,22 @@ def lanes_from_numpy(lanes: Dict[str, np.ndarray], device="cuda",
     ``batched_pair_lanes`` for v1-v4) as the port's tensors on
     ``device``, with dtypes fixed: int32 for ids, causes, classes,
     segment ids and tables, bool for the valid and dense flags."""
-    import torch
-
     from .device import resolve_device
 
     dev = resolve_device(device)
-    out = {}
-    for k in keys:
-        dt = torch.bool if k in V5_BOOL_KEYS else torch.int32
-        arr = np.ascontiguousarray(lanes[k])
-        out[k] = torch.from_numpy(arr).to(device=dev, dtype=dt)
-    return out
+    return {k: lane_tensor(k, lanes[k], dev) for k in keys}
+
+
+def lane_tensor(key: str, x, device):
+    """Lane ``key`` (a numpy array or a tensor) as the port's tensor on
+    the torch device ``device``, with ``lanes_from_numpy``'s dtype: bool
+    for the ``V5_BOOL_KEYS`` flags, int32 for every other lane."""
+    import torch
+
+    dt = torch.bool if key in V5_BOOL_KEYS else torch.int32
+    if not torch.is_tensor(x):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device=device, dtype=dt)
 
 
 def _union_lanes_np(hi, lo, chi, clo, vc, valid):

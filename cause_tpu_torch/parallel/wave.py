@@ -24,8 +24,13 @@ layer quarantined (``sync.is_quarantined``: a repeat payload offender
 must pass the host merge's full append-only validation, and a corrupt
 one lands in ``poisoned``) and rows that still overflow the doubled
 token budget fall back to the ordinary per-pair ``merge`` — same trees
-out, just slower. Not ported yet: the ``mesh=`` sharding (a mesh
-raises).
+out, just slower.
+
+With ``mesh=`` (``parallel.mesh.make_mesh``) the dispatch is the sharded
+v5 step (``sharded_merge_weave_v5``, v5 or v5f; ``BENCH_KERNEL=v5w``
+raises there, as in the reference): the live batch pads to a multiple
+of the mesh with copies of its first row, whose outputs are dropped,
+and an overflow retry runs unsharded on the local device.
 
 The delta-native pieces the session and the merge tree share live here
 too, as in the reference: ``delta_domain_ok`` (may a divergent lane
@@ -275,6 +280,29 @@ def _dispatch(lanes, u: int, device, site: str, pipeline: str = "v5"):
     rank, visible, digest, overflow = _recovery.run_dispatch(site, run)
     return (rank.cpu().numpy(), visible.cpu().numpy(),
             fetch_digest(digest), overflow.cpu().numpy())
+
+
+def _dispatch_sharded(mesh, lanes, u: int, pipeline: str):
+    """The wave's batch through the sharded v5 step over ``mesh`` (kernel
+    and digest in one step); host numpy ``(rank, visible, digest,
+    overflow)`` of every row."""
+    from .mesh import sharded_merge_weave_v5
+
+    if pipeline == "v5w":
+        raise ValueError(
+            "BENCH_KERNEL=v5w has no sharded wave step; use v5 or v5f "
+            "under a mesh")
+    rank, visible, overflow, digest, _tv, _nc, _n_ov = (
+        sharded_merge_weave_v5(mesh, lanes, u_max=u, k_max=u,
+                               pipeline=pipeline))
+    if obs.enabled():
+        # the sharded step computes kernel + digest in ONE step
+        from ..obs import costmodel as _cm
+
+        _cm.record_dispatch(f"wave:sharded:{pipeline}:u{int(u)}",
+                            site="wave")
+    return (rank.cpu().numpy(), visible.cpu().numpy(), fetch_digest(digest),
+            overflow.cpu().numpy())
 
 
 def dispatch_full_rows(lanes, site: str = "tree", device="cuda"):
@@ -596,27 +624,25 @@ def merge_wave(pairs: Sequence[Tuple[object, object]],
     on ``device`` (the package default, ``use_device``, when None).
 
     The positional parameters are the reference's ``(pairs, mesh,
-    ctx)``. ``mesh`` (the replica axis sharded over devices) is not
-    ported yet and raises; ``ctx`` is a ``WaveBuffers`` reused across
-    waves. All pairs must be list-shaped handles; each pair shares a
-    uuid/type (the usual merge guards). Body validation between
+    ctx)``. With ``mesh`` (a ``make_mesh`` mesh, every rank calling with
+    the same pairs) the replica axis is split over its ranks and every
+    rank gets the whole wave's result; ``ctx`` is a ``WaveBuffers``
+    reused across waves. All pairs must be list-shaped handles; each
+    pair shares a uuid/type (the usual merge guards). Body validation between
     duplicate ids follows the device contract (torchw5 module caveat):
     a sampled host-side spot-check poisons corrupt pairs, and
     ``merged(i)`` validates fully.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "merge_wave(mesh=...): the sharded wave is not ported yet "
-            "(ROADMAP A.15)")
     pairs = list(pairs)
     if not pairs:
         raise s.CausalError("Nothing to merge.", {"causes": {"empty-fleet"}})
     dev = default_device() if device is None else device
-    with obs.span("wave.merge", pairs=len(pairs), sharded=False):
-        return _merge_wave(pairs, ctx, dev)
+    with obs.span("wave.merge", pairs=len(pairs),
+                  sharded=mesh is not None):
+        return _merge_wave(pairs, mesh, ctx, dev)
 
 
-def _merge_wave(pairs, ctx, dev) -> WaveResult:
+def _merge_wave(pairs, mesh, ctx, dev) -> WaveResult:
     if obs.enabled():
         # open the wave cost window: device dispatches below attribute
         # to it, and ONE wave.cost event joins them to the wave's
@@ -715,6 +741,10 @@ def _merge_wave(pairs, ctx, dev) -> WaveResult:
         max(va.n, vb.n) for i in live for va, vb in [views[i]]
     ))
     live_views = [views[i] for i in live]
+    if mesh is not None and len(live_views) % mesh.size():
+        # fallbacks shrank the batch below mesh divisibility: pad with
+        # copies of the first live row and drop their outputs below
+        live_views += [live_views[0]] * (-len(live_views) % mesh.size())
     with obs.span("wave.assemble", rows=len(live_views), cap=int(cap)):
         lanes = _assemble_rows(live_views, cap, bufs=ctx)
 
@@ -749,8 +779,12 @@ def _merge_wave(pairs, ctx, dev) -> WaveResult:
 
         _sem.token_headroom(int(u_max) - u_need, "wave")
     with obs.span("wave.dispatch", kernel=pipeline, rows=len(live_views),
-                  u_max=int(u_max), sharded=False):
-        rank, visible, digest, overflow = dispatch_v5(lanes, u_max)
+                  u_max=int(u_max), sharded=mesh is not None):
+        if mesh is not None:
+            rank, visible, digest, overflow = _dispatch_sharded(
+                mesh, lanes, u_max, pipeline)
+        else:
+            rank, visible, digest, overflow = dispatch_v5(lanes, u_max)
     n_retried = 0
     if overflow.any():
         # the token budget samples rows; a spiky unsampled row can

@@ -32,8 +32,9 @@ are the B1 kernel, the forest walk B2 and the lane expansion B3) or,
 with ``kernel="v4"``, through the reference's original full-width route
 (``batched_merge_map_weave``: ``torchw4.batched_merge_weave_v4`` at a
 run budget of the full row, its two sorts B1 and its forest walk B2).
-The sharded twins wait for the multi-device port (ROADMAP A.15): they
-raise.
+The sharded twins (``sharded_merge_map_weave{,_v5}``) run the same
+forest lanes through ``parallel.mesh``'s sharded v4 and v5 steps: the
+replica axis split over a ``make_mesh`` mesh, the totals summed over it.
 """
 
 from __future__ import annotations
@@ -292,18 +293,31 @@ def batched_merge_map_weave_v5(lanes: Dict[str, np.ndarray], cap: int,
 
 def sharded_merge_map_weave_v5(mesh, lanes: Dict[str, np.ndarray],
                                cap: int, u_max: int = 0):
-    """The reference's sharded v5 map route: not ported yet."""
-    raise NotImplementedError(
-        "sharded_merge_map_weave_v5: the sharded map wave is not ported "
-        "yet (ROADMAP A.15)")
+    """Sharded twin of the v5 map route: the forest rows' v5 lanes ride
+    ``parallel.mesh.sharded_merge_weave_v5`` unchanged (replica axis
+    over the mesh, totals summed over it). Returns its 7-tuple and the
+    effective token budget (``u_max``, or the marshal's estimate when
+    <= 0)."""
+    from ..parallel.mesh import sharded_merge_weave_v5
+
+    v5b, est = map_v5_inputs(lanes, cap)
+    if u_max <= 0:
+        u_max = est
+    return sharded_merge_weave_v5(mesh, v5b, u_max, u_max), u_max
 
 
 def sharded_merge_map_weave(mesh, lanes: Dict[str, np.ndarray],
                             k_max: int = 0):
-    """The reference's sharded v4 map route: not ported yet."""
-    raise NotImplementedError(
-        "sharded_merge_map_weave: the sharded map wave is not ported yet "
-        "(ROADMAP A.15)")
+    """Sharded twin of the v4 map route: the forest rows ride
+    ``parallel.mesh.sharded_merge_weave_v4`` unchanged, at a run budget
+    of the full row when ``k_max`` <= 0. Returns its 7-tuple."""
+    from ..parallel.mesh import sharded_merge_weave_v4
+
+    if k_max <= 0:
+        k_max = int(lanes["hi"].shape[1])
+    return sharded_merge_weave_v4(mesh, lanes["hi"], lanes["lo"],
+                                  lanes["cci"], lanes["vc"], lanes["valid"],
+                                  k_max)
 
 
 def merged_map_weave(lanes, meta, order, rank, row: int):

@@ -12,7 +12,8 @@ map-fleet wave, bases, sync rounds, the quarantined wave, the chaos
 ladder and compaction, a served fleet of 32 tenants behind the
 network transport, the telemetry over those paths and shipped over the
 wire to a collector, the older kernel generations (v1-v4) with the
-device weaver's ladder, and the benchmark CLI, and checks that
+device weaver's ladder, the benchmark CLI and the sharded steps,
+wave and map routes over a one-rank NCCL mesh, and checks that
 the kernels really
 carried those paths (launch counts) and that the results are
 bit-identical to the plain path on the card, to each other and to the
@@ -165,7 +166,9 @@ Phases, one line each (times from CUDA events unless named host):
    each with its dispatch's 6/1/1 (or v5f's) launches and the CUDA
    allocator's statistics; the memory gauge equal to
    ``memory_allocated``; the stage ladder (A-E, FULL) at the north star
-   with FULL within 25% of phase 3's v5 dispatch p50; the overhead on
+   with FULL within 25% of phase 3's v5 dispatch (kernel and digest)
+   timed again right after the ladder, so that both sides see the same
+   host; the overhead on
    the wave and on the tick; the JSONL sidecar holding every record.
 12. the wire: one offered round of phase 10's served fleet (32 tenants,
    capacity 16, ``d_max`` 64, 8 ``NetClient``s on the loopback
@@ -220,8 +223,27 @@ Phases, one line each (times from CUDA events unless named host):
    against its plain version and timed), its reported ms beside phase
    3's and phase 13's p50s; ``--profile`` on config 5 (v4, and v5),
    whose torch.profiler traces name B1 and B2 (and B3).
+15. the sharded path: ``make_mesh()`` on the card (world 1, NCCL; the
+   group's start and its first collective timed); the north-star batch
+   through ``sharded_merge_weave`` (v1 at k_max = 0, v2 and v3 at
+   ``pair_run_budget``), ``sharded_merge_weave_v4`` and
+   ``sharded_merge_weave_v5`` (v5 and v5f at phase 3's u_max): each
+   step's launches equal to its unsharded dispatch's (3, 3 and 2 B1
+   sorts; v4 2 B1 and one B2; v5 6/1/1; v5f 2/1/1 and K1, K2, K4), its
+   rows and totals bit-identical to that dispatch and its digests to
+   the v5 dispatch's, 0 overflowed rows and conflicts, bit-identical to
+   its plain path with every kernel call held against its plain version
+   and timed once a shape, and the p50 of 3 sharded steps beside 3
+   unsharded dispatches, in turns; ``merge_wave(pairs, mesh)`` over phase
+   4's 32 pairs under ``BENCH_KERNEL`` v5 and v5f (the unsharded wave's
+   launches and digests, no fallback, every ``merged(i)`` equal to
+   ``a.merge(b)``; v5w refused); both sharded map routes on config 6's
+   map wave (64 pairs) equal to the batched routes; ``entry()``'s v4
+   merge on the card equal to the CPU's; ``dryrun_multichip(4,
+   device="cpu")`` in a subprocess over gloo ranks, and
+   ``dryrun_multichip(1)`` over one NCCL rank on the card.
 
-Phases 5-14 each reset or read the launch counts around their runs
+Phases 5-15 each reset or read the launch counts around their runs
 (phases 10-12 tick by tick) and read them after: a phase that did
 not launch B1, B2 and B3 fails.
 
@@ -343,6 +365,25 @@ def timed_ms(torch, fn):
     r = fn()
     torch.cuda.synchronize()
     return r, (time.perf_counter() - t) * 1e3
+
+
+def weave_digest_p50(torch, dev, v5, u_max: int, reps: int):
+    """Phase 3's north-star dispatch (``batched_weave_digest``, kernel
+    and digest) on the numpy batch ``v5``: the p50 and every time of
+    ``reps`` calls after one warm-up (host clock, synchronized)."""
+    import cause_tpu_torch as ct
+    from cause_tpu_torch import benchgen
+
+    lanes = benchgen.lanes_from_numpy(v5, dev)
+    args = [lanes[k] for k in benchgen.LANE_KEYS5]
+
+    def call():
+        return ct.batched_weave_digest(*args, u_max=u_max, k_max=u_max,
+                                       device=dev)
+
+    call()
+    times = [timed_ms(torch, call)[1] for _ in range(reps)]
+    return float(np.median(times)), times
 
 
 def session_edit(pairs, rnd):
@@ -2857,10 +2898,12 @@ def phase_telemetry(torch, dev, card: str, pairs, v5, u_max: int,
         f"(v5f); memory gauge {sample['device_bytes_in_use']} B == "
         f"memory_allocated; gauged at {sorted(sites)}")
 
-    # ---- the stage ladder at the north star. Phase 3 timed its dispatch
-    # before the earlier phases filled the heap with handles; freezing
-    # that heap keeps Python's full collections from scanning it in the
-    # middle of a timed prefix, so FULL compares with phase 3's p50
+    # ---- the stage ladder at the north star, and phase 3's dispatch
+    # timed right after it: the host's speed drifts over a run, so FULL
+    # is held against the dispatch beside it (phase 3's p50 is printed
+    # too). Phase 3 timed its dispatch before the earlier phases filled
+    # the heap with handles; freezing that heap keeps Python's full
+    # collections from scanning it in the middle of a timed prefix
     import gc
 
     gc.collect()
@@ -2871,22 +2914,26 @@ def phase_telemetry(torch, dev, card: str, pairs, v5, u_max: int,
         ladder = stages.run_v5_stage_ladder(inputs=(v5, u_max),
                                             reps=3 * REPS, device=dev,
                                             echo=lines.append)
+        obs.configure(enabled=False)
+        d_p50, d_all = weave_digest_p50(torch, dev, v5, u_max, 3 * REPS)
     finally:
         obs.configure(enabled=False)
         gc.unfreeze()
     full = ladder[-1]["p50_ms"]
     if [r["stage"] for r in ladder] != ["A", "B", "C", "D", "E", "FULL"]:
         fail(f"{tag} stages: {ladder}")
-    if abs(full - k_p50) > 0.25 * k_p50:
+    if abs(full - d_p50) > 0.25 * d_p50:
         fail(f"{tag} stages: FULL p50 {full:.3f} ms is not within 25% of "
-             f"phase 3's v5 dispatch p50 {k_p50:.3f} ms")
+             f"the v5 dispatch p50 {d_p50:.3f} ms timed right after it "
+             f"({[round(t, 3) for t in d_all]}; phase 3's {k_p50:.3f} ms)")
     say(f"{tag} stages at the north star ({v5['hi'].shape[0]} rows, "
         f"u_max {u_max}; CUDA events, p50 of {3 * REPS}, the older heap "
         f"frozen): "
         + ", ".join(f"{r['stage']} {r['p50_ms']:.3f} ms ({r['delta_ms']:+.3f})"
                     for r in ladder)
-        + f"; FULL against phase 3's dispatch p50 {k_p50:.3f} ms: "
-        f"{full / k_p50:.3f}; {card}")
+        + f"; FULL against the dispatch p50 right after it {d_p50:.3f} ms "
+        f"(host clock, synchronized, {3 * REPS} reps): {full / d_p50:.3f}; "
+        f"against phase 3's {k_p50:.3f} ms: {full / k_p50:.3f}; {card}")
 
     # ---- the sidecar: what was streamed folds like the ring
     streamed = perfetto.load_jsonl(sidecar)
@@ -3940,6 +3987,359 @@ def phase_benchmarks(torch, dev, card: str, k_p50: float,
     return counts, per
 
 
+# ------------------------------------------- 15. the sharded path
+
+# phase 15: timed reps of each sharded step and of its unsharded
+# dispatch (taken in turns), the dry run's CPU ranks (run in a
+# subprocess) and that subprocess's time limit
+SHARD_REPS = 3
+SHARD_DRYRUN_RANKS = 4
+SHARD_DRYRUN_TIMEOUT = 600
+# launches of one step of each generation, and its sorts in call order
+SHARD_STEPS = ("v1", "v2", "v3", "v4", "v5", "v5f")
+SHARD_LAUNCHES = {**{n: GEN_LAUNCHES[n] for n in SHARD_STEPS[:4]},
+                  "v5": V5_LAUNCHES, "v5f": V5F_LAUNCHES}
+SHARD_SITES = {**{n: GEN_SITES[n] for n in SHARD_STEPS[:4]},
+               "v5": SORT_SITES, "v5f": ("A segments", "F coverage")}
+# the per-row outputs a sharded step leads with, and the outputs of its
+# unsharded dispatch, by name
+SHARD_ROWS = {**dict.fromkeys(SHARD_STEPS[:4], ("order", "rank", "visible")),
+              "v5": ("rank", "visible", "overflow"),
+              "v5f": ("rank", "visible", "overflow")}
+SHARD_UNSHARDED = {
+    "v1": ("order", "rank", "visible", "conflict"),
+    **dict.fromkeys(("v2", "v3", "v4"),
+                    ("order", "rank", "visible", "conflict", "overflow")),
+    "v5": ("rank", "visible", "digest", "overflow"),
+    "v5f": ("rank", "visible", "digest", "overflow", "conflict"),
+}
+
+
+def shard_mesh(torch, dev):
+    """Phase 15, step (a): ``make_mesh()`` on the card (world 1, NCCL)
+    and the communicator's first collective, each timed."""
+    import torch.distributed as dist
+
+    from cause_tpu_torch.parallel import make_mesh
+
+    tag = "[15 sharded]"
+    mesh, start_ms = timed_ms(torch, make_mesh)
+    x = torch.ones(1, dtype=torch.int32, device=dev)
+    _, first_ms = timed_ms(torch, lambda: dist.all_reduce(
+        x, group=mesh.get_group()))
+    _, next_ms = timed_ms(torch, lambda: dist.all_reduce(
+        x, group=mesh.get_group()))
+    if (dist.get_backend() != "nccl" or mesh.size() != 1
+            or mesh.device_type != "cuda" or int(x) != 1):
+        fail(f"{tag} make_mesh(): backend {dist.get_backend()}, world "
+             f"{mesh.size()}, device type {mesh.device_type}, sum {int(x)}")
+    say(f"{tag} make_mesh(): backend {dist.get_backend()}, world "
+        f"{mesh.size()}, axis {mesh.mesh_dim_names}; group start "
+        f"{start_ms:.3f} ms, first all_reduce {first_ms:.3f} ms (the "
+        f"NCCL communicator's start), the next {next_ms:.3f} ms (host "
+        f"clock, synchronized)")
+    return mesh
+
+
+def shard_steps(torch, dev, mesh, batch, v5, u_max):
+    """Phase 15, step (b): the north-star batch through every sharded
+    step at world 1 (v1 at k_max = 0; v2, v3 and v4 at
+    ``pair_run_budget``; v5 and v5f at ``u_max``). Each step launches
+    what its unsharded dispatch launches (the table), gives its order
+    (v1-v4), rank, visibility, overflow and totals bit-identical to that
+    dispatch and digests equal to the v5 dispatch's, 0 overflowed rows
+    and conflicts, and is bit-identical to its plain path with every
+    kernel call checked; p50s of the sharded step and of the unsharded
+    dispatch, taken in turns. Returns the launches and
+    ``check_recorded``'s sums."""
+    import cause_tpu_torch as ct
+    from cause_tpu_torch import benchgen, kernels
+    from cause_tpu_torch.parallel import mesh as pm
+    from cause_tpu_torch.weaver import torchw, torchw3, torchw4
+
+    tag = "[15 sharded]"
+    k_max = benchgen.pair_run_budget(batch)
+
+    def upload(keys):
+        return [torch.from_numpy(np.ascontiguousarray(batch[k])).to(
+            dev, dtype=torch.bool if k == "valid" else torch.int32)
+            for k in keys]
+
+    a1, a4 = upload(benchgen.LANE_KEYS), upload(benchgen.LANE_KEYS4)
+    t5 = benchgen.lanes_from_numpy(v5, dev)
+    args5 = [t5[k] for k in benchgen.LANE_KEYS5]
+
+    def v5f_unsharded():
+        r, v, c, ov = ct.batched_merge_weave_v5f(
+            *args5, u_max=u_max, k_max=u_max, device=dev)
+        return r, v, pm.replica_digest(args5[0], args5[1], r, v), ov, c
+
+    # name: (sharded step, its unsharded dispatch)
+    steps = {
+        "v1": (lambda: pm.sharded_merge_weave(mesh, *a1),
+               lambda: torchw.batched_merge_weave(*a1, device=dev)),
+        "v2": (lambda: pm.sharded_merge_weave(mesh, *a1, k_max, "v2"),
+               lambda: torchw.batched_merge_weave_v2(*a1, k_max=k_max,
+                                                     device=dev)),
+        "v3": (lambda: pm.sharded_merge_weave(mesh, *a1, k_max, "v3"),
+               lambda: torchw3.batched_merge_weave_v3(*a1, k_max=k_max,
+                                                      device=dev)),
+        "v4": (lambda: pm.sharded_merge_weave_v4(mesh, *a4, k_max),
+               lambda: torchw4.batched_merge_weave_v4(*a4, k_max=k_max,
+                                                      device=dev)),
+        "v5": (lambda: pm.sharded_merge_weave_v5(mesh, t5, u_max, u_max),
+               lambda: ct.batched_weave_digest(*args5, u_max=u_max,
+                                               k_max=u_max, device=dev)),
+        "v5f": (lambda: pm.sharded_merge_weave_v5(mesh, t5, u_max, u_max,
+                                                  "v5f"), v5f_unsharded),
+    }
+    counts = {n: 0 for n in kernels.SOURCES}
+    per, digests, timed = {}, {}, set()
+    for name in SHARD_STEPS:
+        sharded, unsharded = steps[name]
+        with launches_in() as got:
+            out, ms = timed_ms(torch, sharded)
+        expect_launches(got, SHARD_LAUNCHES[name], f"{tag} {name} step")
+        with launches_in() as got_u:
+            ref = unsharded()
+        if got_u != got:
+            fail(f"{tag} {name}: the step launched {got}, its unsharded "
+                 f"dispatch {got_u}")
+        for k, v in got.items():
+            counts[k] += v
+        got_rows = dict(zip(SHARD_ROWS[name], out[:3]))
+        want = dict(zip(SHARD_UNSHARDED[name], ref))
+        if name == "v5":
+            digests["unsharded v5"] = want["digest"]
+        for nm, g in got_rows.items():
+            if not torch.equal(g, want[nm]):
+                fail(f"{tag} {name}: {nm} differs from the unsharded "
+                     f"dispatch's")
+        totals = [int(t) for t in out[4:]]
+        want_totals = [int(want[k].sum()) if k in want else 0
+                       for k in ("visible", "conflict", "overflow")]
+        if totals != want_totals or totals[1] or totals[2]:
+            fail(f"{tag} {name}: totals (visible, conflicts, overflow) "
+                 f"{totals}, the unsharded dispatch's {want_totals}; 0 "
+                 f"conflicts and 0 overflowed rows expected")
+        del ref, want, got_rows
+        calls = []
+        with plain_path(record=calls):
+            plain = sharded()
+        for i, (g, w) in enumerate(zip(out, plain)):
+            if not torch.equal(g, w):
+                fail(f"{tag} {name}: output {i} differs from the plain "
+                     f"path")
+        del plain
+        add_sums(per, check_recorded(torch, calls, f"{tag} {name}",
+                                     sites=SHARD_SITES[name], timed=timed))
+        del calls
+        digests[name] = out[3]
+        del out
+        ts, tu = [], []
+        for _ in range(SHARD_REPS):
+            ts.append(timed_ms(torch, sharded)[1])
+            tu.append(timed_ms(torch, unsharded)[1])
+        ps, pu = float(np.median(ts)), float(np.median(tu))
+        say(f"{tag} {name}: B={a1[0].shape[0]} launches {got} (the "
+            f"unsharded dispatch's), bit-identical to it and to the plain "
+            f"path; totals {totals}; first step {ms:.3f} ms; p50 sharded "
+            f"{ps:.3f} ms, unsharded {pu:.3f} ms, difference "
+            f"{ps - pu:+.3f} ms ({[round(t, 3) for t in ts]} / "
+            f"{[round(t, 3) for t in tu]}; host clock, synchronized, "
+            f"{SHARD_REPS} reps in turns)")
+    want = digests["unsharded v5"]
+    for name in SHARD_STEPS:
+        if not torch.equal(digests[name], want):
+            fail(f"{tag} {name}: digests differ from the v5 dispatch's")
+    say(f"{tag} the digests of all six steps equal the unsharded v5 "
+        f"dispatch's (batched_weave_digest): {len(set(want.tolist()))} "
+        f"distinct of {want.shape[0]}")
+    return counts, per
+
+
+def shard_wave(torch, mesh, pairs, wave_digest):
+    """Phase 15, step (c): ``merge_wave(pairs, mesh)`` over the API
+    wave's pairs under ``BENCH_KERNEL`` v5 and v5f: the unsharded wave's
+    launches and digests (phase 4's), no fallback, every ``merged(i)``
+    equal to ``a.merge(b)``; v5w refused under the mesh."""
+    import cause_tpu_torch as ct
+
+    tag = "[15 sharded wave]"
+    merges = [a.merge(b) for a, b in pairs]
+    knob = os.environ.get("BENCH_KERNEL")
+    try:
+        for kernel in ("v5", "v5f"):
+            os.environ["BENCH_KERNEL"] = kernel
+            with launches_in() as got_u:
+                res_u, ms_u = timed_ms(torch, lambda: ct.merge_wave(pairs))
+            with launches_in() as got:
+                res, ms = timed_ms(torch, lambda: ct.merge_wave(pairs,
+                                                                mesh))
+            expect_launches(got, ("sort", "euler_walk", "fphase")
+                            + (FUSED if kernel == "v5f" else ()),
+                            f"{tag} {kernel}")
+            if got != got_u:
+                fail(f"{tag} {kernel}: launches {got}, the unsharded "
+                     f"wave's {got_u}")
+            if res.kernel != kernel or res.fallback or res.poisoned \
+                    or not res.digest_valid.all():
+                fail(f"{tag} {kernel}: kernel {res.kernel!r}, fallback "
+                     f"{res.fallback}, poisoned {res.poisoned}")
+            if not (np.array_equal(res.digest, res_u.digest)
+                    and np.array_equal(res.digest, wave_digest)):
+                fail(f"{tag} {kernel}: digests differ from the unsharded "
+                     f"wave's")
+            for i, m in enumerate(merges):
+                got_i = res.merged(i)
+                if got_i.ct.weave != m.ct.weave or list(got_i) != list(m):
+                    fail(f"{tag} {kernel}: merged({i}) differs from "
+                         f"a.merge(b)")
+            say(f"{tag} BENCH_KERNEL={kernel}: {len(pairs)} pairs, "
+                f"launches {got} (the unsharded wave's), digests equal the "
+                f"unsharded wave's and phase 4's, 0 fallbacks, all "
+                f"{len(pairs)} merged(i) equal a.merge(b); wave {ms:.3f} "
+                f"ms sharded, {ms_u:.3f} ms unsharded (host clock, "
+                f"synchronized, one call each)")
+        os.environ["BENCH_KERNEL"] = "v5w"
+        try:
+            ct.merge_wave(pairs, mesh)
+        except ValueError as err:
+            say(f"{tag} BENCH_KERNEL=v5w under the mesh raises: {err}")
+        else:
+            fail(f"{tag} BENCH_KERNEL=v5w ran under the mesh")
+    finally:
+        if knob is None:
+            os.environ.pop("BENCH_KERNEL", None)
+        else:
+            os.environ["BENCH_KERNEL"] = knob
+
+
+def shard_maps(torch, dev, mesh):
+    """Phase 15, step (d): config 6's own map wave's forest rows (64
+    pairs) through both sharded map routes, equal to the batched
+    routes, with their launches; merged rows against the pure merge."""
+    from cause_tpu_torch.weaver import mapw
+
+    tag = "[15 sharded maps]"
+    _base, pairs = map_fleet(MAP_SMALL, 24, 1, 12, 4, 0)
+    lanes, meta = mapw.pair_rows([(a.ct.nodes, b.ct.nodes)
+                                  for a, b in pairs])
+    cap = meta["capacity"]
+    with launches_in() as got4:
+        out4 = mapw.sharded_merge_map_weave(mesh, lanes)
+    with launches_in() as got4u:
+        ref4 = mapw.batched_merge_map_weave(lanes, device=dev)
+    with launches_in() as got5:
+        out5, u5 = mapw.sharded_merge_map_weave_v5(mesh, lanes, cap)
+    with launches_in() as got5u:
+        ref5, u5u = mapw.batched_merge_map_weave_v5(lanes, cap, device=dev)
+    expect_launches(got4, {"sort": 2, "euler_walk": 1}, f"{tag} v4")
+    expect_launches(got5, V5_LAUNCHES, f"{tag} v5")
+    if got4 != got4u or got5 != got5u or u5 != u5u:
+        fail(f"{tag} launches {got4}/{got5} (budget {u5}), the batched "
+             f"routes' {got4u}/{got5u} (budget {u5u})")
+    for route, got, want in (("v4", out4[:3], ref4[:3]),
+                             ("v5", out5[:3], (ref5[0], ref5[1], ref5[3]))):
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not torch.equal(g, w):
+                fail(f"{tag} {route}: output {i} differs from the batched "
+                     f"route's")
+    host = [x.cpu().numpy() for x in out4[:3]]
+    if not np.array_equal(out4[3].cpu().numpy().view(np.uint32),
+                          mapw.map_row_digest(lanes, *host)):
+        fail(f"{tag} v4: digests differ from the host digest twin")
+    if int(out4[6]) or int(out5[6]) or int(out4[5]) or int(out5[5]):
+        fail(f"{tag} overflowed or conflicting rows")
+    rank5 = out5[0].cpu().numpy()
+    for i in sorted({0, len(pairs) // 2, len(pairs) - 1}):
+        a, b = pairs[i]
+        want = a.merge(b).ct.weave
+        for order, rank in ((host[0], host[1]), (None, rank5)):
+            if mapw.merged_map_weave(lanes, meta, order, rank, i) != want:
+                fail(f"{tag} merged row {i} differs from the pure merge")
+    say(f"{tag} {len(pairs)} pairs, N={lanes['hi'].shape[1]}: "
+        f"sharded_merge_map_weave launches {got4}, "
+        f"sharded_merge_map_weave_v5 (u_max {u5}) {got5}, each equal to "
+        f"its batched route's (and its launches); rows 0, mid and last "
+        f"equal the pure merge")
+    return {k: got4[k] + got5[k] for k in got4}
+
+
+def shard_entry(torch):
+    """Phase 15, step (e): ``entry()``'s v4 merge on the card, against
+    the same call on the CPU."""
+    from cause_tpu_torch.parallel.entry import entry
+
+    tag = "[15 entry]"
+    fn, args = entry()
+    with launches_in() as got:
+        out, ms = timed_ms(torch, lambda: fn(*args))
+    expect_launches(got, {"sort": 2, "euler_walk": 1}, tag)
+    cfn, cargs = entry(device="cpu")
+    want = cfn(*cargs)
+    for i, (g, w) in enumerate(zip(out, want)):
+        if g.device.type != "cuda" or not torch.equal(g.cpu(), w):
+            fail(f"{tag} output {i} on the card differs from the CPU's")
+    say(f"{tag} fn(*args) on {args[0].device}: {ms:.3f} ms (host clock, "
+        f"first call), launches {got}, equal to the CPU's outputs")
+    return got
+
+
+def shard_dryrun(torch) -> None:
+    """Phase 15, step (f): ``dryrun_multichip`` over 4 gloo ranks in a
+    subprocess (exit 0), then over one NCCL rank on the card."""
+    from cause_tpu_torch.parallel.entry import dryrun_multichip
+
+    tag = "[15 dryrun]"
+    prog = ("from cause_tpu_torch.parallel.entry import dryrun_multichip; "
+            f"dryrun_multichip({SHARD_DRYRUN_RANKS}, device='cpu'); "
+            "print('dryrun ok')")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", prog], cwd=REPO_ROOT,
+                         env=no_obs_env(), capture_output=True, text=True,
+                         timeout=SHARD_DRYRUN_TIMEOUT)
+    secs = time.perf_counter() - t0
+    if out.returncode != 0 or "dryrun ok" not in out.stdout:
+        fail(f"{tag} dryrun_multichip({SHARD_DRYRUN_RANKS}, device='cpu') "
+             f"exited {out.returncode}: {out.stderr[-2000:]}")
+    say(f"{tag} dryrun_multichip({SHARD_DRYRUN_RANKS}, device='cpu'): "
+        f"gloo ranks, exit 0 in {secs:.1f} s (host clock, the "
+        f"subprocess's start included)")
+    t0 = time.perf_counter()
+    dryrun_multichip(1)
+    say(f"{tag} dryrun_multichip(1) on the card: one NCCL rank, passed in "
+        f"{time.perf_counter() - t0:.1f} s (host clock, the rank's start "
+        f"included)")
+
+
+def phase_sharded(torch, dev, card: str, batch, v5, u_max: int, pairs,
+                  wave_digest) -> tuple:
+    """Phase 15: the sharded path at world 1 on the card: the mesh, the
+    six sharded steps at the north star, the sharded wave, the sharded
+    map routes, ``entry()`` and the dry run. Returns step (b)'s
+    launches and ``check_recorded``'s per-kernel sums."""
+    import torch.distributed as dist
+
+    from cause_tpu_torch import kernels
+
+    t_phase = time.perf_counter()
+    mesh = shard_mesh(torch, dev)
+    counts, per = shard_steps(torch, dev, mesh, batch, v5, u_max)
+    shard_wave(torch, mesh, pairs, wave_digest)
+    other = shard_maps(torch, dev, mesh)
+    for k, v in shard_entry(torch).items():
+        other[k] += v
+    shard_dryrun(torch)
+    dist.destroy_process_group()
+    expect_launches({k: counts[k] + other[k] for k in kernels.SOURCES},
+                    tuple(kernels.SOURCES), "[15 sharded]")
+    say(f"[15 sharded] launches over step (b) {counts}; kernels at the "
+        f"phase's distinct shapes: {kernel_sums_line(per)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s (host clock); {card}")
+    return counts, per
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -4260,13 +4660,13 @@ def main() -> int:
                                           tree_root)
 
     # ------------------------------------------------ 10. serve
+    wave_digest = res.digest
     del res, cached, hs, tree_root
     serve_counts, serve_per, tenants = phase_serve(torch, dev, card)
 
     # ------------------------------------------------ 11. telemetry
     obs_counts = phase_telemetry(torch, dev, card, pairs, v5, u_max, k_p50,
                                  tenants)
-    del pairs
 
     # ------------------------------------------------ 12. the wire
     wire_counts = phase_wire(torch, dev, card, tenants)
@@ -4275,11 +4675,15 @@ def main() -> int:
     # ------------------------------------------------ 13. generations
     gen_counts, gen_per, gen_p50 = phase_generations(torch, dev, card,
                                                      batch)
-    del batch
 
     # ------------------------------------------------ 14. benchmarks
     bench_counts, bench_per = phase_benchmarks(torch, dev, card, k_p50,
                                                gen_p50)
+
+    # ------------------------------------------------ 15. sharded path
+    shard_counts, shard_per = phase_sharded(torch, dev, card, batch, v5,
+                                            u_max, pairs, wave_digest)
+    del batch, pairs
 
     # ------------------------------------------------ result
     recs = []
@@ -4328,6 +4732,14 @@ def main() -> int:
             "benchmarks_plain_ms": bench_per.get(name, {}).get("plain_ms"),
             "benchmarks_bound_ms": bench_per.get(name, {}).get("bound_ms"),
             "benchmarks_library_ms": bench_per.get(name, {}).get(
+                "library_ms"),
+            # phase 15's sharded steps at the north star (v1-v5f, one
+            # step each), and its calls' kernel time at their own shapes
+            "sharded_launches": shard_counts[name],
+            "sharded_ms": shard_per.get(name, {}).get("ms"),
+            "sharded_plain_ms": shard_per.get(name, {}).get("plain_ms"),
+            "sharded_bound_ms": shard_per.get(name, {}).get("bound_ms"),
+            "sharded_library_ms": shard_per.get(name, {}).get(
                 "library_ms"),
         })
     say(f"total {time.perf_counter() - t_start:.1f} s (host clock)")

@@ -315,12 +315,6 @@ def test_merge_wave_positional_ctx_like_the_reference():
     assert np.array_equal(got.digest, want.digest)
 
 
-def test_merge_wave_refuses_a_mesh():
-    tpairs = make_pairs(PORT, 1, n_base=10, n_div=2)
-    with pytest.raises(NotImplementedError, match="A.15"):
-        ct.merge_wave(tpairs, object())
-
-
 # ------------------------------------------------ the telemetry halves
 
 

@@ -9,9 +9,10 @@ reference runs its v5 kernel on the CPU as its own tests do; the port's
 kernels run through their plain versions. Merged weaves are also held
 against the port's pure weaver.
 
-Mirrors ``tests/test_mapw.py`` (the v5 and v4 routes; the sharded routes
-raise until ROADMAP A.15), all of ``tests/test_map.py`` (over the pure
-and torch weavers) and the map cases of ``tests/test_serde.py``.
+Mirrors ``tests/test_mapw.py`` (the v5 and v4 routes; the sharded
+routes are ``tests/test_torch_mesh.py``'s), all of ``tests/test_map.py``
+(over the pure and torch weavers) and the map cases of
+``tests/test_serde.py``.
 """
 
 import json
@@ -360,16 +361,8 @@ def test_v4_route_matches_reference_and_v5_route(n_pairs, n_keys, edits,
         assert res4.merged(i).causal_to_edn() == ref.causal_to_edn()
 
 
-@pytest.mark.parametrize("call, item", [
-    (lambda p: t_mapw.sharded_merge_map_weave(
-        None, t_mapw.pair_rows(pair_nodes(p))[0]), "A.15"),
-    (lambda p: t_mapw.sharded_merge_map_weave_v5(
-        None, *t_mapw.pair_rows(pair_nodes(p))[0:1], 64), "A.15"),
-])
-def test_unported_routes_raise_naming_their_roadmap_item(call, item):
+def test_unknown_map_wave_kernel_raises():
     tp = make_pairs(ct, 2)
-    with pytest.raises(NotImplementedError, match=item):
-        call(tp)
     with pytest.raises(ValueError):
         t_mapw.merge_map_wave(tp, kernel="v6")
 
