@@ -1,7 +1,7 @@
-// The in-block bitonic row networks: the plain form is B1's path
-// (csrc/sort.cu) for more than two keys or rows outside its radix path;
-// both forms serve the in-block sorts of the fused token kernels
-// (befuse_k1/k2/k4.cu).
+// The in-block bitonic row networks: the plain form is B1's network form
+// (csrc/sort.cu: rows of P < 256, or of three or more keys that fit in
+// shared memory); both forms serve the in-block sorts of the fused token
+// kernels (befuse_k1/k2/k4.cu).
 //
 // Both forms sort P (a power of two) elements of ONE row inside one CTA,
 // ascending and lexicographic over NK int32 keys with the element's
@@ -18,9 +18,9 @@
 //   in shared memory in the padded layout pad32 (column stride
 //   pad32(P)), so that a warp's strided accesses hit 32 distinct banks.
 // - bitonic_net: the plain network, one pair per thread per stage, over
-//   columns of stride P in shared OR global memory (a row too wide for
-//   shared memory runs on a scratch row; __syncthreads orders global
-//   writes within the block as it does shared ones). Any whole-warp
+//   columns of stride P in shared OR global memory (a fused kernel's row
+//   too wide for shared memory runs on a scratch row; __syncthreads
+//   orders global writes within the block as it does shared ones). Any whole-warp
 //   block size; a stage that stays inside a warp's 64-element chunk ends
 //   with a warp barrier instead of a block barrier.
 

@@ -4,7 +4,8 @@ The port's kernels live in ``csrc/*.cu`` (B1 ``sort.cu``, B2
 ``euler_walk.cu``, B3 ``fphase.cu``, and the fused token kernels B4-B6
 ``befuse_k1.cu``, ``befuse_k2.cu``, ``befuse_k4.cu``), each with a plain
 C interface; the headers ``csrc/*.cuh`` hold code they share (the radix
-row sort, the bitonic networks, the fused kernels' building blocks).
+row sort, B1's wide form, the bitonic networks, the fused kernels'
+building blocks).
 On first use they are compiled for Hopper with ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` into one shared library each under
 ``cause_tpu_torch/_build/`` (one ``nvcc`` per source, all started
@@ -59,7 +60,8 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "cause_sort_rows": [ctypes.POINTER(_VP), ctypes.POINTER(_VP), _I, _I,
-                        _I, _I, _VP, _VP],
+                        _I, _I, _VP, ctypes.c_size_t, _VP],
+    "cause_sort_wide_scratch_bytes": [_I, _I, _I],
     "cause_sort_smem_limit": [],
     "cause_euler_walk_scratch_words": [_I],
     "cause_euler_walk": [_VP] * 5 + [_I, _I, _VP, _VP],
@@ -77,6 +79,8 @@ _SIGNATURES = {
     # only in a build with -DCAUSE_PHASE_CLOCKS (chip_smoke.py --phases)
     "cause_phase_cycles_take": [_VP],
 }
+# entry points that return other than an int
+_RESTYPES = {"cause_sort_wide_scratch_bytes": ctypes.c_size_t}
 
 
 def reset_launches() -> None:
@@ -162,7 +166,7 @@ def load(path) -> ctypes.CDLL:
         f = getattr(cdll, fn, None)
         if f is not None:
             f.argtypes = argtypes
-            f.restype = ctypes.c_int
+            f.restype = _RESTYPES.get(fn, ctypes.c_int)
     return cdll
 
 

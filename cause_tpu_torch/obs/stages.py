@@ -51,48 +51,73 @@ def timed_median(name: str, fn: Callable, *args, reps: int = 3,
     synchronize; on the CPU by the host clock. Returns (last output,
     median ms, all samples). Works with obs off — the spans are no-ops
     and the samples remain."""
-    import numpy as np
-    import torch
-
     from ..device import resolve_device
 
-    dev = resolve_device(device)
+    outs, samples = _timed_turns((name,), (fn,), args, reps,
+                                 resolve_device(device))
+    return outs[0], _median(samples[0]), samples[0]
+
+
+def _median(samples: List[float]) -> float:
+    import numpy as np
+
+    return float(np.median(samples))
+
+
+def _timed_turns(names, fns, args, reps: int, dev):
+    """``timed_median``'s loop over several programs on the same
+    ``args``: a warm-up of each, then ``reps`` rounds of one timed call
+    of each in turn, so that the host's drift over the rounds falls on
+    all of them alike. Returns (last outputs, samples per program)."""
+    import torch
+
     on_card = dev.type == "cuda"
-    with core.span("stages.warm", program=name):
-        out = fn(*args)
-        if on_card:
-            torch.cuda.synchronize(dev)
-    samples: List[float] = []
-    for i in range(max(1, int(reps))):
-        with core.span("stages.rep", program=name, rep=i):
+    outs = []
+    for name, fn in zip(names, fns):
+        with core.span("stages.warm", program=name):
+            outs.append(fn(*args))
             if on_card:
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record(torch.cuda.current_stream(dev))
-                out = fn(*args)
-                end.record(torch.cuda.current_stream(dev))
-                end.synchronize()
-                samples.append(float(start.elapsed_time(end)))
-            else:
-                t0 = time.perf_counter()
-                out = fn(*args)
-                samples.append((time.perf_counter() - t0) * 1000.0)
-    p50 = float(np.median(samples))
-    core.event("stages.result", program=name, p50_ms=round(p50, 3),
-               samples=[round(s, 3) for s in samples])
-    return out, p50, samples
+                torch.cuda.synchronize(dev)
+    samples: List[List[float]] = [[] for _ in fns]
+    for i in range(max(1, int(reps))):
+        for j, (name, fn) in enumerate(zip(names, fns)):
+            with core.span("stages.rep", program=name, rep=i):
+                if on_card:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record(torch.cuda.current_stream(dev))
+                    outs[j] = fn(*args)
+                    end.record(torch.cuda.current_stream(dev))
+                    end.synchronize()
+                    samples[j].append(float(start.elapsed_time(end)))
+                else:
+                    t0 = time.perf_counter()
+                    outs[j] = fn(*args)
+                    samples[j].append((time.perf_counter() - t0) * 1000.0)
+    for name, got in zip(names, samples):
+        core.event("stages.result", program=name,
+                   p50_ms=round(_median(got), 3),
+                   samples=[round(s, 3) for s in got])
+    return outs, samples
 
 
 def run_v5_stage_ladder(smoke: bool = False, reps: int = 3,
                         shape: Optional[Tuple[int, int, int, int]] = None,
                         device="cuda", inputs=None,
-                        echo: Callable[[str], None] = None) -> List[dict]:
+                        echo: Callable[[str], None] = None,
+                        beside: Optional[Callable] = None) -> List[dict]:
     """Time the v5 kernel truncated at each stage checkpoint at the
     north-star shape (1024 pairs, 9,000 base + 1,000 divergent nodes,
     capacity 10,240), or ``smoke`` / an explicit ``shape`` (B, n_base,
     n_div, capacity), or on given ``inputs`` (a ``(v5 numpy batch,
     u_max)`` pair, e.g. a caller's own north-star batch), and report
     per-stage increments.
+
+    ``beside``, a program of the same lane tensors (``*args``, e.g. the
+    caller's dispatch), is timed in turns with FULL, a call of each a
+    rep on the same clock, so that the host's drift falls on both
+    alike: FULL's dict then also holds its ``beside_p50_ms`` and
+    ``beside_ms`` (every sample).
 
     Every stage lands as a ``stages.prefix`` obs event (stage, p50,
     delta) on top of the per-rep spans from ``timed_median``. Returns
@@ -139,15 +164,23 @@ def run_v5_stage_ladder(smoke: bool = False, reps: int = 3,
     prev = 0.0
     for stage in STAGES:
         name = stage or "FULL"
-        _, med, _samples = timed_median(
-            f"stages.prefix.{name}", prog_for(stage), *args, reps=reps,
-            device=dev)
+        extra = {}
+        if stage is None and beside is not None:
+            _, (got, near) = _timed_turns(
+                (f"stages.prefix.{name}", "stages.beside"),
+                (prog_for(stage), beside), args, reps, dev)
+            med = _median(got)
+            extra = {"beside_p50_ms": _median(near), "beside_ms": near}
+        else:
+            _, med, _samples = timed_median(
+                f"stages.prefix.{name}", prog_for(stage), *args, reps=reps,
+                device=dev)
         _echo(f"prefix->{name:4s} {med:9.3f} ms   "
               f"(+{med - prev:8.3f} ms)")
         core.event("stages.prefix", stage=name, p50_ms=round(med, 3),
                    delta_ms=round(med - prev, 3))
         results.append({"stage": name, "p50_ms": med,
-                        "delta_ms": med - prev})
+                        "delta_ms": med - prev, **extra})
         prev = med
     core.flush()
     return results

@@ -1,4 +1,4 @@
-"""B1: the kernels' row sort — a range-compressed radix sort.
+"""B1: the kernels' row sort — range-compressed radix sorts.
 
 Counterpart of ``cause_tpu.weaver.bitonic.sort_pairs`` and of the
 Pallas kernel it switches to (``cause_tpu.weaver.pallas_sort``): sort
@@ -10,12 +10,21 @@ as payloads.
 
 ``sort_pairs`` takes the plain version for tensors on the CPU and
 launches the CUDA kernel (``csrc/sort.cu``) for tensors on the card.
-There is no fallback between the two. The kernel sorts rows of one or
-two keys and 256 <= P <= 8192 (P = next_pow2(n); every site of the
-wave) by stable LSD radix passes over the keys compressed to the bits
-their range spans (``csrc/radix.cuh``), and any other row by a bitonic
-network in shared memory, or in a global scratch row when the row is
-too wide for it (``csrc/bitonic.cuh``).
+There is no fallback between the two. The kernel takes one of three
+forms, by the rule ``b1_form`` on P = next_pow2(n) and the key count:
+
+- ``"radix"``: one or two keys and 256 <= P <= 8192 (every site of the
+  wave): one CTA a row, stable LSD radix passes over the keys
+  compressed to the bits their range spans (``csrc/radix.cuh``);
+- ``"wide"``: P > 8192, or keys and positions too large for a block's
+  shared memory: the same idea over a row spread across CTAs, each
+  digit pass one launch through global memory (a tile finds its offsets
+  by a look-back over the row's earlier tiles), on scratch this wrapper
+  allocates at the size the library names
+  (``cause_sort_wide_scratch_bytes``; ``csrc/radix_wide.cuh``); how many
+  passes a row takes is decided on the card, and nothing is read back;
+- ``"network"``: every other row (P < 256, or three or more keys that
+  fit): a bitonic network in shared memory (``csrc/bitonic.cuh``).
 """
 
 from __future__ import annotations
@@ -28,9 +37,25 @@ import torch
 
 from .. import kernels
 
-__all__ = ["sort_pairs", "sort_pairs_plain", "sort_pairs_cuda"]
+__all__ = ["sort_pairs", "sort_pairs_plain", "sort_pairs_cuda", "b1_form"]
 
 MAX_OPS = 9
+RADIX_MIN_P, RADIX_MAX_P = 256, 8192  # csrc/radix.cuh
+
+
+def b1_form(n: int, num_keys: int, smem_limit: int) -> str:
+    """The form B1 takes for rows of ``n`` lanes and ``num_keys`` keys on
+    a card whose blocks may use ``smem_limit`` bytes of shared memory
+    (``csrc/sort.cu``'s ``sort_form`` mirrors it): ``"radix"`` at one or
+    two keys and 256 <= P <= 8192, ``"wide"`` at P > 8192 or where the
+    network's keys and positions would not fit, ``"network"``
+    otherwise."""
+    P = 1 << max(0, (n - 1).bit_length())
+    if num_keys <= 2 and RADIX_MIN_P <= P <= RADIX_MAX_P:
+        return "radix"
+    if P > RADIX_MAX_P or (num_keys + 1) * P * 4 > smem_limit:
+        return "wide"
+    return "network"
 
 
 def sort_pairs_plain(operands: Sequence[torch.Tensor],
@@ -86,19 +111,17 @@ def sort_pairs_cuda(operands: Sequence[torch.Tensor],
     n_ops = len(operands)
     outs = tuple(torch.empty_like(x) for x in operands)
     lib = kernels.library("sort")
-    P = 1
-    while P < n:
-        P *= 2
-    scratch = None  # the keys and positions of a row, when too wide
-    if (num_keys + 1) * P * 4 > _smem_limit(x0.device.index):
-        scratch = torch.empty((B, (num_keys + 1) * P), dtype=torch.int32,
-                              device=x0.device)
-    ins = (ctypes.c_void_p * n_ops)(*[x.data_ptr() for x in operands])
-    outp = (ctypes.c_void_p * n_ops)(*[o.data_ptr() for o in outs])
+    scratch, nbytes = None, 0
     with torch.cuda.device(x0.device):
+        if b1_form(n, num_keys, _smem_limit(x0.device.index)) == "wide":
+            nbytes = lib.cause_sort_wide_scratch_bytes(B, n, num_keys)
+            scratch = torch.empty(nbytes, dtype=torch.uint8,
+                                  device=x0.device)
+        ins = (ctypes.c_void_p * n_ops)(*[x.data_ptr() for x in operands])
+        outp = (ctypes.c_void_p * n_ops)(*[o.data_ptr() for o in outs])
         rc = lib.cause_sort_rows(
             ins, outp, n_ops, num_keys, B, n,
-            scratch.data_ptr() if scratch is not None else None,
+            scratch.data_ptr() if scratch is not None else None, nbytes,
             kernels.stream_handle(x0.device))
     kernels.check(rc, "sort")
     kernels.launches["sort"] += 1

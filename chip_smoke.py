@@ -28,7 +28,10 @@ Phases, one line each (times from CUDA events unless named host):
    real inputs on the plain path, plus edge cases (ragged widths, rows
    too wide for shared memory; for B1 the doubled-budget width P = 8192
    with two keys, keys whose composite spans more than 32 bits,
-   INT32_MIN beside INT32_MAX, rows of equal keys; for B2 a chain and a
+   INT32_MIN beside INT32_MAX, rows of equal keys, and the wide form:
+   B = 1 and 3 at n = 16,385, 65,536 and 131,072, 1,024 x 40,960, nine
+   keys at P = 8192, 1, 2, 3 and 9 keys of every kind (rows of INT32_MAX
+   only, full-range keys), each line naming its form; for B2 a chain and a
    star at K = 4096 and 8192, two interleaved chains, B = 1, a row on
    global scratch; for
    K1/K2/K4 the doubled-budget row u_max = 8192 on global scratch, Kp <
@@ -47,7 +50,9 @@ Phases, one line each (times from CUDA events unless named host):
    ``torch.sort``), one per K1/K2/K4 launch (ms, bound ms, CTAs per SM
    of its form and of the network form at its width) and one for B3
    (ms, bound ms, CTAs per SM); ``--phases`` adds K1's, K2's and K4's
-   split between load/store, scans and sorts in both forms;
+   split between load/store, scans and sorts in both forms; ``--tiles``
+   instead times B1's wide form at each tile width at the main path's
+   wide shapes and exits;
 3. north star: ``batched_pair_lanes`` -> ``batched_v5_inputs`` ->
    ``lanes_from_numpy`` -> ``batched_weave_digest`` on the card; launch
    counts of one dispatch, p50 of a few, against the plain path;
@@ -85,7 +90,7 @@ Phases, one line each (times from CUDA events unless named host):
    (from the report); the tree again on the plain versions, with the
    same levels and root, every kernel call of it held against its plain
    version on the card and timed once a shape (every level's window,
-   down to B1's network form on global scratch); the root equals
+   up to B1's wide form at 131,072 lanes); the root equals
    ``merge_many`` of the same handles; ``merge_all`` launches exactly
    the tree's kernels (not ``merge_many``'s) and gives the same root;
 8. maps: a fleet of 256 map replica pairs built as
@@ -166,9 +171,10 @@ Phases, one line each (times from CUDA events unless named host):
    each with its dispatch's 6/1/1 (or v5f's) launches and the CUDA
    allocator's statistics; the memory gauge equal to
    ``memory_allocated``; the stage ladder (A-E, FULL) at the north star
-   with FULL within 25% of phase 3's v5 dispatch (kernel and digest)
-   timed again right after the ladder, so that both sides see the same
-   host; the overhead on
+   with its FULL within 25% of phase 3's v5 dispatch (kernel and digest),
+   FULL's reps in turns with the dispatch's, a call of each a rep, on
+   the ladder's clock (CUDA events), so that both see the same host; the
+   overhead on
    the wave and on the tick; the JSONL sidecar holding every record.
 12. the wire: one offered round of phase 10's served fleet (32 tenants,
    capacity 16, ``d_max`` 64, 8 ``NetClient``s on the loopback
@@ -367,25 +373,6 @@ def timed_ms(torch, fn):
     return r, (time.perf_counter() - t) * 1e3
 
 
-def weave_digest_p50(torch, dev, v5, u_max: int, reps: int):
-    """Phase 3's north-star dispatch (``batched_weave_digest``, kernel
-    and digest) on the numpy batch ``v5``: the p50 and every time of
-    ``reps`` calls after one warm-up (host clock, synchronized)."""
-    import cause_tpu_torch as ct
-    from cause_tpu_torch import benchgen
-
-    lanes = benchgen.lanes_from_numpy(v5, dev)
-    args = [lanes[k] for k in benchgen.LANE_KEYS5]
-
-    def call():
-        return ct.batched_weave_digest(*args, u_max=u_max, k_max=u_max,
-                                       device=dev)
-
-    call()
-    times = [timed_ms(torch, call)[1] for _ in range(reps)]
-    return float(np.median(times)), times
-
-
 def session_edit(pairs, rnd):
     """Phase 6's round of edits: two appends on one side, one on the
     other."""
@@ -556,7 +543,8 @@ def check_call(torch, name, ops, kw, time_it: bool, flags_only=False):
 def edge_cases(torch, dev):
     """Inputs the north star does not reach: ragged widths, negative and
     duplicate keys with int32-max sentinels, rows too wide for shared
-    memory (the global-scratch paths), unreached forest runs."""
+    memory (B1's wide form, the fused kernels' global-scratch paths),
+    unreached forest runs."""
     from cause_tpu_torch.weaver import befuse, euler
 
     rng = np.random.default_rng(20261016)
@@ -577,11 +565,20 @@ def edge_cases(torch, dev):
                                      I32_MAX - 1, I32_MAX]), size=(B, n))
         elif kind == "equal":     # zero passes (n = P: no padding)
             x = np.full((B, n), -77)
+        elif kind == "all_max":   # every key INT32_MAX: zero passes
+            x = np.full((B, n), I32_MAX)
         else:                     # a sibling key: 15 bits of parent
             x = rng.integers(0, 2 * 8192 + 2, size=(B, n))
         return x.astype(np.int32)
 
     cases = []
+
+    def sort_case(B, n, n_ops, nk, kind):
+        ops = tuple(T(sort_key(kind, B, n)) if i < nk else
+                    T(full(B, n).astype(np.int32)) for i in range(n_ops))
+        cases.append(("sort", f"B={B} n={n} ops={n_ops} keys={nk} {kind} "
+                      f"({b1_form(ops, nk)})", ops, {"num_keys": nk}))
+
     for B, n, n_ops, nk, kind in (
             (3, 1, 1, 1, "narrow"), (4, 300, 3, 2, "narrow"),
             (4, 1000, 9, 3, "narrow"), (2, 16384, 9, 3, "narrow"),
@@ -591,10 +588,7 @@ def edge_cases(torch, dev):
             (2, 6000, 4, 2, "full"), (4, 4096, 3, 2, "full"),
             (4, 1000, 2, 1, "extremes"), (3, 4096, 3, 2, "equal"),
             (2, 2048, 2, 1, "equal")):
-        ops = [sort_key(kind, B, n) if i < nk else
-               full(B, n).astype(np.int32) for i in range(n_ops)]
-        cases.append(("sort", f"B={B} n={n} ops={n_ops} keys={nk} {kind}",
-                      tuple(T(x) for x in ops), {"num_keys": nk}))
+        sort_case(B, n, n_ops, nk, kind)
 
     def shaped(shape, B, K):
         """Run tables of a chain (parent i - 1), a star (parent 0) or two
@@ -668,6 +662,18 @@ def edge_cases(torch, dev):
             fail("K1 edge case 'duplicate runs' counts no conflict")
         cases.append(("k1_sort_redirect", f"{tag}: B={B} P={P} U={U}", ops,
                       {"U": U}))
+    # B1's wide form: B = 1 and 3 past 8,192 lanes, the v1 sort-join's
+    # 1,024 x 40,960, nine keys at P = 8192, every key kind
+    for B, n, n_ops, nk, kind in (
+            (1, 16385, 3, 1, "narrow"), (3, 16385, 4, 2, "full"),
+            (1, 16385, 9, 9, "extremes"), (3, 16385, 3, 3, "equal"),
+            (1, 65536, 3, 1, "all_max"), (3, 65536, 5, 3, "full"),
+            (1, 65536, 3, 2, "sibling"), (3, 65536, 9, 9, "narrow"),
+            (1, 131072, 2, 1, "extremes"), (3, 131072, 4, 2, "narrow"),
+            (1, 131072, 4, 3, "full"), (3, 131072, 3, 2, "all_max"),
+            (3, 8192, 9, 9, "full"), (1024, 40960, 3, 2, "full"),
+            (1024, 40960, 3, 1, "narrow")):
+        sort_case(B, n, n_ops, nk, kind)
     return cases
 
 
@@ -1019,6 +1025,89 @@ def phase_split(torch, calls) -> None:
                 f"{sh[2] * ms[form]:.4f}")
 
 
+# ``--tiles``: the wide B1 calls of the main path, as (B, n, operands,
+# keys): the tree's upper levels (phase 7), the stage ladder's one-row
+# calls (phase 13), the map dispatch's sites A and F (phase 8) and the
+# older generations' id sort, sort-join and child sort (phases 13-15),
+# with B = 16 and 32 beside the tree's 8 at 16,384 lanes
+TILE_SHAPES = (
+    (1, 16384, 2, 1), (1, 16384, 3, 2), (1, 16384, 4, 3), (1, 16384, 5, 2),
+    (1, 131072, 2, 1), (1, 131072, 3, 1), (1, 131072, 3, 2),
+    (1, 131072, 7, 2), (2, 65536, 3, 2), (2, 65536, 7, 2),
+    (4, 32768, 3, 2), (4, 32768, 7, 2), (8, 16384, 2, 1), (8, 16384, 3, 2),
+    (8, 16384, 7, 2), (16, 16384, 3, 2), (32, 16384, 3, 2),
+    (256, 10384, 2, 1), (256, 10384, 3, 2), (1024, 20480, 7, 2),
+    (1024, 20480, 4, 3), (1024, 40960, 3, 2))
+WIDE_TILES = (1024, 2048, 4096)
+
+
+def tile_sweep(torch, dev, card: str, rounds: int = 5) -> None:
+    """``--tiles``: ``sort.cu`` rebuilt with -DCAUSE_WIDE_TILE=T for each
+    tile width T of the wide form, and run at ``TILE_SHAPES`` beside the
+    default build (its tile rule) and ``torch.sort``. Keys are drawn from
+    [0, 2n), about the bits of the main path's lane and base keys; the
+    payloads are lane numbers. Every build's result is held bit-equal to
+    the plain version. The times are CUDA events, the mean of 10 calls a
+    round, ``rounds`` rounds of every build in turn; the median is
+    printed."""
+    import subprocess as sp
+
+    from cause_tpu_torch import kernels
+    from cause_tpu_torch.weaver import bitonic
+
+    out = kernels.BUILD / "tiles"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for tile in WIDE_TILES:
+        so = out / f"libsort-tile{tile}.so"
+        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS,
+               f"-DCAUSE_WIDE_TILE={tile}", "-o", str(so),
+               str(kernels.CSRC / kernels.SOURCES["sort"])]
+        jobs[tile] = (so, sp.Popen(cmd, stdout=sp.PIPE, stderr=sp.STDOUT,
+                                   text=True))
+    libs = {"rule": kernels.library("sort")}
+    for tile, (so, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"nvcc sort.cu tile {tile}: {log[-3000:]}")
+        libs[tile] = kernels.load(so)
+
+    rng = np.random.default_rng(20261017)
+    wins = {}
+    try:
+        for B, n, n_ops, nk in TILE_SHAPES:
+            ops = tuple(
+                torch.from_numpy(rng.integers(0, 2 * n, size=(B, n))
+                                 .astype(np.int32)).to(dev) if i < nk else
+                torch.arange(n, dtype=torch.int32, device=dev)
+                .expand(B, n).contiguous() for i in range(n_ops))
+            if bitonic.b1_form(n, nk, bitonic._smem_limit(dev.index)) != "wide":
+                fail(f"tiles: {B}x{n} keys={nk} is not a wide row")
+            want = bitonic.sort_pairs_plain(ops, nk)
+            lib_call = library_fn(torch, ops, nk)
+            run = lambda: bitonic.sort_pairs_cuda(ops, nk)  # noqa: E731
+            times = {k: [] for k in (*libs, "torch.sort")}
+            for _ in range(rounds):
+                for key, lib in libs.items():
+                    kernels._LIBS["sort"] = lib
+                    if max_err(torch, run(), want):
+                        fail(f"tiles: {B}x{n} keys={nk} at tile {key} "
+                             f"disagrees with the plain version")
+                    times[key].append(cuda_ms(torch, run, warm=1))
+                times["torch.sort"].append(cuda_ms(torch, lib_call, warm=1))
+            med = {k: float(np.median(v)) for k, v in times.items()}
+            best = min(WIDE_TILES, key=lambda t: med[t])
+            wins[best] = wins.get(best, 0) + 1
+            say(f"[tiles] {B}x{n} n_ops={n_ops} keys={nk}: "
+                + ", ".join(f"tile {t} {med[t]:.4f} ms" for t in WIDE_TILES)
+                + f", the rule's build {med['rule']:.4f} ms, torch.sort "
+                f"{med['torch.sort']:.4f} ms; fastest tile {best} (CUDA "
+                f"events, median of {rounds} rounds of 10 calls, in turns)")
+    finally:
+        kernels._LIBS["sort"] = libs["rule"]
+    say(f"[tiles] fastest tile by shape count: {wins}; {card}")
+
+
 def device_kernels(torch, fn, reps: int = 2):
     """(kernels per call, device ms per call) of ``fn`` on the card, from a
     torch.profiler trace of ``reps`` calls."""
@@ -1060,17 +1149,14 @@ def expect_launches(counts, want, what: str) -> None:
 
 def b1_form(ops, num_keys: int) -> str:
     """B1's width P for rows of these operands and the form it takes
-    there (``csrc/sort.cu``): radix at 256 <= P <= 8192 for one or two
-    keys, else the network, in shared memory or on global scratch."""
+    there, by the module's own rule (``bitonic.b1_form``: radix, wide or
+    network)."""
     from cause_tpu_torch.weaver import bitonic
 
-    P = 1 << max(0, (ops[0].shape[1] - 1).bit_length())
-    if num_keys <= 2 and 256 <= P <= 8192:
-        form = "radix"
-    elif (num_keys + 1) * P * 4 > bitonic._smem_limit(ops[0].device.index):
-        form = "network, global scratch"
-    else:
-        form = "network, shared memory"
+    n = ops[0].shape[1]
+    P = 1 << max(0, (n - 1).bit_length())
+    form = bitonic.b1_form(n, num_keys,
+                           bitonic._smem_limit(ops[0].device.index))
     return f"P={P} {form}"
 
 
@@ -1081,8 +1167,8 @@ def check_recorded(torch, calls, tag: str, sites=SORT_SITES,
     distinct kernel, shape and keyword set (not yet in ``timed``, which
     the caller may share between paths) also timed against its plain
     version and its bound, one line each (a B1 call with its site, its
-    width and its form: ``sites`` names a dispatch's sorts in call
-    order, the v5 dispatch's by default). Returns the timed calls' sums
+    width, its form and its time over ``torch.sort``'s: ``sites`` names
+    a dispatch's sorts in call order, the v5 dispatch's by default). Returns the timed calls' sums
     per kernel."""
     timed = set() if timed is None else timed
     per = {}
@@ -1114,7 +1200,8 @@ def check_recorded(torch, calls, tag: str, sites=SORT_SITES,
         say(f"{tag}: {name}{site} {shapes} n_ops={len(ops)} {kw or ''}: "
             f"max_abs_err 0, ms {rec['ms']:.4f} plain_ms "
             f"{rec['plain_ms']:.4f} bound_ms {rec['bound_ms']:.4f}"
-            + (f" library_ms {rec['library_ms']:.4f}"
+            + (f" library_ms {rec['library_ms']:.4f} ms/library_ms "
+               f"{rec['ms'] / rec['library_ms']:.3f}"
                if name == "sort" else ""))
     say(f"{tag}: {len(calls)} kernel calls, each equal to its plain "
         f"version on the card ({n_timed} distinct shapes timed)")
@@ -2898,13 +2985,19 @@ def phase_telemetry(torch, dev, card: str, pairs, v5, u_max: int,
         f"(v5f); memory gauge {sample['device_bytes_in_use']} B == "
         f"memory_allocated; gauged at {sorted(sites)}")
 
-    # ---- the stage ladder at the north star, and phase 3's dispatch
-    # timed right after it: the host's speed drifts over a run, so FULL
-    # is held against the dispatch beside it (phase 3's p50 is printed
-    # too). Phase 3 timed its dispatch before the earlier phases filled
-    # the heap with handles; freezing that heap keeps Python's full
-    # collections from scanning it in the middle of a timed prefix
+    # ---- the stage ladder at the north star, its FULL reps in turns with
+    # phase 3's dispatch (kernel and digest), a call of each a rep on the
+    # ladder's clock (CUDA events): the host's speed drifts over a run,
+    # so the ladder's FULL is held against the dispatch timed beside it
+    # (phase 3's p50 is printed too). Phase 3 timed its dispatch before
+    # the earlier phases filled the heap with handles; freezing that heap
+    # keeps Python's full collections from scanning it in the middle of
+    # a timed call
     import gc
+
+    def dispatch(*lanes):
+        return ct.batched_weave_digest(*lanes, u_max=u_max, k_max=u_max,
+                                       device=dev)
 
     gc.collect()
     gc.freeze()
@@ -2913,27 +3006,28 @@ def phase_telemetry(torch, dev, card: str, pairs, v5, u_max: int,
     try:
         ladder = stages.run_v5_stage_ladder(inputs=(v5, u_max),
                                             reps=3 * REPS, device=dev,
-                                            echo=lines.append)
-        obs.configure(enabled=False)
-        d_p50, d_all = weave_digest_p50(torch, dev, v5, u_max, 3 * REPS)
+                                            echo=lines.append,
+                                            beside=dispatch)
     finally:
         obs.configure(enabled=False)
         gc.unfreeze()
-    full = ladder[-1]["p50_ms"]
     if [r["stage"] for r in ladder] != ["A", "B", "C", "D", "E", "FULL"]:
         fail(f"{tag} stages: {ladder}")
+    full, d_p50 = ladder[-1]["p50_ms"], ladder[-1]["beside_p50_ms"]
     if abs(full - d_p50) > 0.25 * d_p50:
-        fail(f"{tag} stages: FULL p50 {full:.3f} ms is not within 25% of "
-             f"the v5 dispatch p50 {d_p50:.3f} ms timed right after it "
-             f"({[round(t, 3) for t in d_all]}; phase 3's {k_p50:.3f} ms)")
+        fail(f"{tag} stages: the ladder's FULL p50 {full:.3f} ms is not "
+             f"within 25% of the v5 dispatch p50 {d_p50:.3f} ms timed in "
+             f"turns with it ({[round(t, 3) for t in ladder[-1]['beside_ms']]}"
+             f"; phase 3's {k_p50:.3f} ms)")
     say(f"{tag} stages at the north star ({v5['hi'].shape[0]} rows, "
         f"u_max {u_max}; CUDA events, p50 of {3 * REPS}, the older heap "
         f"frozen): "
         + ", ".join(f"{r['stage']} {r['p50_ms']:.3f} ms ({r['delta_ms']:+.3f})"
                     for r in ladder)
-        + f"; FULL against the dispatch p50 right after it {d_p50:.3f} ms "
-        f"(host clock, synchronized, {3 * REPS} reps): {full / d_p50:.3f}; "
-        f"against phase 3's {k_p50:.3f} ms: {full / k_p50:.3f}; {card}")
+        + f"; FULL against the dispatch timed in turns with it, "
+        f"{d_p50:.3f} ms (CUDA events, {3 * REPS} reps each): "
+        f"{full / d_p50:.3f}; against phase 3's {k_p50:.3f} ms (host "
+        f"clock): {full / k_p50:.3f}; {card}")
 
     # ---- the sidecar: what was streamed folds like the ring
     streamed = perfetto.load_jsonl(sidecar)
@@ -4351,6 +4445,10 @@ def main() -> int:
                     help="also split K2's and K4's time at the north star "
                          "between load/store, scans and sorts, in both "
                          "forms, from builds stamped with clock64()")
+    ap.add_argument("--tiles", action="store_true",
+                    help="only time B1's wide form at each tile width at "
+                         "the main path's wide shapes, from builds of "
+                         "sort.cu with -DCAUSE_WIDE_TILE, then exit")
     ap.add_argument("--collector", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.collector:
@@ -4381,6 +4479,9 @@ def main() -> int:
     kernels.build_all(verbose=True)
     say(f"[1 build] {len(kernels.SOURCES)} kernels built in "
         f"{time.perf_counter() - t0:.3f} s (host clock)")
+    if args.tiles:
+        tile_sweep(torch, dev, card)
+        return 0
 
     # ------------------------------------------------ north-star inputs
     cap, n_base, n_div = CAP, N_BASE, N_DIV

@@ -290,6 +290,33 @@ def test_timed_median_on_given_inputs(ladder_inputs):
     assert out == 3 and len(samples) == 3 and p50 >= 0
 
 
+def test_stage_ladder_times_beside_in_turns(ladder_inputs):
+    """A program ``beside`` FULL is timed in turns with it, a call of
+    each a rep: FULL's dict holds its p50 and every sample, and the
+    reps' spans alternate between the two programs."""
+    obs.configure(enabled=True)
+    seen = []
+
+    def beside(*lanes):
+        seen.append(len(lanes))
+        return lanes[0]
+
+    res = stages.run_v5_stage_ladder(reps=3, inputs=ladder_inputs,
+                                     device="cpu", echo=lambda s: None,
+                                     beside=beside)
+    full = res[-1]
+    assert full["stage"] == "FULL" and len(full["beside_ms"]) == 3
+    assert full["beside_p50_ms"] == pytest.approx(
+        float(np.median(full["beside_ms"])))
+    assert all("beside_ms" not in r for r in res[:-1])
+    assert seen == [len(tbench.LANE_KEYS5)] * 4  # a warm-up, 3 reps
+    reps = [e["attrs"]["program"] for e in obs.events()
+            if e.get("ev") == "span" and e.get("name") == "stages.rep"
+            and e["attrs"]["program"] in ("stages.prefix.FULL",
+                                          "stages.beside")]
+    assert reps == ["stages.prefix.FULL", "stages.beside"] * 3
+
+
 def test_stages_cli(tmp_path):
     side = str(tmp_path / "st.jsonl")
     r = subprocess.run(
