@@ -8,10 +8,11 @@ tombstone; ``fleet_lanes`` for a whole fleet in one row), the host run
 estimator and run budget of the v2-v4 kernels, the v5 segment-table
 marshal and token budget, the handle-level fleet generator,
 ``merge_wave_scalar`` (one batched merge of any kernel generation
-reduced to a checksum), and ``lanes_from_numpy``, which turns the
-marshalled numpy batch into the port's tensors — so one marshalled
-batch feeds both packages. ``time_dispatch`` and the reference's
-compile cache are not ported.
+reduced to a checksum), ``time_dispatch`` (the burst timer every
+mode of ``cause_tpu_torch.bench`` shares) and ``lanes_from_numpy``,
+which turns the marshalled numpy batch into the port's tensors — so
+one marshalled batch feeds both packages. The reference's compile cache
+is not ported: the port compiles nothing per shape.
 
 Site-id strings never exist in the lane generators: sites are
 materialized directly as order-preserving ranks (root "0" < base <
@@ -44,6 +45,7 @@ __all__ = [
     "estimate_pair_runs",
     "pair_run_budget",
     "merge_wave_scalar",
+    "time_dispatch",
     "v5_inputs",
     "batched_v5_inputs",
     "v5_token_budget",
@@ -259,6 +261,42 @@ def merge_wave_scalar(*args, k_max: int = 0, kernel: str = "v2",
     from .weaver.torchw import batched_merge_weave
 
     return _float_checksum(*batched_merge_weave(*args, device=dev))
+
+
+def time_dispatch(dispatch, reps: int, burst_n: int = 8,
+                  begin=None, end=None):
+    """The bench's timing method as one helper, so that every mode times
+    alike: ``reps`` single dispatches, each waited for, then bursts of
+    ``burst_n`` dispatches with one wait at the end of each: ``reps``
+    bursts while the single p50 is under a second, one otherwise (past
+    that a burst's launch overhead is noise). ``dispatch`` returns a
+    tensor; the wait is its copy to the host (``.cpu()``), which returns
+    once the work queued on the device's stream before it is done.
+    ``begin``/``end`` bracket each timed single (the cost model's wave
+    window), outside its time; bursts are not bracketed (a burst is not
+    one wave). Returns ``(singles_ms, bursts_ms)``, host clock, a
+    burst's time divided by ``burst_n``."""
+    import time as _time
+
+    singles = []
+    for _ in range(reps):
+        if begin is not None:
+            begin()
+        t0 = _time.perf_counter()
+        dispatch().cpu()
+        singles.append((_time.perf_counter() - t0) * 1000.0)
+        if end is not None:
+            end()
+    bursts = []
+    burst_reps = reps if float(np.median(singles)) < 1000.0 else 1
+    for _ in range(burst_reps):
+        t0 = _time.perf_counter()
+        out = None
+        for _ in range(burst_n):
+            out = dispatch()
+        out.cpu()
+        bursts.append((_time.perf_counter() - t0) * 1000.0 / burst_n)
+    return singles, bursts
 
 
 def v5_inputs(row: Dict[str, np.ndarray], capacity: int,

@@ -13,7 +13,8 @@ ladder and compaction, a served fleet of 32 tenants behind the
 network transport, the telemetry over those paths and shipped over the
 wire to a collector, the older kernel generations (v1-v4) with the
 device weaver's ladder, the benchmark CLI and the sharded steps,
-wave and map routes over a one-rank NCCL mesh, and checks that
+wave and map routes over a one-rank NCCL mesh, the north-star benchmark
+(``cause_tpu_torch.bench``) and its modes, and checks that
 the kernels really
 carried those paths (launch counts) and that the results are
 bit-identical to the plain path on the card, to each other and to the
@@ -248,8 +249,30 @@ Phases, one line each (times from CUDA events unless named host):
    merge on the card equal to the CPU's; ``dryrun_multichip(4,
    device="cpu")`` in a subprocess over gloo ranks, and
    ``dryrun_multichip(1)`` over one NCCL rank on the card.
+16. the north-star benchmark: ``cause_tpu_torch.bench.measure("cuda")``
+   in this process at the north star, uncut, through v5 and then
+   ``BENCH_KERNEL=v5f``: the artifact (kernel, platform ``cuda``, the
+   card, the amortized p50 over its bursts, ``vs_target``), its
+   single-wave p50 within 0.5-2x phase 3's (3f's) dispatch p50, the
+   launches exactly 6/1/1 (v5f's six kernels) times the waves it ran
+   (a warm wave, 3 timed singles, 3 bursts of 8), every wave's
+   ``[checksum, overflowed]`` equal to a plain-path wave on the card and
+   v5f's to v5's, the host's sync points in one wave (PyTorch's sync
+   debug mode); a drift probe of phase 3's batch through the same
+   scalar program, run after phase 3 and again here, then after a full
+   collection and after the allocator's cache is emptied (20 waves one at a
+   time: wall, host queueing, card span on CUDA events, the process's
+   CPU share, the card's clock, power and temperature, a launch's and a
+   Python loop's time); then, each a subprocess with
+   telemetry on: ``python -m cause_tpu_torch.bench`` (its ledger row
+   under ``gpu``), ``BENCH_DIV_SWEEP=10,500`` at full size (every
+   level's digests agree), ``BENCH_TREE=16`` at 10,000 nodes (cut from
+   64; root bit-identical to the flat fold in ``tree_rounds(16)``
+   rounds), ``BENCH_LAG=64 BENCH_LIVE=1`` (no op pending), and
+   ``python -m cause_tpu_torch.api_bench --wave 256 --lazy`` (no
+   overflowed row, no pair off the card).
 
-Phases 5-15 each reset or read the launch counts around their runs
+Phases 5-16 each reset or read the launch counts around their runs
 (phases 10-12 tick by tick) and read them after: a phase that did
 not launch B1, B2 and B3 fails.
 
@@ -1283,6 +1306,19 @@ def phase_delta(torch, dev, ns_p50: float, p50, profile_dir=None) -> None:
         if not (torch.equal(rf, f_rank) and torch.equal(vf, f_vis)):
             fail(f"{tag}: the splice does not give back the full-width "
                  f"ranks and visibility")
+        # the host's waits, with the splice's coordinates on the card
+        # (as the bench's sweep holds them)
+        on = {k: torch.as_tensor(sw[k], device=dev)
+              for k in ("starts", "counts", "r0")}
+        pdig = torch.as_tensor(sw["prefix_digest"].view(np.int32),
+                               device=dev)
+        d_sync = sync_points(torch, lambda: ct.batched_delta_weave(
+            *wargs, pdig, on["r0"], u_max=nw, k_max=nw, device=dev))
+        s_sync = sync_points(torch, lambda: torchwd.splice_ranks(
+            rf, vf, got[0], got[1], on["starts"], on["counts"], on["r0"]))
+        say(f"{tag}: the host waits for the card {len(d_sync)} times in "
+            f"one delta dispatch {sorted(set(d_sync))} and {len(s_sync)} "
+            f"times in its splice {sorted(set(s_sync))}")
         per = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                       "library_ms": 0.0} for name in V5_LAUNCHES}
         sites = iter(SORT_SITES)
@@ -4434,6 +4470,386 @@ def phase_sharded(torch, dev, card: str, batch, v5, u_max: int, pairs,
     return counts, per
 
 
+# ------------------------------------------- 16. the north-star benchmark
+
+# phase 16: the modes the benchmark runs as subprocesses (the divergence
+# levels; the tree's replicas, cut from 64 to keep the smoke's time; the
+# lag fleet), the api wave's pairs (the largest of 1,024 / 512 / 256
+# whose handle build takes under 60 s on a host CPU), each subprocess's
+# time limit, and the reps of the drift probe
+BENCH16_SWEEP = "10,500"
+BENCH16_TREE = 16
+BENCH16_LAG = 64
+API_WAVE_PAIRS = 256
+BENCH16_TIMEOUT = 600
+DRIFT_REPS = 20
+
+
+@contextlib.contextmanager
+def bench_env(**env):
+    """The benchmark's variables for the block: every ``BENCH_*`` and
+    telemetry variable of this process cleared, then ``env`` set; all
+    restored after."""
+    mine = [k for k in os.environ
+            if k.startswith(("BENCH_", "CAUSE_TPU_OBS", "CAUSE_TPU_LEDGER"))]
+    saved = {k: os.environ.pop(k) for k in mine}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+
+
+def sync_points(torch, fn) -> list:
+    """Where ``fn`` makes the host wait for the card: for each
+    synchronizing CUDA call it makes (PyTorch's sync debug mode warns at
+    each), the innermost frame of the port that made it, as
+    ``file:line``."""
+    import traceback
+    import warnings
+
+    pkg = os.path.join(REPO_ROOT, "cause_tpu_torch")
+    sites = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # a wait with no frame of the port is the debug mode's own reset
+        ours = [f for f in traceback.extract_stack()
+                if f.filename.startswith(pkg)]
+        if "synchroniz" in str(message) and ours:
+            sites.append(f"{os.path.relpath(ours[-1].filename, REPO_ROOT)}:"
+                         f"{ours[-1].lineno}")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sites
+
+
+def smi_sample() -> str:
+    """The card's SM clock, power draw and temperature now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def host_probes(torch) -> str:
+    """Two fixed pieces of host work, timed: 2,000 launches of a
+    one-element add on the card (synchronized; µs a launch) and a pure
+    Python loop (ms), each the best of 3."""
+    x = torch.zeros(1, device="cuda")
+    launch, py = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            x.add_(1)
+        torch.cuda.synchronize()
+        launch.append((time.perf_counter() - t0) * 1e6 / 2000)
+        t0 = time.perf_counter()
+        sum(i * i for i in range(200_000))
+        py.append((time.perf_counter() - t0) * 1e3)
+    return (f"a launch {min(launch):.2f} us, a Python loop "
+            f"{min(py):.3f} ms")
+
+
+def drift_probe(torch, tag: str, fn) -> float:
+    """``DRIFT_REPS`` waves of ``fn`` one at a time: the host's time to
+    queue the wave, its time to the end of the wait, the card's span
+    between two events around it (CUDA events), and this process's CPU
+    time over the probe against its wall, beside the card's clock, power
+    and temperature before and after, the threads alive, the objects the
+    garbage collector tracks, the caching allocator's reserved bytes and
+    ``host_probes``. A wave whose queueing takes nearly its whole wall is
+    bound by the host. Returns the wall p50."""
+    import gc
+    import threading
+
+    probes = host_probes(torch)
+    smi0 = smi_sample()
+    queue, wall, span = [], [], []
+    cpu0, w0 = time.process_time(), time.perf_counter()
+    for _ in range(DRIFT_REPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        queue.append((t1 - t0) * 1e3)
+        wall.append((t2 - t0) * 1e3)
+        span.append(e0.elapsed_time(e1))
+    cpu_share = (time.process_time() - cpu0) / (time.perf_counter() - w0)
+    smi1 = smi_sample()
+
+    def stats(xs):
+        return (f"min {min(xs):.3f} p50 {float(np.median(xs)):.3f} max "
+                f"{max(xs):.3f}")
+
+    threads = sorted(t.name for t in threading.enumerate())
+    say(f"{tag} drift probe, {DRIFT_REPS} waves one at a time: wall "
+        f"{stats(wall)} ms, host queueing {stats(queue)} ms, card span "
+        f"{stats(span)} ms (CUDA events); this process's CPU time "
+        f"{100 * cpu_share:.1f}% of the probe's wall; clock, power, "
+        f"temperature before [{smi0}] after [{smi1}]; {len(threads)} "
+        f"threads {threads[:12]}; {len(gc.get_objects())} objects tracked "
+        f"by gc; {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved by "
+        f"the allocator; {probes}")
+    return float(np.median(wall))
+
+
+def bench_headline(torch, card: str, kernel: str, p50_ms: float,
+                   want: dict):
+    """Phase 16, steps (a) and (b): ``bench.measure("cuda")`` in this
+    process at the north star, uncut, with ``BENCH_KERNEL=kernel``:
+    the artifact (kernel, platform, card, value, ``vs_target``), its
+    single-wave p50 within 0.5-2x the phase-3 dispatch p50 ``p50_ms``,
+    the launches exactly ``want`` times its waves (a warm wave, the
+    timed singles, the bursts), every wave's ``[checksum, overflowed]``
+    equal and equal to a plain-path wave on the card with 0 overflowed
+    rows. Then the host's sync points in one wave.
+    Returns (artifact, launches, the last wave's output)."""
+    from cause_tpu_torch import bench, benchgen, kernels
+
+    tag = f"[16 bench {kernel}]"
+    real = benchgen.merge_wave_scalar
+    outs, first = [], []
+
+    def recorded(*args, **kw):
+        out = real(*args, **kw)
+        if not first:
+            first.append((args, kw))
+        outs.append(out)
+        return out
+
+    benchgen.merge_wave_scalar = recorded
+    try:
+        with bench_env(**({"BENCH_KERNEL": kernel} if kernel != "v5"
+                          else {})):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            rec = bench.measure("cuda")
+            secs = time.perf_counter() - t0
+            counts = dict(kernels.launches)
+    finally:
+        benchgen.merge_wave_scalar = real
+    say(f"{tag} artifact {json.dumps(rec)}; {secs:.1f} s in measure() "
+        f"(host clock, the marshal included)")
+    waves = 1 + rec["reps"] + rec["burst_reps"] * rec["waves_per_burst"]
+    if rec["kernel"] != kernel or rec["platform"] != "cuda":
+        fail(f"{tag} ran {rec['kernel']!r} on {rec['platform']!r}")
+    if rec["card"] != card:
+        fail(f"{tag} card {rec['card']!r}, expected {card!r}")
+    if len(outs) != waves:
+        fail(f"{tag} {len(outs)} waves, the artifact counts {waves}")
+    expect_launches(counts, {k: v * waves for k, v in want.items()},
+                    f"{tag} {waves} waves")
+    ratio = rec["single_dispatch_ms"] / p50_ms
+    if not 0.5 <= ratio <= 2.0:
+        fail(f"{tag} single-wave p50 {rec['single_dispatch_ms']} ms is "
+             f"{ratio:.2f}x phase 3's {p50_ms:.3f} ms")
+    # vs_target is the target over the unrounded p50
+    if not rec["value"] > 0 or abs(
+            rec["vs_target"] - 100.0 / rec["value"]) > 1e-2:
+        fail(f"{tag} value {rec['value']} / vs_target {rec['vs_target']}")
+    args, kw = first[0]
+    with plain_path():
+        plain = real(*args, **kw)
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        if not torch.equal(out, plain):
+            fail(f"{tag} wave {i}'s [checksum, overflowed] {out.tolist()} "
+                 f"differs from the plain path's {plain.tolist()}")
+    if int(plain[1]) != 0:
+        fail(f"{tag} {int(plain[1])} rows overflowed")
+    syncs = sync_points(torch, lambda: real(*args, **kw))
+    say(f"{tag} {waves} waves, launches {counts} ({want} a wave); every "
+        f"wave's [checksum, overflowed] {plain.tolist()} equals the plain "
+        f"path's on the card; single p50 {rec['single_dispatch_ms']:.3f} ms "
+        f"= {ratio:.2f}x phase 3's {p50_ms:.3f} ms, amortized "
+        f"{rec['value']:.3f} ms (host clock); the host waits for the card "
+        f"{len(syncs)} times in one wave"
+        + (f" at {sorted(set(syncs))}" if syncs else "")
+        + f"; {card}")
+    return rec, counts, plain
+
+
+def bench_cli16(tag: str, module: str, args=(), **env) -> list:
+    """``python -m module args`` from the checkout's root with only the
+    benchmark variables ``env`` set: exit 0 within ``BENCH16_TIMEOUT``.
+    Returns its stdout's JSON lines."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    full = {k: v for k, v in os.environ.items()
+            if not k.startswith(("BENCH_", "CAUSE_TPU_OBS",
+                                 "CAUSE_TPU_LEDGER"))}
+    full.update(env)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", module, *args], cwd=root,
+                         env=full, capture_output=True, text=True,
+                         timeout=BENCH16_TIMEOUT)
+    secs = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"{tag} exited {out.returncode}: {out.stdout[-1000:]} "
+             f"{out.stderr[-2000:]}")
+    lines = []
+    for line in out.stdout.strip().splitlines():
+        try:
+            lines.append(json.loads(line))
+        except json.JSONDecodeError:
+            fail(f"{tag} a line is not JSON: {line!r}")
+    for line in out.stderr.strip().splitlines():
+        if line.startswith("bench: ") and "->" not in line:
+            say(f"{tag} {line}")
+    say(f"{tag} {secs:.1f} s (host clock, the subprocess's start "
+        f"included); last line {json.dumps(lines[-1])}")
+    return lines
+
+
+def bench_modes(card: str, k_value: float, tmp: str) -> None:
+    """Phase 16, step (c): the benchmark's entry points as a user runs them,
+    each a subprocess with telemetry on, a sidecar and a ledger in
+    ``tmp``: the headline (beside this process's amortized p50
+    ``k_value``; its ledger row under ``gpu``), the divergence sweep
+    (every level's digests agree), the tree (bit-identical to the fold
+    in ``tree_rounds(n)`` rounds), lag with the live monitor (no op
+    pending), and ``api_bench --wave`` (no overflow, no pair off the
+    card)."""
+    from cause_tpu_torch.obs import ledger
+    from cause_tpu_torch.parallel.tree import tree_rounds
+
+    led = os.path.join(tmp, "ledger.jsonl")
+
+    def run(mode: str, **env):
+        return bench_cli16(
+            f"[16 bench {mode}]", "cause_tpu_torch.bench", CAUSE_TPU_OBS="1",
+            CAUSE_TPU_OBS_OUT=os.path.join(tmp, f"{mode}.jsonl"),
+            CAUSE_TPU_LEDGER=led, **env)[-1]
+
+    rec = run("cli")
+    if rec["platform"] != "cuda" or rec["kernel"] != "v5" or \
+            rec["card"] != card or not rec["value"] > 0:
+        fail(f"[16 bench cli] artifact {rec}")
+    rows = [r for r in ledger.load(led) if r["kind"] == "bench"]
+    if len(rows) != 1 or rows[0]["platform"] != ledger.CHIP_PLATFORM or \
+            rows[0]["quarantined"]:
+        fail(f"[16 bench cli] ledger rows {rows}")
+    say(f"[16 bench cli] a fresh process: amortized {rec['value']:.3f} ms, "
+        f"single {rec['single_dispatch_ms']:.3f} ms; this process late in "
+        f"the smoke: amortized {k_value:.3f} ms; one {ledger.CHIP_PLATFORM} "
+        f"row in the ledger")
+
+    rec = run("sweep", BENCH_DIV_SWEEP=BENCH16_SWEEP)
+    want = sorted(int(x) for x in BENCH16_SWEEP.split(","))
+    if [lv["level_ops"] for lv in rec["levels"]] != want or not (
+            rec["digest_agreed"]
+            and all(lv["digest_agreed"] for lv in rec["levels"])):
+        fail(f"[16 bench sweep] levels {rec['levels']}")
+    for lv in rec["levels"]:
+        say(f"[16 bench sweep] level {lv['level_ops']} (window {lv['wcap']} "
+            f"a side): full p50 {lv['full_p50_ms']} ms, amortized "
+            f"{lv['full_amortized_ms']}; delta p50 {lv['delta_p50_ms']}, "
+            f"amortized {lv['delta_amortized_ms']}; delta/full "
+            f"{lv['delta_over_full']}; digests agree")
+
+    rec = run("tree", BENCH_TREE=str(BENCH16_TREE))
+    (fl,) = rec["fleets"]
+    if not (rec["bit_identical"] and fl["bit_identical"]) or \
+            fl["rounds"] != tree_rounds(BENCH16_TREE):
+        fail(f"[16 bench tree] {fl}")
+    say(f"[16 bench tree] {BENCH16_TREE} replicas x {fl['doc']} nodes: "
+        f"{fl['rounds']} rounds {fl['paths']}, tree p50 "
+        f"{fl['tree_p50_ms']} ms (reps {fl['tree_reps_ms']}) against the "
+        f"fold's {fl['fold_ms']} ms, {fl['tree_over_fold']}; root "
+        f"bit-identical")
+
+    rec = run("lag", BENCH_LAG=str(BENCH16_LAG), BENCH_LIVE="1")
+    (fl,) = rec["fleets"]
+    if fl["pending"] != 0 or not fl["ops_converged"] > 0:
+        fail(f"[16 bench lag] {fl}")
+    say(f"[16 bench lag] {BENCH16_LAG} replicas x {fl['doc']} nodes, "
+        f"{fl['rounds']} rounds: {fl['ops_converged']} ops converged, 0 "
+        f"pending; p50 {fl['p50_ms']} ms, p99 {fl['p99_ms']}, SLO "
+        f"{fl['slo_ms']} ms {fl['verdict']}; live monitor "
+        f"{fl['live']['overhead_pct']}% of the wave rounds' wall")
+    rows = ledger.load(led)
+    kinds = sorted({r["kind"] for r in rows})
+    if any(r["platform"] != ledger.CHIP_PLATFORM for r in rows if
+           r["kind"] != "bench") or kinds != ["bench", "lag", "live",
+                                              "sweep", "tree"]:
+        fail(f"[16 bench] ledger kinds {kinds}")
+
+    lines = bench_cli16("[16 api_bench wave]", "cause_tpu_torch.api_bench",
+                        ("--wave", str(API_WAVE_PAIRS), "--lazy"))
+    setup, session, wave = lines
+    if wave["overflow_rows"] or wave["fallback_pairs"] or \
+            wave["kernel"] != "v5" or wave["platform"] != "cuda":
+        fail(f"[16 api_bench wave] {wave}")
+    say(f"[16 api_bench wave] {API_WAVE_PAIRS} pairs: handle build "
+        f"{setup['value']} s; host assembly {wave['host_assembly_ms']} ms, "
+        f"kernel + digest + copy {wave['device_kernel_ms']} ms (amortized "
+        f"{wave['device_kernel_amortized_ms']}), whole wave "
+        f"{wave['whole_wave_ms']} ms, one merged(i) "
+        f"{wave['materialize_one_pair_ms']} ms; session round "
+        f"{session['delta_update_plus_wave_ms']} ms; {card}")
+
+
+def phase_bench(torch, card: str, k_p50: float, f_p50: float, probe,
+                early_ms: float) -> dict:
+    """Phase 16: the drift probe on ``probe`` (phase 3's batch through
+    ``merge_wave_scalar``, probed after phase 3 at ``early_ms``) again
+    late in the run, after a full collection, and after the allocator's
+    cache was emptied too;
+    the north-star benchmark (``cause_tpu_torch.bench``) in this process
+    at the north star through v5 and v5f (phase 3's and 3f's dispatch p50s
+    ``k_p50``, ``f_p50``); then its modes and ``api_bench --wave`` as
+    subprocesses. Returns the launches of the two in-process runs."""
+    import gc
+    import tempfile
+
+    from cause_tpu_torch import kernels
+
+    t_phase = time.perf_counter()
+    late_ms = drift_probe(torch, "[16 drift late]", probe)
+    gc.collect()
+    collected_ms = drift_probe(torch, "[16 drift late, collected]", probe)
+    torch.cuda.empty_cache()
+    emptied_ms = drift_probe(torch, "[16 drift late, cache emptied]", probe)
+    say(f"[16 drift] the same wave's wall p50: {early_ms:.3f} ms after "
+        f"phase 3, {late_ms:.3f} ms now, {collected_ms:.3f} ms after a "
+        f"full collection, {emptied_ms:.3f} ms after the allocator's "
+        f"cache was emptied too; {card}")
+    counts = {n: 0 for n in kernels.SOURCES}
+    v5, got, out5 = bench_headline(torch, card, "v5", k_p50, V5_LAUNCHES)
+    for k, v in got.items():
+        counts[k] += v
+    _v5f, got, out5f = bench_headline(torch, card, "v5f", f_p50,
+                                      V5F_LAUNCHES)
+    for k, v in got.items():
+        counts[k] += v
+    if not torch.equal(out5, out5f):
+        fail(f"[16 bench] v5f's [checksum, overflowed] {out5f.tolist()} "
+             f"differs from v5's {out5.tolist()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        bench_modes(card, v5["value"], tmp)
+    say(f"[16 bench] launches over steps (a) and (b) {counts}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s (host clock); {card}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -4666,7 +5082,15 @@ def main() -> int:
         f"{[round(t, 3) for t in pf_all]})")
     if args.profile:
         profile_dispatch(torch, dispatch_f, args.profile, f_p50, tag="v5f")
-    del out, out_f, ref_f, lanes, args5
+    # the drift probe's wave: this batch through the bench's scalar
+    # program, probed now and again in phase 16
+    def probe():
+        return benchgen.merge_wave_scalar(*args5, k_max=u_max, kernel="v5",
+                                          u_max=u_max, device=dev)
+
+    probe()
+    early_ms = drift_probe(torch, "[3 drift]", probe)
+    del out, out_f, ref_f, lanes
 
     # ------------------------------------------------ 4. api
     t0 = time.perf_counter()
@@ -4786,6 +5210,9 @@ def main() -> int:
                                             u_max, pairs, wave_digest)
     del batch, pairs
 
+    # ------------------------------------------------ 16. the bench
+    bench16_counts = phase_bench(torch, card, k_p50, f_p50, probe, early_ms)
+
     # ------------------------------------------------ result
     recs = []
     for name in kernels.SOURCES:
@@ -4842,6 +5269,9 @@ def main() -> int:
             "sharded_bound_ms": shard_per.get(name, {}).get("bound_ms"),
             "sharded_library_ms": shard_per.get(name, {}).get(
                 "library_ms"),
+            # phase 16's benchmark in this process at the north star (v5,
+            # then BENCH_KERNEL=v5f: 28 waves each)
+            "bench_launches": bench16_counts[name],
         })
     say(f"total {time.perf_counter() - t_start:.1f} s (host clock)")
     print(card, flush=True)
