@@ -24,7 +24,7 @@ host cost paid (``cause_tpu_torch.bench`` generates its lanes instead).
 
 Prints one JSON line a measurement, with the reference's keys. Runs on
 the card unless ``--cpu`` asks for the plain versions on the CPU: there
-is no other CPU route, and without a card the device steps raise.
+is no other CPU route, and without a card it exits 2 with one line.
 Every device step ends in a copy to the host, which waits for the card.
 """
 
@@ -37,6 +37,7 @@ import time
 
 import numpy as np
 
+from .device import claim_device
 from .ids import new_site_id
 
 
@@ -49,17 +50,6 @@ def timed(fn, reps=3):
         fn()
         ts.append((time.perf_counter() - t0) * 1000)
     return float(np.median(ts))
-
-
-def claim_device(cpu: bool):
-    """The device of the run: the CPU when asked, else the card (which
-    raises without one). Sets the package default, which the handle
-    paths read. Called after the host minting."""
-    from .device import resolve_device, use_device
-
-    dev = resolve_device("cpu" if cpu else "cuda")
-    use_device(dev)
-    return dev
 
 
 def build_pair(n_base: int, n_div: int, weaver: str):
@@ -232,7 +222,7 @@ def wave_bench(args):
         "pairs": B, "nodes_per_tree": n_base + n_div + 1,
         "value": round(build_s, 1), "unit": "s",
     }), flush=True)
-    dev = claim_device(args.cpu)
+    dev = claim_device(args.cpu, "api_bench")
     return wave_measure(pairs, dev, n_base + n_div + 1, reps=args.reps,
                         burst=args.burst, kernel=kernel)
 
@@ -261,7 +251,7 @@ def map_bench(args):
             b = b.append(K(f"x{e % 4}"), f"b{p}.{e}")
         pairs.append((a.ct.nodes, b.ct.nodes))
 
-    dev = claim_device(args.cpu)
+    dev = claim_device(args.cpu, "api_bench")
     t_marshal = timed(lambda: mapw.pair_rows(pairs), reps=args.reps)
     lanes, meta = mapw.pair_rows(pairs)
     hi = torch.from_numpy(lanes["hi"]).to(dev)
@@ -294,7 +284,7 @@ def merge_bench(args):
     from .weaver import torchw
     from .weaver.arrays import NodeArrays
 
-    dev = claim_device(args.cpu)
+    dev = claim_device(args.cpu, "api_bench")
     for weaver in ("pure", "native", "torch"):
         a, b = build_pair(args.n_base, args.n_div, weaver)
         p50 = timed(lambda: a.merge(b))

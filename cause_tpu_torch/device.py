@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["use_device", "default_device", "resolve_device"]
+__all__ = ["use_device", "default_device", "resolve_device", "claim_device"]
 
 _DEFAULT = "cuda"
 
@@ -36,4 +36,19 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available: pass device='cpu' (or call "
             "cause_tpu_torch.use_device('cpu')) to run the plain PyTorch "
             "versions of the kernels on the CPU")
+    return dev
+
+
+def claim_device(cpu: bool, prog: str) -> torch.device:
+    """A command's device, set as the package default: the CPU when
+    ``cpu``, else the card. Without a card, prints one line naming
+    ``prog`` and exits 2: a command never carries on on the CPU."""
+    import sys
+
+    try:
+        dev = resolve_device("cpu" if cpu else "cuda")
+    except RuntimeError as e:
+        print(f"{prog}: no CUDA device ({e})", file=sys.stderr, flush=True)
+        sys.exit(2)
+    use_device(dev)
     return dev

@@ -42,8 +42,9 @@ from .euler import euler_walk, link_children
 from .fphase import fphase_expand
 from .gatherops import (at_add, at_set, searchsorted_iota_right,
                         searchsorted_targets_left, take1d)
+from .torchw import _row
 
-__all__ = ["batched_merge_weave_v5", "STAGES"]
+__all__ = ["merge_weave_kernel_v5", "batched_merge_weave_v5", "STAGES"]
 
 BIG = int(I32_MAX)
 I32 = torch.int32
@@ -501,3 +502,18 @@ def batched_merge_weave_v5(hi, lo, cci, vclass, valid, seg,
                      sg_max_hi, sg_max_lo, sg_len, sg_lane0, sg_dense,
                      sg_tail_special, sg_valid, sg_vsum), device)
     return _v5(*args, u_max=int(u_max), k_max=int(k_max), stage=stage)
+
+
+def merge_weave_kernel_v5(hi, lo, cci, vclass, valid, seg,
+                          sg_min_hi, sg_min_lo, sg_max_hi, sg_max_lo,
+                          sg_len, sg_lane0, sg_dense, sg_tail_special,
+                          sg_valid, sg_vsum, u_max: int, k_max: int,
+                          device="cuda"):
+    """``batched_merge_weave_v5`` for one replica set's ``[N]`` lanes and
+    ``[S]`` segment tables."""
+    out = batched_merge_weave_v5(
+        *_row((hi, lo, cci, vclass, valid, seg, sg_min_hi, sg_min_lo,
+               sg_max_hi, sg_max_lo, sg_len, sg_lane0, sg_dense,
+               sg_tail_special, sg_valid, sg_vsum)),
+        u_max=u_max, k_max=k_max, device=device)
+    return tuple(x[0] for x in out)

@@ -35,9 +35,10 @@ from .bitonic import sort_pairs
 from .euler import euler_walk
 from .fphase import fphase_expand
 from .gatherops import at_set, take1d
+from .torchw import _row
 from .torchw5 import _prepare, _v5_ab
 
-__all__ = ["batched_merge_weave_v5f"]
+__all__ = ["merge_weave_kernel_v5f", "batched_merge_weave_v5f"]
 
 BIG = int(I32_MAX)
 I32 = torch.int32
@@ -136,3 +137,19 @@ def batched_merge_weave_v5f(hi, lo, cci, vclass, valid, seg,
                      sg_max_hi, sg_max_lo, sg_len, sg_lane0, sg_dense,
                      sg_tail_special, sg_valid, sg_vsum), device)
     return _v5f(*args, u_max=int(u_max), k_max=int(k_max))
+
+
+def merge_weave_kernel_v5f(hi, lo, cci, vclass, valid, seg,
+                           sg_min_hi, sg_min_lo, sg_max_hi, sg_max_lo,
+                           sg_len, sg_lane0, sg_dense, sg_tail_special,
+                           sg_valid, sg_vsum, u_max: int, k_max: int,
+                           device="cuda"):
+    """``batched_merge_weave_v5f`` for one replica set's ``[N]`` lanes
+    and ``[S]`` segment tables; outputs identical to
+    ``torchw5.merge_weave_kernel_v5``."""
+    out = batched_merge_weave_v5f(
+        *_row((hi, lo, cci, vclass, valid, seg, sg_min_hi, sg_min_lo,
+               sg_max_hi, sg_max_lo, sg_len, sg_lane0, sg_dense,
+               sg_tail_special, sg_valid, sg_vsum)),
+        u_max=u_max, k_max=k_max, device=device)
+    return tuple(x[0] for x in out)

@@ -14,7 +14,9 @@ network transport, the telemetry over those paths and shipped over the
 wire to a collector, the older kernel generations (v1-v4) with the
 device weaver's ladder, the benchmark CLI and the sharded steps,
 wave and map routes over a one-rank NCCL mesh, the north-star benchmark
-(``cause_tpu_torch.bench``) and its modes, and checks that
+(``cause_tpu_torch.bench``) and its modes, the differential soak
+(``cause_tpu_torch.soak``) and the fleet bench
+(``cause_tpu_torch.fleet_bench``), and checks that
 the kernels really
 carried those paths (launch counts) and that the results are
 bit-identical to the plain path on the card, to each other and to the
@@ -94,7 +96,7 @@ Phases, one line each (times from CUDA events unless named host):
    up to B1's wide form at 131,072 lanes); the root equals
    ``merge_many`` of the same handles; ``merge_all`` launches exactly
    the tree's kernels (not ``merge_many``'s) and gives the same root;
-8. maps: a fleet of 256 map replica pairs built as
+8. maps: a fleet of 128 map replica pairs built as
    ``benchmarks.config6_map_fleet`` builds its own, at a document
    service's size (1,024 keys written 4 times in the base, every 8th
    write hidden by an id-caused hide, 64 writes a side over 1,056 keys,
@@ -269,10 +271,29 @@ Phases, one line each (times from CUDA events unless named host):
    level's digests agree), ``BENCH_TREE=16`` at 10,000 nodes (cut from
    64; root bit-identical to the flat fold in ``tree_rounds(16)``
    rounds), ``BENCH_LAG=64 BENCH_LIVE=1`` (no op pending), and
-   ``python -m cause_tpu_torch.api_bench --wave 256 --lazy`` (no
+   ``python -m cause_tpu_torch.api_bench --wave 128 --lazy`` (no
    overflowed row, no pair off the card).
+17. the soak and the fleet bench: ``cause_tpu_torch.soak.ROUNDS`` over
+   seeds 0-119 in this process on the card (every kind 20 times, each
+   round's own checks against the pure weaver; B1-B3 and K1, K2, K4 all
+   launched; ``memory_reserved`` before and after), the same rounds on
+   the plain path with every kernel call recorded and held against its
+   plain version, each distinct shape timed once; ``python -m
+   cause_tpu_torch.soak --minutes 0.5 --obs-out`` in a subprocess (exit
+   0, ``soak.done``'s rounds, a ``soak`` ledger row); the chaos plan of
+   ``tests/test_chaos.py:761-776`` through ``--chaos`` at doc 30 and
+   10,000 (exit 0, its 6 injections over four families, bit-identical
+   convergence, no divergence incident, nothing quarantined, a ``chaos``
+   ledger row); ``fleet_bench``'s v5 and v4 kernel levels at the full
+   configuration (1,024 replicas of 10,001 nodes as one row of
+   10,485,760 lanes: the overflow ladder, a warm and 3 timed steps), the
+   last step's outputs bit-identical to the plain path on the card at the
+   same row and budget, each kernel call of it held against its plain
+   version and timed against its bound (and B1 against ``torch.sort``),
+   then its API level (``merge_many`` of 64 replicas of 10,000 + 32
+   nodes); its three JSON lines with ``card``.
 
-Phases 5-16 each reset or read the launch counts around their runs
+Phases 5-17 each reset or read the launch counts around their runs
 (phases 10-12 tick by tick) and read them after: a phase that did
 not launch B1, B2 and B3 fails.
 
@@ -301,8 +322,10 @@ CAP, N_BASE, N_DIV = 10240, 9000, 1000  # north-star rows (lanes a tree)
 N_DIV_STEADY = 16  # phase 5's steady-state round of edits (N_w = 64)
 REPLICAS = 64     # API-phase replicas (32 pairs)
 REPS = 5          # timed north-star dispatches
-# phase 8's map fleet: pairs, keys, writes a key in the base, writes a side
-MAP_PAIRS, MAP_KEYS, MAP_WRITES, MAP_EDITS = 256, 1024, 4, 64
+# phase 8's map fleet: pairs (cut from 256 to keep the smoke's time once
+# phase 17 came: about 36 s less on an H100, PERF.md section 4), keys,
+# writes a key in the base, writes a side
+MAP_PAIRS, MAP_KEYS, MAP_WRITES, MAP_EDITS = 128, 1024, 4, 64
 MAP_SMALL = 64    # pairs of config 6's own wave (24 keys, 12 edits)
 # phase 9's base: list elements, transactions a replica, and the hidden
 # tail of its compaction
@@ -4474,13 +4497,15 @@ def phase_sharded(torch, dev, card: str, batch, v5, u_max: int, pairs,
 
 # phase 16: the modes the benchmark runs as subprocesses (the divergence
 # levels; the tree's replicas, cut from 64 to keep the smoke's time; the
-# lag fleet), the api wave's pairs (the largest of 1,024 / 512 / 256
-# whose handle build takes under 60 s on a host CPU), each subprocess's
-# time limit, and the reps of the drift probe
+# lag fleet), the api wave's pairs (256, the largest of 1,024 / 512 /
+# 256 whose handle build takes under 60 s on a host CPU, cut to 128 to
+# keep the smoke's time once phase 17 came: about 10 s less on an H100,
+# PERF.md section 4), each subprocess's time
+# limit, and the reps of the drift probe
 BENCH16_SWEEP = "10,500"
 BENCH16_TREE = 16
 BENCH16_LAG = 64
-API_WAVE_PAIRS = 256
+API_WAVE_PAIRS = 128
 BENCH16_TIMEOUT = 600
 DRIFT_REPS = 20
 
@@ -4850,6 +4875,230 @@ def phase_bench(torch, card: str, k_p50: float, f_p50: float, probe,
     return counts
 
 
+# ------------------------------------------------------- 17. soak, fleet
+
+# phase 17: the soup's rounds (a multiple of 6, so every kind runs
+# SOAK_ROUNDS / 6 times), the CLI's minutes, the chaos plan of
+# tests/test_chaos.py:761-776 and the doc of its second run (10,000,
+# the largest of 10,000 / 2,000 / 500, not cut), the fleet bench's full
+# configuration and its API level
+SOAK_ROUNDS = 120
+SOAK_CLI_MINUTES = 0.5
+SOAK_TIMEOUT = 300
+CHAOS_PLAN = {
+    "seed": 11, "replicas": 8, "rounds": 4, "doc": 30,
+    "faults": [
+        {"family": "payload", "site": "sync.delta", "mode": "corrupt",
+         "at": [3]},
+        {"family": "payload", "site": "sync.delta", "mode": "truncate",
+         "at": [20]},
+        {"family": "dispatch", "site": "session", "mode": "raise",
+         "at": [2]},
+        {"family": "dispatch", "site": "session", "mode": "exhaust",
+         "at": [3]},
+        {"family": "crash", "site": "session", "at": [2]},
+        {"family": "stall", "site": "session", "ms": 120, "at": [4]},
+    ],
+}
+CHAOS_DOC = 10_000
+FLEET = {"K": 1024, "n_base": 9000, "n_div": 1000, "cap": 10240}
+FLEET_API = {"K": 64, "n_nodes": 10_000}
+FLEET_STEPS = {
+    "v5": ("kernel_level_v5", "merge_weave_kernel_v5",
+           ("rank", "visible", "conflict", "overflow"), SORT_SITES),
+    "v4": ("kernel_level", "merge_weave_kernel_v4",
+           ("order", "rank", "visible", "conflict", "overflow"),
+           GEN_SITES["v4"]),
+}
+
+
+def soak_soup(torch, timed) -> tuple:
+    """Phase 17 (a): ``soak.ROUNDS`` over seeds 0 .. SOAK_ROUNDS - 1 in
+    this process on the card, then again on the plain path with every
+    kernel call recorded and held against its plain version. Returns the
+    launches of the kernel run and the timed calls' sums."""
+    import random
+
+    from cause_tpu_torch import kernels, soak
+
+    def soup():
+        kinds = {}
+        for seed in range(SOAK_ROUNDS):
+            kind = soak.ROUNDS[seed % len(soak.ROUNDS)]
+            kind(random.Random(seed))
+            kinds[kind.__name__] = kinds.get(kind.__name__, 0) + 1
+        torch.cuda.synchronize()
+        return kinds
+
+    reserved0 = torch.cuda.memory_reserved()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    kinds = soup()
+    secs = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    reserved1 = torch.cuda.memory_reserved()
+    expect_launches(counts, tuple(kernels.SOURCES), "[17 soak]")
+    say(f"[17 soak] {SOAK_ROUNDS} rounds clean on the card in {secs:.1f} s "
+        f"(host clock), kinds {kinds}; launches {counts}; "
+        f"memory_reserved {reserved0} -> {reserved1} bytes")
+    calls = []
+    t0 = time.perf_counter()
+    with plain_path(record=calls):
+        soup()
+    say(f"[17 soak] the same rounds on the plain path in "
+        f"{time.perf_counter() - t0:.1f} s (host clock), {len(calls)} "
+        f"kernel calls recorded")
+    per = check_recorded(torch, calls, "[17 soak]", sites=("soup",),
+                         timed=timed)
+    say(f"[17 soak] {kernel_sums_line(per)}")
+    return counts, per
+
+
+def soak_cli(tag: str, tmp: str, args) -> tuple:
+    """``python -m cause_tpu_torch.soak args --obs-out`` in a subprocess
+    from the checkout's root, its ledger in ``tmp``: exit 0 within
+    SOAK_TIMEOUT. Returns its stdout's lines, its sidecar's records,
+    its ledger's rows and its seconds."""
+    from cause_tpu_torch.obs import perfetto
+
+    out = os.path.join(tmp, f"{tag}.jsonl")
+    led = os.path.join(tmp, f"{tag}.ledger.jsonl")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BENCH_", "CAUSE_TPU_"))}
+    env["CAUSE_TPU_LEDGER"] = led
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "cause_tpu_torch.soak",
+                        *args, "--obs-out", out], cwd=REPO_ROOT, env=env,
+                       capture_output=True, text=True, timeout=SOAK_TIMEOUT)
+    secs = time.perf_counter() - t0
+    if p.returncode != 0:
+        fail(f"[17 {tag}] exited {p.returncode}: {p.stdout[-2000:]} "
+             f"{p.stderr[-2000:]}")
+    with open(led) as f:
+        rows = [json.loads(x) for x in f if x.strip()]
+    return p.stdout.strip().splitlines(), perfetto.load_jsonl(out), rows, secs
+
+
+def soak_chaos(tmp: str, doc: int) -> float:
+    """Phase 17 (c): the chaos plan at ``doc`` through the CLI: exit 0,
+    the plan's 6 injections over its four families, bit-identical
+    convergence, no divergence incident, nothing quarantined, a ``chaos``
+    ledger row. Returns its seconds."""
+    path = os.path.join(tmp, f"plan{doc}.json")
+    with open(path, "w") as f:
+        json.dump(dict(CHAOS_PLAN, doc=doc), f)
+    tag = f"chaos{doc}"
+    _lines, evs, rows, secs = soak_cli(tag, tmp, ["--chaos", path])
+    injects = fields_of(evs, "chaos.inject")
+    fams = {e["family"] for e in injects}
+    if len(injects) != 6 or fams != {"payload", "dispatch", "crash",
+                                      "stall"}:
+        fail(f"[17 {tag}] injections {injects}")
+    done = fields_of(evs, "chaos.done")
+    if not done or done[-1]["converged_bit_identical"] is not True \
+            or done[-1]["divergence_incidents"] \
+            or done[-1]["quarantined_final"]:
+        fail(f"[17 {tag}] chaos.done {done}")
+    if [r.get("kind") for r in rows] != ["chaos"]:
+        fail(f"[17 {tag}] ledger rows {rows}")
+    d = done[-1]
+    say(f"[17 {tag}] doc {doc}: exit 0 in {secs:.1f} s (host clock, the "
+        f"subprocess's start included); injected {d['injected']}, "
+        f"detected {d['detected']}, restores "
+        f"{d['recovery'].get('restores')}, bit-identical, 0 incidents, "
+        f"nothing quarantined, MTTR {d['mttr_ms']} ms, ledger row "
+        f"{rows[0]['platform']}")
+    return secs
+
+
+def soak_fleet(torch, dev, card: str, timed) -> tuple:
+    """Phase 17 (d): ``fleet_bench`` at its full configuration in this
+    process: for v5 and v4 the one row of K * cap lanes through the
+    overflow ladder and the timed steps, the last step's outputs against
+    the plain path's on the card at the same row and budget, every kernel
+    call of that step held against its plain version and timed; then
+    ``api_level``. Returns the launches of the kernel-level runs and the
+    timed calls' sums."""
+    from cause_tpu_torch import fleet_bench, kernels
+
+    counts = {n: 0 for n in kernels.SOURCES}
+    per = {}
+    for kernel, (level, name, outs, sites) in FLEET_STEPS.items():
+        fn = getattr(fleet_bench, name)
+        last = {}
+
+        def keep(*args, **kw):
+            out = fn(*args, **kw)
+            last.update(args=args, kw=kw, out=out)
+            return out
+
+        kernels.reset_launches()
+        setattr(fleet_bench, name, keep)
+        try:
+            rec = getattr(fleet_bench, level)(**FLEET, device=dev)
+        finally:
+            setattr(fleet_bench, name, fn)
+        torch.cuda.synchronize()
+        got = dict(kernels.launches)
+        for n in counts:
+            counts[n] += got[n]
+        say(json.dumps(dict(rec, card=card)))
+        calls = []
+        with plain_path(record=calls):
+            want = fn(*last["args"], **last["kw"])
+        torch.cuda.synchronize()
+        for nm, g, w in zip(outs, last["out"], want):
+            if not torch.equal(g, w):
+                fail(f"[17 fleet {kernel}] {nm} differs from the plain "
+                     f"path at {last['kw']}")
+        if bool(last["out"][-1]):
+            fail(f"[17 fleet {kernel}] the last step overflowed")
+        budget = {k: v for k, v in last["kw"].items() if k != "device"}
+        say(f"[17 fleet {kernel}] one row of {last['args'][0].numel()} "
+            f"lanes at {budget}: {', '.join(outs)} bit-identical to "
+            f"the plain path on the card; launches over the ladder and the "
+            f"timed steps {got}")
+        add_sums(per, check_recorded(torch, calls, f"[17 fleet {kernel}]",
+                                     sites=sites, timed=timed))
+        del last, want, calls
+    rec = fleet_bench.api_level(**FLEET_API)
+    say(json.dumps(dict(rec, card=card)))
+    return counts, per
+
+
+def phase_soak(torch, dev, card: str) -> tuple:
+    """Phase 17: the differential soak (``cause_tpu_torch.soak``) and the
+    fleet bench (``cause_tpu_torch.fleet_bench``) on the card. Returns
+    the soup's launches, the fleet's launches and the fleet's timed
+    calls' sums."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    timed = set()
+    soup_counts, _ = soak_soup(torch, timed)
+    with tempfile.TemporaryDirectory() as tmp:
+        lines, evs, rows, secs = soak_cli(
+            "soak", tmp, ["--minutes", str(SOAK_CLI_MINUTES)])
+        done = fields_of(evs, "soak.done")
+        if not done or not done[-1]["rounds"] or not lines[-1].startswith(
+                f"soak finished: {done[-1]['rounds']} rounds clean"):
+            fail(f"[17 soak cli] soak.done {done}, last line {lines[-1:]}")
+        if [r.get("kind") for r in rows] != ["soak"]:
+            fail(f"[17 soak cli] ledger rows {rows}")
+        say(f"[17 soak cli] --minutes {SOAK_CLI_MINUTES}: exit 0 in "
+            f"{secs:.1f} s (host clock, the subprocess's start included), "
+            f"{done[-1]['rounds']} rounds clean, ledger row "
+            f"{rows[0]['platform']}")
+        soak_chaos(tmp, CHAOS_PLAN["doc"])
+        soak_chaos(tmp, CHAOS_DOC)
+    fleet_counts, fleet_per = soak_fleet(torch, dev, card, timed)
+    expect_launches(fleet_counts, tuple(V5_LAUNCHES), "[17 fleet]")
+    say(f"[17 fleet] {kernel_sums_line(fleet_per)}; {card}")
+    say(f"[17 soak] phase {time.perf_counter() - t_phase:.1f} s (host "
+        f"clock); {card}")
+    return soup_counts, fleet_counts, fleet_per
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -5213,6 +5462,9 @@ def main() -> int:
     # ------------------------------------------------ 16. the bench
     bench16_counts = phase_bench(torch, card, k_p50, f_p50, probe, early_ms)
 
+    # ------------------------------------------------ 17. soak, fleet
+    soak_counts, fleet_counts, fleet_per = phase_soak(torch, dev, card)
+
     # ------------------------------------------------ result
     recs = []
     for name in kernels.SOURCES:
@@ -5272,6 +5524,16 @@ def main() -> int:
             # phase 16's benchmark in this process at the north star (v5,
             # then BENCH_KERNEL=v5f: 28 waves each)
             "bench_launches": bench16_counts[name],
+            # phase 17's soup of SOAK_ROUNDS rounds on the kernels, and the
+            # fleet bench's kernel levels (v5 and v4 at one row of
+            # 10,485,760 lanes: the overflow ladder, a warm and 3 timed
+            # steps each) with the last step's calls at their own shapes
+            "soak_launches": soak_counts[name],
+            "fleet_launches": fleet_counts[name],
+            "fleet_ms": fleet_per.get(name, {}).get("ms"),
+            "fleet_plain_ms": fleet_per.get(name, {}).get("plain_ms"),
+            "fleet_bound_ms": fleet_per.get(name, {}).get("bound_ms"),
+            "fleet_library_ms": fleet_per.get(name, {}).get("library_ms"),
         })
     say(f"total {time.perf_counter() - t_start:.1f} s (host clock)")
     print(card, flush=True)
