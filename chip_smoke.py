@@ -16,7 +16,9 @@ device weaver's ladder, the benchmark CLI and the sharded steps,
 wave and map routes over a one-rank NCCL mesh, the north-star benchmark
 (``cause_tpu_torch.bench``) and its modes, the differential soak
 (``cause_tpu_torch.soak``) and the fleet bench
-(``cause_tpu_torch.fleet_bench``), and checks that
+(``cause_tpu_torch.fleet_bench``), the serving plane's acceptance
+instruments (``cause_tpu_torch.serve_soak``, ``batched_smoke``,
+``obs_off_pin``), and checks that
 the kernels really
 carried those paths (launch counts) and that the results are
 bit-identical to the plain path on the card, to each other and to the
@@ -278,11 +280,12 @@ Phases, one line each (times from CUDA events unless named host):
    round's own checks against the pure weaver; B1-B3 and K1, K2, K4 all
    launched; ``memory_reserved`` before and after), the same rounds on
    the plain path with every kernel call recorded and held against its
-   plain version, each distinct shape timed once; ``python -m
-   cause_tpu_torch.soak --minutes 0.5 --obs-out`` in a subprocess (exit
-   0, ``soak.done``'s rounds, a ``soak`` ledger row); the chaos plan of
-   ``tests/test_chaos.py:761-776`` through ``--chaos`` at doc 30 and
-   10,000 (exit 0, its 6 injections over four families, bit-identical
+   plain version, each distinct shape timed once; beside the soup, in
+   subprocesses, ``python -m cause_tpu_torch.soak --minutes 0.25
+   --obs-out`` (exit 0, ``soak.done``'s rounds, a ``soak`` ledger row)
+   and the chaos plan of ``tests/test_chaos.py:761-776`` through
+   ``--chaos`` at doc 30 and 10,000 (exit 0, its 6 injections over four
+   families, bit-identical
    convergence, no divergence incident, nothing quarantined, a ``chaos``
    ledger row); ``fleet_bench``'s v5 and v4 kernel levels at the full
    configuration (1,024 replicas of 10,001 nodes as one row of
@@ -292,8 +295,33 @@ Phases, one line each (times from CUDA events unless named host):
    version and timed against its bound (and B1 against ``torch.sort``),
    then its API level (``merge_many`` of 64 replicas of 10,000 + 32
    nodes); its three JSON lines with ``card``.
+18. the serving plane's acceptance instruments: (a) in this process,
+   ``serve_soak._mk_fleet`` at phase 10's served size (32 tenants of
+   10,000 elements, capacity 16, ``d_max`` 64) and 4 of the soak's
+   closed-loop calibration rounds (``serve_soak._calib_round``, seed 18)
+   on the kernels (B1, B2 and B3 launched, K1, K2, K4 not), then the
+   same rounds in a second service over the same pairs on the plain
+   path with every kernel call recorded and held against its plain
+   version (one call a kernel, row count and width class timed): the
+   same admissions and every tenant's ``converged_digest`` equal;
+   ``batched_smoke.one_tick`` (12 tenants) on the kernels and on the
+   plain path (every call checked), each with the smoke's gates (2
+   buckets, 2 dispatches in the tick, 0 fallbacks, every tenant agreed
+   in the tick, batched digests equal to the unbatched arm's) and the
+   two runs' digests equal; ``python -m cause_tpu_torch.obs_off_pin
+   --check``; beside it, in subprocesses, (b) the reference CI's serve
+   smoke and (c) its disk smoke (24 s, the committed disk plan) through
+   ``python -m cause_tpu_torch.serve_soak``, each held to that CI
+   step's checks (``obs watch --once``, ``obs ledger --check`` and, for
+   the disk arm, ``python -m cause_tpu_torch.serve scrub``), and (d)
+   the overload run at phase 10's size (``--rate-mult 2 --chaos crash
+   --gate-dispatch``, 10 s, one warm calibration round): exit 0
+   (both crashes survived, every shed evidenced, the dispatch collapse
+   held, every tenant equal to the journal oracle), its numbers and the
+   B1-B3 launches of its timed window beside the costmodel's
+   dispatches.
 
-Phases 5-17 each reset or read the launch counts around their runs
+Phases 5-18 each reset or read the launch counts around their runs
 (phases 10-12 tick by tick) and read them after: a phase that did
 not launch B1, B2 and B3 fails.
 
@@ -4875,15 +4903,62 @@ def phase_bench(torch, card: str, k_p50: float, f_p50: float, probe,
     return counts
 
 
+class Beside:
+    """A subprocess started now from the checkout's root, with no
+    ``BENCH_``/``CAUSE_TPU_`` knob of this process (``env`` adds its
+    own), waited for by a thread of its own: its seconds end when it
+    exits, not when it is collected, and work of this process runs
+    beside it. ``collect`` fails past ``timeout`` seconds from its start
+    or on a non-zero exit; ``stop`` kills it if it still runs."""
+
+    def __init__(self, tag: str, cmd, timeout: float, env=None):
+        import threading
+
+        self.tag, self.timeout = tag, timeout
+        self.env = {k: v for k, v in os.environ.items()
+                    if not k.startswith(("BENCH_", "CAUSE_TPU_"))}
+        self.env.update(env or {})
+        self.stdout = self.stderr = ""
+        self.secs = None
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, cwd=REPO_ROOT, env=self.env,
+                                     text=True, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE,
+                                     stdin=subprocess.DEVNULL)
+        self._thread = threading.Thread(target=self._wait, daemon=True)
+        self._thread.start()
+
+    def _wait(self):
+        self.stdout, self.stderr = self.proc.communicate()
+        self.secs = time.perf_counter() - self.t0
+
+    def collect(self) -> "Beside":
+        self._thread.join(max(0.0, self.timeout
+                              - (time.perf_counter() - self.t0)))
+        if self._thread.is_alive():
+            self.stop()
+            fail(f"{self.tag} ran past {self.timeout} s")
+        if self.proc.returncode != 0:
+            fail(f"{self.tag} exited {self.proc.returncode}: "
+                 f"{self.stdout[-4000:]} {self.stderr[-3000:]}")
+        return self
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self._thread.join()
+
+
 # ------------------------------------------------------- 17. soak, fleet
 
 # phase 17: the soup's rounds (a multiple of 6, so every kind runs
-# SOAK_ROUNDS / 6 times), the CLI's minutes, the chaos plan of
+# SOAK_ROUNDS / 6 times), the CLI's minutes (cut from 0.5 to 0.25 once
+# phase 18 came, for time), the chaos plan of
 # tests/test_chaos.py:761-776 and the doc of its second run (10,000,
 # the largest of 10,000 / 2,000 / 500, not cut), the fleet bench's full
 # configuration and its API level
 SOAK_ROUNDS = 120
-SOAK_CLI_MINUTES = 0.5
+SOAK_CLI_MINUTES = 0.25
 SOAK_TIMEOUT = 300
 CHAOS_PLAN = {
     "seed": 11, "replicas": 8, "rounds": 4, "doc": 30,
@@ -4954,41 +5029,49 @@ def soak_soup(torch, timed) -> tuple:
     return counts, per
 
 
-def soak_cli(tag: str, tmp: str, args) -> tuple:
-    """``python -m cause_tpu_torch.soak args --obs-out`` in a subprocess
-    from the checkout's root, its ledger in ``tmp``: exit 0 within
-    SOAK_TIMEOUT. Returns its stdout's lines, its sidecar's records,
-    its ledger's rows and its seconds."""
+def soak_cli_start(tag: str, tmp: str, args) -> Beside:
+    """``python -m cause_tpu_torch.soak args --obs-out`` started in a
+    subprocess, its ledger in ``tmp``."""
+    out = os.path.join(tmp, f"{tag}.jsonl")
+    run = Beside(f"[17 {tag}]", [sys.executable, "-m",
+                                 "cause_tpu_torch.soak", *args,
+                                 "--obs-out", out], SOAK_TIMEOUT,
+                 env={"CAUSE_TPU_LEDGER": os.path.join(
+                     tmp, f"{tag}.ledger.jsonl")})
+    run.out = out
+    return run
+
+
+def soak_cli(run: Beside) -> tuple:
+    """A run of ``soak_cli_start`` collected: exit 0 within SOAK_TIMEOUT.
+    Returns its stdout's lines, its sidecar's records, its ledger's rows
+    and its seconds."""
     from cause_tpu_torch.obs import perfetto
 
-    out = os.path.join(tmp, f"{tag}.jsonl")
-    led = os.path.join(tmp, f"{tag}.ledger.jsonl")
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("BENCH_", "CAUSE_TPU_"))}
-    env["CAUSE_TPU_LEDGER"] = led
-    t0 = time.perf_counter()
-    p = subprocess.run([sys.executable, "-m", "cause_tpu_torch.soak",
-                        *args, "--obs-out", out], cwd=REPO_ROOT, env=env,
-                       capture_output=True, text=True, timeout=SOAK_TIMEOUT)
-    secs = time.perf_counter() - t0
-    if p.returncode != 0:
-        fail(f"[17 {tag}] exited {p.returncode}: {p.stdout[-2000:]} "
-             f"{p.stderr[-2000:]}")
-    with open(led) as f:
+    run.collect()
+    with open(run.env["CAUSE_TPU_LEDGER"]) as f:
         rows = [json.loads(x) for x in f if x.strip()]
-    return p.stdout.strip().splitlines(), perfetto.load_jsonl(out), rows, secs
+    return (run.stdout.strip().splitlines(), perfetto.load_jsonl(run.out),
+            rows, run.secs)
 
 
-def soak_chaos(tmp: str, doc: int) -> float:
-    """Phase 17 (c): the chaos plan at ``doc`` through the CLI: exit 0,
-    the plan's 6 injections over its four families, bit-identical
-    convergence, no divergence incident, nothing quarantined, a ``chaos``
-    ledger row. Returns its seconds."""
+def soak_chaos_start(tmp: str, doc: int) -> Beside:
+    """Phase 17 (c): the chaos plan at ``doc`` through the CLI, started."""
     path = os.path.join(tmp, f"plan{doc}.json")
     with open(path, "w") as f:
         json.dump(dict(CHAOS_PLAN, doc=doc), f)
-    tag = f"chaos{doc}"
-    _lines, evs, rows, secs = soak_cli(tag, tmp, ["--chaos", path])
+    run = soak_cli_start(f"chaos{doc}", tmp, ["--chaos", path])
+    run.doc = doc
+    return run
+
+
+def soak_chaos(run: Beside) -> float:
+    """Phase 17 (c): a run of ``soak_chaos_start`` collected: exit 0,
+    the plan's 6 injections over its four families, bit-identical
+    convergence, no divergence incident, nothing quarantined, a ``chaos``
+    ledger row. Returns its seconds."""
+    doc, tag = run.doc, f"chaos{run.doc}"
+    _lines, evs, rows, secs = soak_cli(run)
     injects = fields_of(evs, "chaos.inject")
     fams = {e["family"] for e in injects}
     if len(injects) != 6 or fams != {"payload", "dispatch", "crash",
@@ -5003,8 +5086,8 @@ def soak_chaos(tmp: str, doc: int) -> float:
         fail(f"[17 {tag}] ledger rows {rows}")
     d = done[-1]
     say(f"[17 {tag}] doc {doc}: exit 0 in {secs:.1f} s (host clock, the "
-        f"subprocess's start included); injected {d['injected']}, "
-        f"detected {d['detected']}, restores "
+        f"subprocess's start included, beside the soup); injected "
+        f"{d['injected']}, detected {d['detected']}, restores "
         f"{d['recovery'].get('restores')}, bit-identical, 0 incidents, "
         f"nothing quarantined, MTTR {d['mttr_ms']} ms, ledger row "
         f"{rows[0]['platform']}")
@@ -5075,28 +5158,474 @@ def phase_soak(torch, dev, card: str) -> tuple:
 
     t_phase = time.perf_counter()
     timed = set()
-    soup_counts, _ = soak_soup(torch, timed)
+    runs = []
+    # the CLI runs go beside the soup (none of them is timed against
+    # another), and are collected before the fleet bench times its steps
     with tempfile.TemporaryDirectory() as tmp:
-        lines, evs, rows, secs = soak_cli(
-            "soak", tmp, ["--minutes", str(SOAK_CLI_MINUTES)])
-        done = fields_of(evs, "soak.done")
-        if not done or not done[-1]["rounds"] or not lines[-1].startswith(
-                f"soak finished: {done[-1]['rounds']} rounds clean"):
-            fail(f"[17 soak cli] soak.done {done}, last line {lines[-1:]}")
-        if [r.get("kind") for r in rows] != ["soak"]:
-            fail(f"[17 soak cli] ledger rows {rows}")
-        say(f"[17 soak cli] --minutes {SOAK_CLI_MINUTES}: exit 0 in "
-            f"{secs:.1f} s (host clock, the subprocess's start included), "
-            f"{done[-1]['rounds']} rounds clean, ledger row "
-            f"{rows[0]['platform']}")
-        soak_chaos(tmp, CHAOS_PLAN["doc"])
-        soak_chaos(tmp, CHAOS_DOC)
+        try:
+            runs.append(soak_cli_start(
+                "soak", tmp, ["--minutes", str(SOAK_CLI_MINUTES)]))
+            runs += [soak_chaos_start(tmp, doc)
+                     for doc in (CHAOS_PLAN["doc"], CHAOS_DOC)]
+            soup_counts, _ = soak_soup(torch, timed)
+            lines, evs, rows, secs = soak_cli(runs[0])
+            done = fields_of(evs, "soak.done")
+            if not done or not done[-1]["rounds"] \
+                    or not lines[-1].startswith(
+                        f"soak finished: {done[-1]['rounds']} rounds "
+                        f"clean"):
+                fail(f"[17 soak cli] soak.done {done}, last line "
+                     f"{lines[-1:]}")
+            if [r.get("kind") for r in rows] != ["soak"]:
+                fail(f"[17 soak cli] ledger rows {rows}")
+            say(f"[17 soak cli] --minutes {SOAK_CLI_MINUTES}: exit 0 in "
+                f"{secs:.1f} s (host clock, the subprocess's start "
+                f"included, beside the soup), {done[-1]['rounds']} rounds "
+                f"clean, ledger row {rows[0]['platform']}")
+            for run in runs[1:]:
+                soak_chaos(run)
+        finally:
+            for run in runs:
+                run.stop()
     fleet_counts, fleet_per = soak_fleet(torch, dev, card, timed)
     expect_launches(fleet_counts, tuple(V5_LAUNCHES), "[17 fleet]")
     say(f"[17 fleet] {kernel_sums_line(fleet_per)}; {card}")
     say(f"[17 soak] phase {time.perf_counter() - t_phase:.1f} s (host "
         f"clock); {card}")
     return soup_counts, fleet_counts, fleet_per
+
+
+# phase 18: serve_soak's calibration rounds in this process at phase 10's
+# served size (the seed and rounds), batched_smoke's tenants, the flags
+# of the reference CI's serve and disk smokes (.github/workflows/ci.yml)
+# and of the overload run at phase 10's tenants and documents. The
+# overload run's window is cut from 20 s to 10 and its warm calibration
+# rounds from 4 to 1, for time: at 20 s and 4 the run took 213 s on an
+# H100 (PERF.md section 4); tenants and documents are never cut
+SOAK18_SEED, SOAK18_ROUNDS = 18, 4
+BATCHED_TENANTS = 12
+CI_SERVE = ["--tenants", "4", "--capacity", "4", "--doc", "100",
+            "--d-max", "64", "--seconds", "6", "--rate-mult", "0.5",
+            "--seed", "12"]
+CI_DISK = ["--tenants", "4", "--capacity", "4", "--doc", "100",
+           "--d-max", "64", "--seconds", "24", "--rate-mult", "1",
+           "--seed", "15", "--chaos", "disk",
+           "--disk-plan", "measurements/disk_plan_r15.json"]
+OVERLOAD = ["--tenants", str(SERVE_TENANTS), "--capacity",
+            str(SERVE_CAPACITY), "--doc", str(SERVE_LIST), "--d-max",
+            str(SERVE_DMAX), "--seconds", "10", "--calib-ticks", "1",
+            "--rate-mult", "2", "--chaos", "crash", "--gate-dispatch",
+            "--seed", str(SOAK18_SEED)]
+SERVE_SOAK_TIMEOUT = 600
+# the overload run's CLI, with the kernel launches of its timed window
+# (from the generator's start to its join) printed after main returns
+SOAK_WINDOW = """\
+import json, sys
+from cause_tpu_torch import chaos, kernels, serve_soak
+window = {}
+start, join = serve_soak.Generator.start, serve_soak.Generator.join
+def started(self):
+    kernels.reset_launches()
+    start(self)
+def joined(self, *args, **kw):
+    window.update(kernels.launches)
+    join(self, *args, **kw)
+serve_soak.Generator.start = started
+serve_soak.Generator.join = joined
+rc = serve_soak.main(sys.argv[1:])
+print("timed-window launches " + json.dumps(window), flush=True)
+chaos.reset()
+sys.exit(rc)
+"""
+
+
+class TimedPerWidth(set):
+    """``check_recorded``'s ``timed`` set, keyed by kernel, rows, the
+    first operand's width rounded up to a power of two and keywords, so
+    that a served document growing op by op times one call a width
+    class, not every call (every call is still held to its plain
+    version)."""
+
+    @staticmethod
+    def _key(key):
+        name, shapes, kw = key
+        n = shapes[0][-1]
+        return (name, shapes[0][0], 1 << max(0, (n - 1).bit_length()), kw)
+
+    def __contains__(self, key):
+        return set.__contains__(self, self._key(key))
+
+    def add(self, key):
+        set.add(self, self._key(key))
+
+
+def soak_start(tmp: str, tag: str, args, code=None) -> Beside:
+    """``python -m cause_tpu_torch.serve_soak args --obs-out`` (or
+    ``python -c code args ...``) started, its ledger at
+    ``tmp/<tag>.ledger.jsonl``."""
+    out = os.path.join(tmp, f"{tag}.jsonl")
+    cmd = ([sys.executable, "-c", code] if code else
+           [sys.executable, "-m", "cause_tpu_torch.serve_soak"])
+    run = Beside(f"[18 {tag}]", cmd + list(args) + ["--obs-out", out],
+                 SERVE_SOAK_TIMEOUT, env={"CAUSE_TPU_LEDGER": os.path.join(
+                     tmp, f"{tag}.ledger.jsonl")})
+    run.out = out
+    return run
+
+
+def soak_finish(run: Beside) -> Beside:
+    """A run of ``soak_start`` collected: exit 0 within
+    SERVE_SOAK_TIMEOUT, its last line ``serve soak: clean``. Adds its
+    stdout's lines, its ledger's rows and its sidecar's records."""
+    from cause_tpu_torch.obs import perfetto
+
+    run.collect()
+    run.lines = run.stdout.strip().splitlines()
+    if not any(x.startswith("serve soak: clean") for x in run.lines[-2:]):
+        fail(f"{run.tag} did not end clean: {run.stdout[-4000:]}")
+    with open(run.env["CAUSE_TPU_LEDGER"]) as f:
+        run.rows = [json.loads(x) for x in f if x.strip()]
+    run.evs = perfetto.load_jsonl(run.out)
+    return run
+
+
+def port_cli(tag: str, module: str, args, env=None) -> str:
+    """``python -m module args`` from the checkout's root: exit 0 within
+    two minutes. Returns its stdout."""
+    p = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO_ROOT,
+                       env=env, capture_output=True, text=True, timeout=120,
+                       stdin=subprocess.DEVNULL)
+    if p.returncode != 0:
+        fail(f"[18 {tag}] python -m {module} {' '.join(args)} exited "
+             f"{p.returncode}: {p.stdout[-2000:]} {p.stderr[-2000:]}")
+    return p.stdout
+
+
+def event_names(evs) -> set:
+    return {e.get("name") for e in evs if e.get("ev") == "event"}
+
+
+def soak_calibration(torch, tmp: str, pairs) -> tuple:
+    """Phase 18 (a): serve_soak's calibration rounds (``_calib_round``,
+    SOAK18_ROUNDS of them from seed SOAK18_SEED, as the soak draws them)
+    over ``pairs`` in a service of phase 10's shape on the kernels, then
+    in a second service over the same pairs, with fresh producer states
+    and the same draws, on the plain path with every kernel call
+    recorded and held against its plain version. Returns the kernel
+    run's launches and the timed calls' sums."""
+    import random
+
+    from cause_tpu_torch import kernels, serve_soak
+    from cause_tpu_torch.serve import (IngestQueue, ResidencyManager,
+                                       SyncService, WriteAheadLog)
+
+    tag = "[18 serve soak] calibration"
+
+    def service(root):
+        wal = WriteAheadLog(os.path.join(root, "wal"), fsync="batch")
+        svc = SyncService(IngestQueue(max_ops=256, journal=wal),
+                          residency=ResidencyManager(capacity=SERVE_CAPACITY),
+                          checkpoint_dir=os.path.join(root, "ckpt"),
+                          d_max=SERVE_DMAX, watchdog_s=5.0, batched=True)
+        tenants = [serve_soak._Tenant(svc.add_tenant(a, b), a, b)
+                   for a, b in pairs]
+        torch.cuda.synchronize()
+        return svc, tenants
+
+    def rounds(svc, tenants):
+        rng = random.Random(SOAK18_SEED ^ 0x5EED)
+        weights = serve_soak._zipf_weights(len(tenants), 1.2)
+        t0 = time.perf_counter()
+        admitted = [serve_soak._calib_round(svc, tenants, rng, weights, k)
+                    for k in range(SOAK18_ROUNDS)]
+        torch.cuda.synchronize()
+        return admitted, time.perf_counter() - t0
+
+    svc_k, ten_k = service(os.path.join(tmp, "calib_kernels"))
+    kernels.reset_launches()
+    adm_k, secs_k = rounds(svc_k, ten_k)
+    counts = dict(kernels.launches)
+    expect_launches(counts, tuple(V5_LAUNCHES), tag)
+    dig_k = {t.uuid: svc_k.converged_digest(t.uuid) for t in ten_k}
+    ticks_k, res_k = svc_k.ticks, dict(svc_k.residency.stats)
+    svc_k.close()
+    del svc_k
+    say(f"{tag}: {SOAK18_ROUNDS} rounds of {3 * len(pairs)} offers over "
+        f"{len(pairs)} tenants of {SERVE_LIST} elements (capacity "
+        f"{SERVE_CAPACITY}, d_max {SERVE_DMAX}) on the kernels in "
+        f"{secs_k:.1f} s (host clock): {sum(adm_k)} offers admitted "
+        f"{adm_k}, {ticks_k} ticks, {sum(adm_k) / secs_k:.1f} batch/s, "
+        f"residency {res_k}; launches {counts}")
+
+    svc_p, ten_p = service(os.path.join(tmp, "calib_plain"))
+    calls = []
+    with plain_path(record=calls):
+        adm_p, secs_p = rounds(svc_p, ten_p)
+    dig_p = {t.uuid: svc_p.converged_digest(t.uuid) for t in ten_p}
+    svc_p.close()
+    del svc_p
+    if adm_p != adm_k:
+        fail(f"{tag}: the plain run admitted {adm_p}, the kernels {adm_k}")
+    if dig_p != dig_k:
+        bad = sorted(u for u in dig_k if dig_p.get(u) != dig_k[u])
+        fail(f"{tag}: converged digests differ on the plain path: {bad}")
+    say(f"{tag}: the same rounds on the plain path in {secs_p:.1f} s (host "
+        f"clock), {len(calls)} kernel calls recorded; every tenant's "
+        f"converged_digest equal to the kernel run's")
+    per = check_recorded(torch, calls, tag, sites=("calib",),
+                         timed=TimedPerWidth())
+    say(f"{tag}: {kernel_sums_line(per)}")
+    return counts, per
+
+
+def soak_batched(torch, tmp: str) -> dict:
+    """Phase 18 (a): ``batched_smoke.one_tick`` over BATCHED_TENANTS
+    tenants with telemetry on, once on the kernels and once on the plain
+    path with every kernel call recorded and held against its plain
+    version, both arms from the same seeded site ids; then the smoke's
+    gates on each run. Returns the kernel run's launches."""
+    from cause_tpu_torch import batched_smoke, ids, obs
+    from cause_tpu_torch.obs import perfetto
+
+    n = BATCHED_TENANTS
+    digests = {}
+    for arm in ("kernels", "plain"):
+        tag = f"[18 batched {arm}]"
+        out = os.path.join(tmp, f"batched_{arm}.jsonl")
+        obs_fresh(out)
+        obs.configure(enabled=True, out=out)
+        ids._rng.seed(SOAK18_SEED)  # both arms build the same tenants
+        calls = []
+        path = (plain_path(record=calls) if arm == "plain"
+                else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with launches_in() as counts, path:
+            dig_b, dig_u, rec, tenants = batched_smoke.one_tick(
+                os.path.join(tmp, f"batched_{arm}"), n)
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        obs.flush()
+        obs_fresh()
+        evs = perfetto.load_jsonl(out)
+        tick_b = fields_of(evs, "serve.tick")[0]
+        if rec["tenants"] != n or not (rec["wave_dispatches"]
+                                       == rec["buckets"] == 2):
+            fail(f"{tag}: the batched tick {rec}")
+        if tick_b["fallbacks"] or tick_b["wave_dispatches"] != 2 \
+                or tick_b["batch_rows"] < n:
+            fail(f"{tag}: the batched tick's event {tick_b}")
+        if dig_b != dig_u:
+            fail(f"{tag}: batched and unbatched digests differ")
+        agreed, seen = set(), 0
+        for e in evs:
+            if e.get("ev") != "event":
+                continue
+            if e.get("name") == "serve.tick":
+                seen += 1
+                if seen == 2:
+                    break
+            if e.get("name") == "wave.digest" and e["fields"].get("agreed"):
+                agreed.add(e["fields"]["uuid"])
+        missing = {t["uuid"] for t in tenants} - agreed
+        if missing:
+            fail(f"{tag}: tenants without an agreed wave.digest: "
+                 f"{sorted(missing)}")
+        digests[arm] = dig_b
+        if arm == "kernels":
+            kernel_counts = counts
+            expect_launches(counts, tuple(V5_LAUNCHES), tag)
+        else:
+            check_recorded(torch, calls, tag)
+        say(f"{tag}: {n} tenants, {rec['buckets']} buckets, "
+            f"{rec['wave_dispatches']} dispatches in one tick "
+            f"({tick_b['batch_rows']} rows), 0 fallbacks, every tenant "
+            f"agreed in the tick, batched digests equal to the unbatched "
+            f"arm's; {secs:.2f} s (host clock); launches {counts}")
+    if digests["plain"] != digests["kernels"]:
+        fail("[18 batched] the plain path's digests differ from the "
+             "kernels'")
+    return kernel_counts
+
+
+def soak_ci_serve(run: Beside) -> None:
+    """Phase 18 (b): the reference CI's serve-smoke checks on the port's
+    run."""
+    tag = "[18 ci serve]"
+    watch = port_cli("ci serve", "cause_tpu_torch.obs",
+                     ["watch", run.out, "--once"], env=run.env)
+    if "serve: " not in watch:
+        fail(f"{tag}: watch --once printed no serve line: {watch[-2000:]}")
+    rows = [r for r in run.rows if r.get("kind") == "serve"]
+    if len(rows) != 1:
+        fail(f"{tag}: serve rows {rows}")
+    s = rows[0]["serve"]
+    p99 = s["p99_ms"]
+    if s["sheds"] != 0 or s["crashes"] != 0 \
+            or s["restore_bit_identical"] is not True or p99 is None \
+            or not np.isfinite(p99) or p99 <= 0 \
+            or s["max_depth"] > s["max_ops"]:
+        fail(f"{tag}: the serve row {s}")
+    names = event_names(run.evs)
+    if "serve.tick" not in names or "serve.drain" not in names \
+            or "serve.shed" in names:
+        fail(f"{tag}: serve events "
+             f"{sorted(n for n in names if str(n).startswith('serve.'))}")
+    port_cli("ci serve", "cause_tpu_torch.obs",
+             ["ledger", "--ledger", run.env["CAUSE_TPU_LEDGER"], "--check"],
+             env=run.env)
+    say(f"{tag} {' '.join(CI_SERVE)}: exit 0 in {run.secs:.1f} s (host "
+        f"clock, the subprocess's start included, beside phase 18's "
+        f"in-process part); measured "
+        f"{s['steady_per_s']} batch/s, offered {s['offered_per_s']}; "
+        f"{s['admitted_ops']} ops admitted, 0 sheds, lag p50 "
+        f"{s['p50_ms']} ms p99 {p99} ms, max depth {s['max_depth']}, "
+        f"restore bit-identical; serve.tick and serve.drain in the "
+        f"stream, no serve.shed; watch --once prints serve:; ledger "
+        f"--check exit 0 ({rows[0]['platform']}, {rows[0]['card']})")
+
+
+def soak_ci_disk(run: Beside) -> None:
+    """Phase 18 (c): the reference CI's disk-smoke checks on the port's
+    run, the offline scrubber on its surviving state."""
+    tag = "[18 ci disk]"
+    state = run.out + ".state"
+    port_cli("ci disk", "cause_tpu_torch.serve",
+             ["scrub", "--wal", f"{state}/wal", "--retired",
+              f"{state}/wal_retired", "--checkpoint", f"{state}/ckpt"],
+             env=run.env)
+    watch = port_cli("ci disk", "cause_tpu_torch.obs",
+                     ["watch", run.out, "--once"], env=run.env)
+    if "wal: " not in watch:
+        fail(f"{tag}: watch --once printed no wal line: {watch[-2000:]}")
+    with open(os.path.join(REPO_ROOT, CI_DISK[-1])) as f:
+        plan = json.load(f)
+    modes = {s.get("mode") for s in plan["faults"] if s["family"] == "disk"}
+    if modes != {"torn", "bitrot", "enospc", "fsync", "rename"} or not any(
+            s["family"] == "crash" and s["site"] == "serve.wal.gc"
+            for s in plan["faults"]):
+        fail(f"{tag}: the committed plan {plan}")
+    rows = [r for r in run.rows if r.get("kind") == "disk"]
+    if len(rows) != 1:
+        fail(f"{tag}: disk rows {rows}")
+    d = rows[0]["disk"]["disk"]
+    if not all(d["checks"].values()) or not (
+            d["gc_cycles"] >= 3 or d["checks"]["disk_bounded"]
+            == "skipped: insufficient_gc_cycles") \
+            or d["scrub"]["clean"] is not True \
+            or rows[0]["disk"]["restore_bit_identical"] is not True:
+        fail(f"{tag}: the disk row {rows[0]['disk']}")
+    names = event_names(run.evs)
+    for need in ("serve.disk", "serve.gc", "serve.shed"):
+        if need not in names:
+            fail(f"{tag}: no {need} in the stream")
+    port_cli("ci disk", "cause_tpu_torch.obs",
+             ["ledger", "--ledger", run.env["CAUSE_TPU_LEDGER"], "--check"],
+             env=run.env)
+    s = rows[0]["disk"]
+    say(f"{tag} {' '.join(CI_DISK)}: exit 0 in {run.secs:.1f} s (host "
+        f"clock); measured {s['steady_per_s']} batch/s, floor "
+        f"{s['floor_ms']} ms a wave; injected {d['injected_by_mode']} + "
+        f"{d['gc_crashes_injected']} mid-GC crash, durability sheds "
+        f"{d['durability_sheds_by_reason']}, serve.disk "
+        f"{d['serve_disk_events_by_op']}; {d['gc_cycles']} GC cycles "
+        f"(extension {d['extension_s']} s), live WAL {d['final_live_bytes']} "
+        f"bytes; every check {d['checks']}; scrub clean "
+        f"({d['scrub']}), restore bit-identical; serve scrub exit 0, "
+        f"watch --once prints wal:, ledger --check exit 0")
+
+
+def soak_overload(run: Beside, card: str) -> None:
+    """Phase 18 (d): the overload run at phase 10's served size: its own
+    gates (exit 0: both crashes survived, every shed evidenced, the
+    dispatch collapse held, every tenant bit-identical to the journal
+    oracle); its numbers, and the B1 launches of its timed window beside
+    the costmodel's dispatches."""
+    tag = "[18 overload]"
+    rows = [r for r in run.rows if r.get("kind") == "serve"]
+    if len(rows) != 1:
+        fail(f"{tag}: serve rows {rows}")
+    s = rows[0]["serve"]
+    if s["crashes"] < 2 or not any(x.startswith(
+            "serve soak: dispatch collapse held") for x in run.lines):
+        fail(f"{tag}: crashes {s['crashes']}, lines {run['lines'][-6:]}")
+    window = next((json.loads(x.split(" ", 2)[2]) for x in run.lines
+                   if x.startswith("timed-window launches ")), None)
+    if not window or not all(window[n] for n in V5_LAUNCHES):
+        fail(f"{tag}: timed-window launches {window}")
+    disp = s["dispatch"]
+    # the gate's bound without its restore allowance: whether the
+    # collapse held on the waves alone
+    bare = disp["buckets"] + 3 * disp["fallbacks"] + disp["ticks_touched"]
+    say(f"{tag} {' '.join(OVERLOAD)}: exit 0 in {run.secs:.1f} s (host "
+        f"clock, the fleet's build and the calibration included, beside "
+        f"phase 18's in-process part and CI's smokes); "
+        f"measured {s['steady_per_s']} batch/s, floor {s['floor_ms']} ms a "
+        f"wave, offered {s['offered_per_s']} batch/s ({s['offered']} "
+        f"offers, {s['gen_refused']} refused); {s['admitted_ops']} ops "
+        f"admitted in {s['ticks']} ticks; lag p50 {s['p50_ms']} ms p99 "
+        f"{s['p99_ms']} ms; sheds {s['sheds']} by rung {s['shed_by_rung']}, "
+        f"all evidenced; {s['crashes']} crashes survived, MTTR "
+        f"{s['mttr_ms']} ms; dispatches {disp['wave_dispatches']} against "
+        f"{disp['buckets']} buckets, {disp['fallbacks']} fallbacks, "
+        f"{disp['restores']} restores over {disp['ticks_touched']} touched "
+        f"ticks ({disp['tenant_touches']} tenant touches; the bound without "
+        f"the restores' allowance {bare}, held: "
+        f"{disp['wave_dispatches'] <= bare}); the timed "
+        f"window's launches {window}: B1 {window['sort']} = "
+        f"{window['sort'] / 6:g} six-sort dispatches (the costmodel's "
+        f"bucket waves plus the uncounted B = 1 side applies and serde "
+        f"reweaves); every tenant bit-identical to the journal oracle; "
+        f"{card}")
+
+
+def phase_serve_soak(torch, dev, card: str) -> tuple:
+    """Phase 18: the serving plane's acceptance instruments on the card
+    (``cause_tpu_torch.serve_soak``, ``batched_smoke``, ``obs_off_pin``).
+    The overload run and CI's serve and disk smokes run in subprocesses
+    beside the in-process part. Returns the calibration's launches on the
+    kernels and its timed calls' sums."""
+    import tempfile
+
+    from cause_tpu_torch import serve_soak
+
+    t_phase = time.perf_counter()
+    runs = []
+    # the overload run's calibration and window price the card and the
+    # host as the in-process part shares them; its offered 2x is twice
+    # what it measured so
+    with tempfile.TemporaryDirectory(prefix="serve-soak-") as tmp:
+        try:
+            runs.append(soak_start(tmp, "overload", OVERLOAD,
+                                   code=SOAK_WINDOW))
+            runs.append(soak_start(tmp, "ci_serve", CI_SERVE))
+            runs.append(soak_start(tmp, "ci_disk", CI_DISK))
+            t0 = time.perf_counter()
+            pairs = serve_soak._mk_fleet(SERVE_TENANTS, SERVE_LIST)
+            torch.cuda.synchronize()
+            say(f"[18 serve soak] serve_soak._mk_fleet({SERVE_TENANTS}, "
+                f"{SERVE_LIST}) in {time.perf_counter() - t0:.1f} s (host "
+                f"clock)")
+            counts, per = soak_calibration(torch, tmp, pairs)
+            del pairs
+            soak_batched(torch, tmp)
+            pin = port_cli("obs-off pin", "cause_tpu_torch.obs_off_pin",
+                           ["--check"])
+            say(f"[18 obs-off pin] {pin.strip()}")
+            a_secs = time.perf_counter() - t_phase
+            overload, ci_serve, ci_disk = [soak_finish(r) for r in runs]
+            soak_ci_serve(ci_serve)
+            soak_ci_disk(ci_disk)
+            soak_overload(overload, card)
+        finally:
+            # a failed check exits with the smokes still running: stop
+            # them before their directory goes
+            for run in runs:
+                run.stop()
+    say(f"[18 serve soak] phase {time.perf_counter() - t_phase:.1f} s (host "
+        f"clock; the in-process part {a_secs:.1f} s, beside it the CI "
+        f"smokes {ci_serve.secs:.1f} and {ci_disk.secs:.1f} s and the "
+        f"overload run {overload.secs:.1f} s); {card}")
+    return counts, per
 
 
 def main() -> int:
@@ -5465,6 +5994,9 @@ def main() -> int:
     # ------------------------------------------------ 17. soak, fleet
     soak_counts, fleet_counts, fleet_per = phase_soak(torch, dev, card)
 
+    # ------------------------------------------------ 18. serve soak
+    serve_soak_counts, serve_soak_per = phase_serve_soak(torch, dev, card)
+
     # ------------------------------------------------ result
     recs = []
     for name in kernels.SOURCES:
@@ -5534,6 +6066,17 @@ def main() -> int:
             "fleet_plain_ms": fleet_per.get(name, {}).get("plain_ms"),
             "fleet_bound_ms": fleet_per.get(name, {}).get("bound_ms"),
             "fleet_library_ms": fleet_per.get(name, {}).get("library_ms"),
+            # phase 18's serve_soak calibration rounds on the kernels (32
+            # tenants of 10,000 elements), and their calls' kernel time,
+            # one call a kernel, row count and width class
+            "serve_soak_launches": serve_soak_counts[name],
+            "serve_soak_ms": serve_soak_per.get(name, {}).get("ms"),
+            "serve_soak_plain_ms": serve_soak_per.get(name, {}).get(
+                "plain_ms"),
+            "serve_soak_bound_ms": serve_soak_per.get(name, {}).get(
+                "bound_ms"),
+            "serve_soak_library_ms": serve_soak_per.get(name, {}).get(
+                "library_ms"),
         })
     say(f"total {time.perf_counter() - t_start:.1f} s (host clock)")
     print(card, flush=True)
