@@ -18,7 +18,9 @@ wave and map routes over a one-rank NCCL mesh, the north-star benchmark
 (``cause_tpu_torch.soak``) and the fleet bench
 (``cause_tpu_torch.fleet_bench``), the serving plane's acceptance
 instruments (``cause_tpu_torch.serve_soak``, ``batched_smoke``,
-``obs_off_pin``), and checks that
+``obs_off_pin``), the wire and ship plane's
+(``cause_tpu_torch.journey_smoke``, ``net_soak``, ``ship_smoke``,
+``ship_soak``), and checks that
 the kernels really
 carried those paths (launch counts) and that the results are
 bit-identical to the plain path on the card, to each other and to the
@@ -320,8 +322,39 @@ Phases, one line each (times from CUDA events unless named host):
    held, every tenant equal to the journal oracle), its numbers and the
    B1-B3 launches of its timed window beside the costmodel's
    dispatches.
+19. the wire and ship plane's acceptance instruments: first, alone,
+   the reference CI's journey smoke through ``python -m
+   cause_tpu_torch.journey_smoke`` (a server on the card, a host-only
+   client interpreter; ``obs journey --worst 3`` over the two streams
+   with CI's three lines, the row's asserts, ``obs ledger --check``);
+   then, (a) in this process, ``net_soak._mk_tenants`` at phase 10's
+   served size (32 tenants of 10,000 elements) and a drive over a
+   loopback ``ReplicationServer``: ``net_soak._frame_bench`` and 4
+   rounds of one ``ClientDriver`` batch a client (seed 13, pumped from
+   this thread), each round ticked until drained, on the kernels (B1,
+   B2 and B3 launched) and again in a second service over the same
+   pairs on the plain path with every kernel call recorded and held
+   against its plain version (one call a kernel, row count and width
+   class timed): equal admissions and ticks, every tenant's
+   ``converged_digest`` equal, the two journals' batches equal, and
+   both services' documents equal to ``net_soak._journal_oracle``;
+   beside it, in subprocesses, (b) the reference CI's net smoke
+   (``net_soak --seconds 8 --seed 13 --chaos
+   measurements/net_plan_r13.json``, CI's Python block on its row and
+   stream, ``obs watch --once`` with a ``net:`` line, ``obs ledger
+   --check``, every planned fault fired), its ship smoke (the row's
+   asserts, ``ledger --check``) and ``ship_soak`` at its defaults
+   (exit 0, or a miss of its 1% overhead gate alone printed as a
+   finding with its numbers), and (c) the net soak at the served size
+   (32 clients, 10,000 elements, 2 host-only client interpreters, the
+   committed plan): exit 0 (the journal oracle, every planned fault
+   detected, the journey gate), CI's net checks, every planned fault
+   fired, the B1-B3 launches of its run; the frame round trip,
+   partition and crash MTTR, the journey's mint->converged ms, the
+   ship soak's overhead, ``memory_reserved`` and the card's
+   ``memory.used`` with the subprocesses beside.
 
-Phases 5-18 each reset or read the launch counts around their runs
+Phases 5-19 each reset or read the launch counts around their runs
 (phases 10-12 tick by tick) and read them after: a phase that did
 not launch B1, B2 and B3 fails.
 
@@ -4932,12 +4965,17 @@ class Beside:
         self.stdout, self.stderr = self.proc.communicate()
         self.secs = time.perf_counter() - self.t0
 
-    def collect(self) -> "Beside":
+    def wait(self) -> "Beside":
+        """Its exit, whatever the code; fails past ``timeout``."""
         self._thread.join(max(0.0, self.timeout
                               - (time.perf_counter() - self.t0)))
         if self._thread.is_alive():
             self.stop()
             fail(f"{self.tag} ran past {self.timeout} s")
+        return self
+
+    def collect(self) -> "Beside":
+        self.wait()
         if self.proc.returncode != 0:
             fail(f"{self.tag} exited {self.proc.returncode}: "
                  f"{self.stdout[-4000:]} {self.stderr[-3000:]}")
@@ -5628,6 +5666,466 @@ def phase_serve_soak(torch, dev, card: str) -> tuple:
     return counts, per
 
 
+# -------------------------------------------------- 19. the wire soak
+
+# phase 19: (a) the in-process drive at phase 10's served size (never
+# cut): WIRE_ROUNDS rounds of one ClientDriver batch a client, seeded
+# from WIRE_SEED, and WIRE_FRAMES frames of net_soak._frame_bench; (b)
+# the reference CI's net, journey and ship smokes at CI's flags and
+# ship_soak at its defaults; (c) the net soak at the served size
+# through the CLI. Its window and mint cadence come from a run at 40 s
+# on an NVIDIA H100 80GB HBM3 (PERF.md section 4): client 2's 9th
+# delta frame went at 4.1 s, the crash (tick 10) at 8.4 s and its
+# restore took 14.5 s, so 30 s holds every fault of the committed plan
+# and outlasts the restore; a mint a second keeps the oracle's replay
+# at about 800 journal entries
+WIRE_SEED, WIRE_ROUNDS, WIRE_FRAMES = 13, 4, 50
+NET_PLAN = "measurements/net_plan_r13.json"
+CI_NET = ["--seconds", "8", "--seed", "13", "--chaos", NET_PLAN]
+SERVED_NET = ["--clients", str(SERVE_TENANTS), "--doc", str(SERVE_LIST),
+              "--proc-clients", "2", "--chaos", NET_PLAN, "--seed", "13",
+              "--seconds", "30", "--mint-every", "1.0"]
+WIRE_SOAK_TIMEOUT = 600
+# the served net soak's CLI, with the kernel launches of its whole run
+# printed after main returns
+NET_RUN = """\
+import json, sys
+from cause_tpu_torch import chaos, kernels, net_soak
+kernels.reset_launches()
+rc = net_soak.main(sys.argv[1:])
+print("run launches " + json.dumps(dict(kernels.launches)), flush=True)
+chaos.reset()
+sys.exit(rc)
+"""
+
+
+def wire_start(tmp: str, tag: str, module: str, args, flag="--obs-out",
+               code=None) -> Beside:
+    """``python -m module args flag tmp/<tag>`` (or ``python -c code
+    ...``) started from the checkout's root beside this process, its
+    ledger at ``tmp/<tag>.ledger.jsonl``; ``flag`` names its sidecar or
+    scratch prefix."""
+    out = os.path.join(tmp, tag)
+    cmd = ([sys.executable, "-c", code] if code else
+           [sys.executable, "-m", module])
+    run = Beside(f"[19 {tag}]", cmd + list(args) + [flag, out],
+                 WIRE_SOAK_TIMEOUT, env={"CAUSE_TPU_LEDGER": os.path.join(
+                     tmp, f"{tag}.ledger.jsonl")})
+    run.out = out
+    return run
+
+
+def wire_finish(run: Beside, clean: str) -> Beside:
+    """A run of ``wire_start`` collected: exit 0 within
+    WIRE_SOAK_TIMEOUT, a line starting ``clean``. Adds its stdout's
+    lines and its ledger's rows."""
+    run.collect()
+    run.lines = run.stdout.strip().splitlines()
+    if not any(x.startswith(clean) for x in run.lines):
+        fail(f"{run.tag} did not end clean: {run.stdout[-4000:]}")
+    with open(run.env["CAUSE_TPU_LEDGER"]) as f:
+        run.rows = [json.loads(x) for x in f if x.strip()]
+    return run
+
+
+def wire_row(run: Beside, kind: str) -> dict:
+    rows = [r for r in run.rows if r.get("kind") == kind]
+    if len(rows) != 1:
+        fail(f"{run.tag}: {kind} rows {rows}")
+    return rows[0]
+
+
+def wire_drive(torch, tmp: str, tag: str, pairs, record=None) -> dict:
+    """Phase 19 (a), one run: a service of the net soak's shape (capacity
+    = the fleet, ``d_max`` 32, a journal) over ``pairs``, a loopback
+    ``ReplicationServer``, ``net_soak._frame_bench`` and WIRE_ROUNDS
+    rounds in which each of ``net_soak.ClientDriver``'s clients (one a
+    tenant, site ids seeded from WIRE_SEED, threads never started)
+    mints one batch and pumps it from this thread, each round ticked
+    until drained; under ``plain_path(record=...)`` when ``record`` is
+    a list. Returns the run's launches, digests, ticks, frame round trip,
+    seconds, journal path and the service (open, for ``materialize``)."""
+    import threading
+
+    from cause_tpu_torch import ids, kernels, net_soak
+    from cause_tpu_torch.net import ReplicationServer
+    from cause_tpu_torch.serve import (IngestJournal, IngestQueue,
+                                       ResidencyManager, SyncService)
+
+    root = os.path.join(tmp, tag)
+    journal = os.path.join(root, "ingest.jsonl")
+    os.makedirs(root)
+    queue = IngestQueue(max_ops=256, defer_frac=1.0,
+                        journal=IngestJournal(journal))
+    svc = SyncService(queue, residency=ResidencyManager(capacity=len(pairs)),
+                      checkpoint_dir=os.path.join(root, "ckpt"), d_max=32)
+    uuids = [svc.add_tenant(a, b) for a, b in pairs]
+    srv = ReplicationServer(svc).start()
+    ids._rng.seed(WIRE_SEED)  # both runs mint the same sites and ops
+    drivers = [net_soak.ClientDriver(i, srv.port, u, WIRE_SEED, 0.0,
+                                     threading.Event())
+               for i, u in enumerate(uuids)]
+    path = (plain_path(record=record) if record is not None
+            else contextlib.nullcontext())
+    ticks = 0
+
+    def drain():
+        nonlocal ticks
+        while queue.depth or queue.deferred:
+            svc.tick()
+            ticks += 1
+
+    t0 = time.perf_counter()
+    with launches_in() as counts, path:
+        frame_rt = net_soak._frame_bench(srv.port, uuids[0], WIRE_FRAMES)
+        drain()
+        for _ in range(WIRE_ROUNDS):
+            for d in drivers:
+                if not d.client.queue_ops(d.uuid, d.site, d._mint_batch()):
+                    fail(f"[19 wire drive] {tag}: client {d.idx} shed")
+                d.client.pump()
+                if d.client.outbound_depth:
+                    fail(f"[19 wire drive] {tag}: client {d.idx} left "
+                         f"{d.client.outbound_depth} ops unacked")
+            drain()
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    digests = {u: svc.converged_digest(u) for u in uuids}
+    for d in drivers:
+        d.client.close()
+    srv.stop()
+    return {"counts": counts, "digests": digests, "ticks": ticks,
+            "frame_rt": frame_rt, "secs": secs, "journal": journal,
+            "svc": svc, "uuids": uuids,
+            "minted": sum(d.minted for d in drivers),
+            "stats": dict(srv.stats)}
+
+
+def wire_drives(torch, tmp: str) -> tuple:
+    """Phase 19 (a): ``net_soak._mk_tenants`` at phase 10's served size,
+    ``wire_drive`` on the kernels (B1-B3 launched, K1, K2, K4 not), then
+    in a second service over the same pairs on the plain path with every
+    kernel call recorded and held against its plain version (one call a
+    kernel, row count and width class timed): equal admissions, every
+    tenant's converged digest equal, and both services' documents equal
+    to ``net_soak._journal_oracle`` of the first run's journal, whose
+    entries equal the second's. Returns the kernel run's launches and
+    the timed calls' sums."""
+    from cause_tpu_torch import chaos, net_soak
+    from cause_tpu_torch.serve import IngestJournal
+
+    tag = "[19 wire drive]"
+
+    class Keyed:
+        def add_tenant(self, a, b):
+            return str(a.ct.uuid)
+
+    t0 = time.perf_counter()
+    uuids, pairs_init = net_soak._mk_tenants(Keyed(), SERVE_TENANTS,
+                                             SERVE_LIST)
+    pairs = [pairs_init[u] for u in uuids]
+    torch.cuda.synchronize()
+    say(f"{tag}: net_soak._mk_tenants({SERVE_TENANTS}, {SERVE_LIST}) in "
+        f"{time.perf_counter() - t0:.1f} s (host clock); memory_reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    k = wire_drive(torch, tmp, "kernels", pairs)
+    expect_launches(k["counts"], tuple(V5_LAUNCHES), tag)
+    fr = k["frame_rt"]
+    say(f"{tag}: on the kernels, {WIRE_FRAMES} frames of _frame_bench "
+        f"(round trip mean {fr['mean_ms']} ms, p50 {fr['p50_ms']}, max "
+        f"{fr['max_ms']}) and {WIRE_ROUNDS} rounds of one batch from each "
+        f"of {SERVE_TENANTS} clients ({k['minted']} ops minted, "
+        f"{k['stats']['admitted_ops']} admitted over the wire) in "
+        f"{k['ticks']} ticks, {k['secs']:.1f} s (host clock); launches "
+        f"{k['counts']}")
+    calls = []
+    p = wire_drive(torch, tmp, "plain", pairs, record=calls)
+    # frames and heartbeats follow the wall clock (the clients' pings)
+    same = ("admitted_ops", "acks", "nacks", "dup_frames", "ooo_frames",
+            "poison_nacks")
+    if any(p["stats"][x] != k["stats"][x] for x in same) \
+            or p["ticks"] != k["ticks"]:
+        fail(f"{tag}: the plain run admitted {p['stats']} in {p['ticks']} "
+             f"ticks, the kernels {k['stats']} in {k['ticks']}")
+    if p["digests"] != k["digests"]:
+        bad = sorted(u for u in k["digests"]
+                     if p["digests"].get(u) != k["digests"][u])
+        fail(f"{tag}: converged digests differ on the plain path: {bad}")
+
+    def entries(path):
+        jr = IngestJournal(path)
+        out = [(e["uuid"], e["site"], e["items"]) for e in jr.iter_from(0)]
+        jr.close()
+        return out
+
+    if entries(p["journal"]) != entries(k["journal"]):
+        fail(f"{tag}: the two runs' journals hold different batches")
+    t0 = time.perf_counter()
+    with chaos.suspended():
+        oracle, n = net_soak._journal_oracle(pairs_init, k["journal"])
+        for run in (k, p):
+            bad = [u for u in run["uuids"] if not net_soak._doc_equal(
+                run["svc"].materialize(u), oracle[u])]
+            if bad:
+                fail(f"{tag}: tenants {bad} differ from the journal oracle")
+    for run in (k, p):
+        run["svc"].close()
+    say(f"{tag}: the same drive on the plain path in {p['secs']:.1f} s (host "
+        f"clock), {len(calls)} kernel calls recorded; every tenant's "
+        f"converged_digest equal to the kernel run's, the journals' "
+        f"{n} batches equal, and both runs' {len(uuids)} documents equal "
+        f"to net_soak._journal_oracle ({time.perf_counter() - t0:.1f} s)")
+    per = check_recorded(torch, calls, tag, sites=("wire",),
+                         timed=TimedPerWidth())
+    say(f"{tag}: {kernel_sums_line(per)}")
+    return k["counts"], per
+
+
+def wire_ci_net(run: Beside) -> dict:
+    """Phase 19 (b): the reference CI's net-smoke checks on the port's
+    run: its Python block on the row and the sidecar, ``obs watch
+    --once`` with a ``net:`` line, ``obs ledger --check``."""
+    from cause_tpu_torch.obs import perfetto
+
+    tag = run.tag
+    watch = port_cli("ci net", "cause_tpu_torch.obs",
+                     ["watch", run.out, "--once"], env=run.env)
+    if "net: " not in watch:
+        fail(f"{tag}: watch --once printed no net line: {watch[-2000:]}")
+    with open(os.path.join(REPO_ROOT, NET_PLAN)) as f:
+        plan = json.load(f)
+
+    def planned(mode):
+        return sum(len(s.get("at") or ()) for s in plan["faults"]
+                   if s["family"] == "net" and s.get("mode") == mode)
+
+    dups, partitions = planned("dup"), planned("partition")
+    if dups < 1 or partitions < 1:
+        fail(f"{tag}: the committed plan {plan}")
+    row = wire_row(run, "net")
+    n = row["net"]
+    if n["dup_frames"] != dups or n["minted_ops"] <= 0 \
+            or n["acked_ops"] + n["dup_acked_ops"] \
+            + n["resumed_skipped_ops"] != n["minted_ops"] \
+            or n["minted_ops_missing"] or n["client_shed_ops"] \
+            or n["crashes"] != 1 or n["reconnects"] < 1 \
+            or n["dial_failures"] < partitions \
+            or n["partition_mttr_mean_ms"] is None:
+        fail(f"{tag}: the net row {n}")
+    evs = perfetto.load_jsonl(run.out)
+    names = event_names(evs)
+    for need in ("net.connect", "net.reconnect", "net.heartbeat",
+                 "net.dup_frame", "sync.reject"):
+        if need not in names:
+            fail(f"{tag}: no {need} in the stream")
+    n_dup = len(fields_of(evs, "net.dup_frame"))
+    if n_dup != dups:
+        fail(f"{tag}: {n_dup} net.dup_frame events, {dups} planned")
+    port_cli("ci net", "cause_tpu_torch.obs",
+             ["ledger", "--ledger", run.env["CAUSE_TPU_LEDGER"], "--check"],
+             env=run.env)
+    run.evs = evs
+    return row
+
+
+def wire_faults(run: Beside) -> list:
+    """Each injection of the committed plan's ``at`` schedule, from the
+    run's ``chaos.inject`` events, in order: ``(mode, site, seq, ms
+    after the first client connect)``; fails when one is missing."""
+    with open(os.path.join(REPO_ROOT, NET_PLAN)) as f:
+        plan = json.load(f)
+    want = {(s.get("mode", s["family"]) if s["family"] != "crash"
+             else "", s["site"], n)
+            for s in plan["faults"] for n in s.get("at") or ()}
+    t0 = min(e["ts_us"] for e in run.evs if e.get("name") == "net.connect")
+    got = [(f["mode"], f["site"], f["seq"], (f["ts_us"] - t0) / 1e3)
+           for f in fields_of(run.evs, "chaos.inject")]
+    missing = want - {g[:3] for g in got}
+    if missing:
+        fail(f"{run.tag}: planned faults that never fired: "
+             f"{sorted(missing)}; fired {got}")
+    return got
+
+
+def wire_ci_journey(run: Beside) -> dict:
+    """Phase 19 (b): the reference CI's journey-smoke checks: ``obs
+    journey --worst 3`` over both streams with CI's three lines, the
+    row's asserts, ``obs ledger --check``."""
+    tag = run.tag
+    rep = port_cli("ci journey", "cause_tpu_torch.obs",
+                   ["journey", "--worst", "3", run.out, run.out + ".client"],
+                   env=run.env)
+    for need in ("0 orphan hop(s)", "per-hop decomposition",
+                 "clock (ref pid"):
+        if need not in rep:
+            fail(f"{tag}: obs journey printed no {need!r}: {rep[-2000:]}")
+    row = wire_row(run, "journey")
+    j = row["journey"]
+    if j["processes"] != 2 or j["orphan_hops"] or j["clock_edges"] < 1 \
+            or not j["total_ms"] or j["total_ms"] <= 0:
+        fail(f"{tag}: the journey row {j}")
+    port_cli("ci journey", "cause_tpu_torch.obs",
+             ["ledger", "--ledger", run.env["CAUSE_TPU_LEDGER"], "--check"],
+             env=run.env)
+    return row
+
+
+def wire_ci_ship(run: Beside) -> dict:
+    """Phase 19 (b): the reference CI's ship-smoke checks: the row's
+    asserts and ``obs ledger --check``."""
+    row = wire_row(run, "ship")
+    s = row["ship"]
+    if s["producers"] != 2 or s["orphan_hops"] \
+            or s["missed"] != s["evidenced_drops"] or s["dup_skipped"] <= 0:
+        fail(f"{run.tag}: the ship row {s}")
+    port_cli("ci ship", "cause_tpu_torch.obs",
+             ["ledger", "--ledger", run.env["CAUSE_TPU_LEDGER"], "--check"],
+             env=run.env)
+    return row
+
+
+def wire_ship_soak(run: Beside) -> str:
+    """Phase 19 (b): ``ship_soak`` at its defaults: exit 0 with its
+    fleet, data-plane and overhead lines and a ``ship`` row that ``obs
+    ledger --check`` passes. An exit on the 1% overhead gate alone (the
+    fleet and data-plane phases clean) is a finding, printed with its
+    numbers; the gate stays as it is. Returns the line to print."""
+    run.wait()
+    lines = run.stdout.strip().splitlines()
+    miss = [x for x in run.stderr.splitlines()
+            if "AssertionError: exporter overhead" in x]
+    if run.proc.returncode and miss and any(
+            x.startswith("ship soak: data plane bit-identical")
+            for x in lines):
+        return (f"FINDING: the 1% exporter-overhead gate missed "
+                f"({miss[-1].split(': ', 1)[1]}); the fleet and data-plane "
+                f"phases clean: {lines[-3:]}")
+    run = wire_finish(run, "ship soak: clean")
+    s = wire_row(run, "ship")["ship"]
+    port_cli("ship soak", "cause_tpu_torch.obs",
+             ["ledger", "--ledger", run.env["CAUSE_TPU_LEDGER"], "--check"],
+             env=run.env)
+    return (f"exit 0 in {run.secs:.1f} s (host clock): {s['journeys']} "
+            f"journeys, {s['accepted']} accepted, {s['missed']} missed == "
+            f"{s['evidenced_drops']} evidenced, {s['faults_injected']} "
+            f"faults; data-plane digest {s['dataplane_digest']} bit-identical "
+            f"under full partition; exporter overhead {s['overhead_pct']}% "
+            f"(per-pair median; base {s['median_base_ms']} ms, shipped "
+            f"{s['median_ship_ms']} ms); ledger --check exit 0")
+
+
+def wire_served(run: Beside, card: str) -> dict:
+    """Phase 19 (c): the net soak at the served size: exit 0 (the
+    journal oracle, every planned fault detected, the journey gate),
+    CI's net checks on its row and stream, the journey row, every fault
+    of the plan fired; its numbers and the B1-B3 launches of its run."""
+    row = wire_ci_net(run)
+    faults = wire_faults(run)
+    if "journey" not in row:
+        fail(f"{run.tag}: no journey summary in the row")
+    launches = next((json.loads(x.split(" ", 2)[2]) for x in run.lines
+                     if x.startswith("run launches ")), None)
+    if not launches or not all(launches[n] for n in V5_LAUNCHES):
+        fail(f"{run.tag}: run launches {launches}")
+    n, j = row["net"], row["journey"]
+    say(f"{run.tag} {' '.join(SERVED_NET)}: exit 0 in {run.secs:.1f} s "
+        f"(host clock, the fleet's build included, beside phase 19's "
+        f"in-process part); {n['ticks']} ticks, {n['minted_ops']} ops "
+        f"minted, {n['journal_entries']} journal entries; frame round trip "
+        f"{n['frame_rt']}; {n['reconnects']} reconnects, "
+        f"{n['dial_failures']} failed dials, {n['dup_frames']} duplicates "
+        f"suppressed exactly; partition MTTR mean "
+        f"{n['partition_mttr_mean_ms']} ms {n['partition_mttr_ms']}; crash "
+        f"MTTR {n['crash_mttr_ms']} ms; journeys {j}; faults fired "
+        f"(mode, site, call, ms after the first connect) {faults}; the "
+        f"run's launches {launches}; {card}")
+    return launches
+
+
+def phase_wire_soak(torch, dev, card: str) -> tuple:
+    """Phase 19: the wire and ship plane's acceptance instruments on the
+    card (``cause_tpu_torch.journey_smoke``, ``net_soak``,
+    ``ship_smoke``, ``ship_soak``). CI's journey smoke runs first, alone
+    (its causal-order gate rests on one clock sample, ROADMAP C.7); the
+    other CLIs then run in subprocesses beside the in-process drive.
+    Returns the drive's launches on the kernels and its timed calls'
+    sums."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="wire-soak-") as tmp:
+        try:
+            journey = wire_start(tmp, "ci_journey",
+                                 "cause_tpu_torch.journey_smoke", [])
+            runs.append(journey)
+            wire_finish(journey, "journey smoke: clean")
+            jrow = wire_ci_journey(journey)
+            say(f"[19 ci journey]: exit 0 in {journey.secs:.1f} s (host "
+                f"clock, alone); trace {jrow['journey']['trace']} over 2 "
+                f"processes, {jrow['journey']['hops']} hops, 0 orphans, "
+                f"{jrow['journey']['clock_edges']} clock edge(s), "
+                f"mint->converged {jrow['journey']['total_ms']} ms; obs "
+                f"journey --worst 3 prints CI's three lines; ledger --check "
+                f"exit 0 ({jrow['platform']}, {jrow['card']})")
+            t_b = time.perf_counter()
+            served = wire_start(tmp, "served", "", SERVED_NET,
+                                code=NET_RUN)
+            ci_net = wire_start(tmp, "ci_net", "cause_tpu_torch.net_soak",
+                                CI_NET)
+            ship = wire_start(tmp, "ci_ship", "cause_tpu_torch.ship_smoke",
+                              [], flag="--out")
+            soak = wire_start(tmp, "ship_soak", "cause_tpu_torch.ship_soak",
+                              [], flag="--out")
+            runs += [served, ci_net, ship, soak]
+            counts, per = wire_drives(torch, tmp)
+            a_secs = time.perf_counter() - t_b
+            smi = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=60).stdout.strip()
+            say(f"[19 wire soak] after (a): memory_reserved "
+                f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB in this "
+                f"process; the card's memory.used {smi} with the "
+                f"subprocesses beside it")
+            wire_finish(ci_net, "net soak: clean")
+            row = wire_ci_net(ci_net)
+            n = row["net"]
+            faults = wire_faults(ci_net)
+            say(f"[19 ci net] {' '.join(CI_NET)}: exit 0 in "
+                f"{ci_net.secs:.1f} s (host clock, beside (a)); "
+                f"{n['minted_ops']} ops, {n['ticks']} ticks, frame round "
+                f"trip {n['frame_rt']}; {n['dup_frames']} dups == planned, "
+                f"{n['reconnects']} reconnects, {n['dial_failures']} failed "
+                f"dials, partition MTTR mean {n['partition_mttr_mean_ms']} "
+                f"ms, crash MTTR {n['crash_mttr_ms']} ms; faults fired "
+                f"{faults}; net.* events and sync.reject in the stream, "
+                f"watch --once prints net:, ledger --check exit 0 "
+                f"({row['platform']}, {row['card']})")
+            wire_finish(ship, "ship smoke: clean")
+            s = wire_ci_ship(ship)["ship"]
+            say(f"[19 ci ship]: exit 0 in {ship.secs:.1f} s (host clock); "
+                f"{s['accepted']} accepted, {s['missed']} missed == "
+                f"{s['evidenced_drops']} evidenced, {s['dup_skipped']} wire "
+                f"dups skipped, 0 orphan hops, {s['clock_edges']} clock "
+                f"edges; ledger --check exit 0")
+            say(f"[19 ship soak]: {wire_ship_soak(soak)}")
+            wire_finish(served, "net soak: clean")
+            served_counts = wire_served(served, card)
+        finally:
+            # a failed check exits with the runs still going: stop them
+            # before their directory goes
+            for run in runs:
+                run.stop()
+    say(f"[19 wire soak] phase {time.perf_counter() - t_phase:.1f} s (host "
+        f"clock; CI's journey smoke alone {journey.secs:.1f} s, then the "
+        f"in-process part {a_secs:.1f} s, beside it the served net soak "
+        f"{served.secs:.1f} s, CI's net and ship smokes {ci_net.secs:.1f} "
+        f"and {ship.secs:.1f} s, ship_soak {soak.secs:.1f} s); launches "
+        f"(a) {counts}, (c) {served_counts}; {card}")
+    return counts, per
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -5997,6 +6495,9 @@ def main() -> int:
     # ------------------------------------------------ 18. serve soak
     serve_soak_counts, serve_soak_per = phase_serve_soak(torch, dev, card)
 
+    # ------------------------------------------------ 19. wire soak
+    wire_soak_counts, wire_soak_per = phase_wire_soak(torch, dev, card)
+
     # ------------------------------------------------ result
     recs = []
     for name in kernels.SOURCES:
@@ -6076,6 +6577,18 @@ def main() -> int:
             "serve_soak_bound_ms": serve_soak_per.get(name, {}).get(
                 "bound_ms"),
             "serve_soak_library_ms": serve_soak_per.get(name, {}).get(
+                "library_ms"),
+            # phase 19's in-process wire drive on the kernels (32 tenants
+            # of 10,000 elements over the loopback server), and its
+            # calls' kernel time, one call a kernel, row count and width
+            # class
+            "wire_soak_launches": wire_soak_counts[name],
+            "wire_soak_ms": wire_soak_per.get(name, {}).get("ms"),
+            "wire_soak_plain_ms": wire_soak_per.get(name, {}).get(
+                "plain_ms"),
+            "wire_soak_bound_ms": wire_soak_per.get(name, {}).get(
+                "bound_ms"),
+            "wire_soak_library_ms": wire_soak_per.get(name, {}).get(
                 "library_ms"),
         })
     say(f"total {time.perf_counter() - t_start:.1f} s (host clock)")

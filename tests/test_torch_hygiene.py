@@ -251,7 +251,12 @@ def test_serving_plane_follows_the_package_default(no_card, tmp_path):
 HOST_ONLY = ["serve/__init__.py", "serve/__main__.py", "serve/ingest.py",
              "serve/wal.py", "serve/controller.py", "serve/scrub.py",
              "net/__init__.py", "net/transport.py", "net/session.py",
-             "net/server.py", "native/__init__.py"]
+             "net/server.py", "native/__init__.py",
+             # the wire and ship plane's instruments: they reach the card
+             # only through a service's ticks, and their host roles (the
+             # journey client, the collectors, the producers) never do
+             "journey_smoke.py", "net_soak.py", "ship_smoke.py",
+             "ship_soak.py"]
 
 
 @pytest.mark.parametrize("rel", HOST_ONLY)
