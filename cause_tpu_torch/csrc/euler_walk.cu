@@ -1,5 +1,6 @@
 // B2: weighted preorder base per run of each row's contracted forest, by
-// list ranking of its Euler tour, one CTA per row.
+// list ranking of its Euler tour: one CTA per row, or (row, block) CTAs
+// for rows too wide for shared memory (below).
 //
 // Replaces the Pallas kernel of cause_tpu/weaver/pallas_ops.py
 // (`_walk_kernel`, launched by the pallas_call at :139 and :161 behind
@@ -49,9 +50,31 @@
 // The successors (uint16), weights and bases of a row live in shared
 // memory with the splitters' tables: 52 KB at K = 4096 (four rows an
 // SM), 104 KB at K = 8192 (the doubled budget's rows stay there), 208 KB
-// at K = 16384 (splitters one slot in 32). A row too wide for that runs
-// the same code on a global scratch row the wrapper allocates, with
-// int32 successors.
+// at K = 16384 (splitters one slot in 32).
+//
+// That "row" form fills the card when rows are many (the wave's 1,024).
+// A row too wide for shared memory takes the "split" form, which also
+// serves a call with few wide rows: there the row form would leave most
+// SMs idle, and its one thread on the splitter chain would make 2K / 32
+// dependent loads in turn (131,072 at the fleet row's K = 1,152,002).
+// The split form spreads the same ruling set over (row, block) CTAs, its
+// arrays in global scratch the wrapper allocates:
+// a. links: the successors, and the row's total as a uint32 atomic sum
+//    of the blocks' partials (wrapping: any order gives the same bits);
+// b. sublists: step 2 above, a thread a splitter (picked by a hash that
+//    mixes a slot's bits both ways, `split_hash`), every base set to
+//    the total on the way;
+// c. the splitter chain ranked by pointer jumping, ceil(log2(NS)) + 1
+//    rounds of one launch each, nothing read back: each splitter keeps
+//    the weight to its chain's end, its steps to the end and the
+//    terminal (a splitter whose sublist ends the tour links to itself
+//    and counts its own weight nowhere). A splitter is reached when its
+//    terminal is splitter 0's and it is no farther from it (in-degree
+//    at most one: both lie on one path); its prefix is splitter 0's
+//    weight less its own;
+// d. stamps: step 4 above, over CTAs.
+// The caller picks the form (weaver/euler.py's walk_form: the row form
+// wherever a row fits in shared memory).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,9 +91,10 @@ __host__ __device__ inline size_t walk_words(int K, int NS) {
     return (size_t)2 * K + (size_t)4 * NS;
 }
 
-// Bytes of one row's area with successors of `succ_bytes` each.
-static inline size_t walk_bytes(int K, int NS, size_t succ_bytes) {
-    return walk_words(K, NS) * sizeof(int32_t) + (size_t)2 * K * succ_bytes;
+// Bytes of one row's area in shared memory, with uint16 successors.
+static inline size_t walk_bytes(int K, int NS) {
+    return walk_words(K, NS) * sizeof(int32_t) +
+           (size_t)2 * K * sizeof(uint16_t);
 }
 
 // The splitters' hash: M = next_pow2(2K), A odd and about M / golden
@@ -96,15 +120,13 @@ __host__ __device__ inline WalkHash walk_hash(int K) {
     return h;
 }
 
-// S: the successor type, uint16_t in shared memory, int32_t on a global
-// scratch row. A successor >= 2K is END.
-template <typename S>
+// The row form, a CTA a row. A successor >= 2K is END.
 __global__ void __launch_bounds__(CAUSE_WALK_THREADS)
 euler_walk_kernel(const int32_t* __restrict__ fc,
                   const int32_t* __restrict__ ns,
                   const int32_t* __restrict__ parent,
                   const int32_t* __restrict__ w, int32_t* __restrict__ base,
-                  int K, int32_t* scratch) {
+                  int K) {
     extern __shared__ __align__(16) int32_t walk_smem[];
     __shared__ uint32_t partial[CAUSE_WALK_THREADS / 32];
     const int two_k = 2 * K;
@@ -115,17 +137,13 @@ euler_walk_kernel(const int32_t* __restrict__ fc,
         return (int)(((uint32_t)s * hash.a) & hash.mask);
     };
     const size_t off = (size_t)blockIdx.x * (size_t)K;
-    int32_t* area = scratch
-        ? scratch + (size_t)blockIdx.x *
-              (walk_words(K, NS) + (size_t)two_k)
-        : walk_smem;
-    int32_t* wgt = area;
+    int32_t* wgt = walk_smem;
     int32_t* out = wgt + K;
     uint32_t* sum = (uint32_t*)(out + K);
     uint32_t* pref = sum + NS;
     int32_t* next = (int32_t*)(pref + NS);
     int32_t* reach = next + NS;
-    S* succ = (S*)(reach + NS);
+    uint16_t* succ = (uint16_t*)(reach + NS);
 
     // 1. the tour's successors, the weights, the row's total
     uint32_t acc = 0;
@@ -133,9 +151,9 @@ euler_walk_kernel(const int32_t* __restrict__ fc,
     for (int i = threadIdx.x; i < K; i += blockDim.x) {
         const int f = fc[off + i], s = ns[off + i], p = parent[off + i];
         const int32_t wi = w[off + i];
-        succ[i] = (S)(f < 0 ? K + i : f < K ? f : two_k);
-        succ[K + i] = (S)(s >= 0 ? (s < K ? s : two_k)
-                                 : (p >= 0 && p < K ? K + p : two_k));
+        succ[i] = (uint16_t)(f < 0 ? K + i : f < K ? f : two_k);
+        succ[K + i] = (uint16_t)(s >= 0 ? (s < K ? s : two_k)
+                                        : (p >= 0 && p < K ? K + p : two_k));
         wgt[i] = wi;
         acc += (uint32_t)wi;
     }
@@ -201,56 +219,269 @@ euler_walk_kernel(const int32_t* __restrict__ fc,
     for (int i = threadIdx.x; i < K; i += blockDim.x) base[off + i] = out[i];
 }
 
+
+// ------------------------------------------------------- the split form
+
+// Rounds of pointer jumping that rank a chain of NS splitters.
+static inline int walk_rounds(int NS) {
+    int r = 0;
+    while ((1 << r) < NS) ++r;
+    return r + 1;
+}
+
+// The split form's splitters. The row form's hash multiplies, which
+// carries a slot's low bits into its high ones but never the other way,
+// so a tour that steps by a power of two passes long stretches of slots
+// with no splitter: the fleet row's 1,024 replicas interleave their
+// runs 1,024 ids apart, and at K = 1,025,536 one sublist held 2,667
+// slots (chip_smoke.py phase 17). The split form mixes both ways, a
+// bijection of [0, M): multiply by A, xor the top half of the bits into
+// the bottom, multiply by C, again, multiply by A (its longest sublist
+// there: about 360-430 slots, as for a random choice of one slot in 32).
+struct SplitHash {
+    uint32_t mask, a, a_inv, c, c_inv;
+    int r;  // half the bits of M, rounded up: the xorshift is its own inverse
+    int ns;
+};
+
+__host__ __device__ inline SplitHash split_hash(int K) {
+    const WalkHash w = walk_hash(K);
+    SplitHash h;
+    h.mask = w.mask;
+    h.a = w.a;
+    h.a_inv = w.a_inv;
+    h.ns = w.ns;
+    int k = 0;
+    while ((w.mask >> k) != 0) ++k;  // M = 2^k
+    h.r = (k + 1) / 2;
+    h.c = (0x85EBCA6Bu & w.mask) | 1u;
+    uint32_t x = h.c;
+    for (int i = 0; i < 5; ++i) x *= 2u - h.c * x;
+    h.c_inv = x;
+    return h;
+}
+
+// splitter id of slot s (a splitter when below NS), and its inverse
+__device__ __forceinline__ int split_id(const SplitHash& h, int s) {
+    uint32_t x = ((uint32_t)s * h.a) & h.mask;
+    x ^= x >> h.r;
+    x = (x * h.c) & h.mask;
+    x ^= x >> h.r;
+    return (int)((x * h.a) & h.mask);
+}
+
+__device__ __forceinline__ int split_slot(const SplitHash& h, int j) {
+    uint32_t x = ((uint32_t)j * h.a_inv) & h.mask;
+    x ^= x >> h.r;
+    x = (x * h.c_inv) & h.mask;
+    x ^= x >> h.r;
+    return (int)((x * h.a_inv) & h.mask);
+}
+
+// A row's split-form arrays, in int32 words after the call's B totals:
+// the tour's successors [2K], then weight to the end, steps to the end
+// and the link of each splitter, two of each (the jumping's ping-pong).
+__host__ __device__ inline size_t split_row_words(int K, int NS) {
+    return (size_t)2 * K + (size_t)6 * NS;
+}
+
+__device__ __forceinline__ int32_t* split_succ(int32_t* scratch, int B,
+                                               int row, int K, int NS) {
+    return scratch + B + (size_t)row * split_row_words(K, NS);
+}
+
+// one of a row's two buffers of the jumping's state
+struct SplitBuf {
+    uint32_t* val;
+    int32_t* dist;
+    int32_t* nx;
+};
+
+__device__ __forceinline__ SplitBuf split_buf(int32_t* scratch, int B,
+                                              int row, int K, int NS,
+                                              int b) {
+    int32_t* a = split_succ(scratch, B, row, K, NS) + 2 * (size_t)K +
+                 (size_t)b * 3 * NS;
+    return {(uint32_t*)a, a + NS, a + 2 * (size_t)NS};
+}
+
+// a. the tour's successors and the row's total (blockIdx.y is the row)
+__global__ void __launch_bounds__(CAUSE_WALK_THREADS)
+euler_walk_split_links(const int32_t* __restrict__ fc,
+                       const int32_t* __restrict__ ns,
+                       const int32_t* __restrict__ parent,
+                       const int32_t* __restrict__ w, int B, int K,
+                       int32_t* scratch) {
+    __shared__ uint32_t partial[CAUSE_WALK_THREADS / 32];
+    const int row = blockIdx.y, two_k = 2 * K;
+    const size_t off = (size_t)row * K;
+    int32_t* succ = split_succ(scratch, B, row, K, walk_hash(K).ns);
+    uint32_t acc = 0;
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < K;
+         i += gridDim.x * blockDim.x) {
+        const int f = fc[off + i], s = ns[off + i], p = parent[off + i];
+        succ[i] = f < 0 ? K + i : f < K ? f : two_k;
+        succ[K + i] = s >= 0 ? (s < K ? s : two_k)
+                             : (p >= 0 && p < K ? K + p : two_k);
+        acc += (uint32_t)w[off + i];
+    }
+    for (int d = 16; d > 0; d >>= 1)
+        acc += __shfl_down_sync(0xffffffffu, acc, d);
+    if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = acc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        uint32_t sum = 0;
+        for (int i = 0; i < CAUSE_WALK_THREADS / 32; ++i) sum += partial[i];
+        atomicAdd((uint32_t*)scratch + row, sum);
+    }
+}
+
+// b. each splitter's sublist: its weight and next splitter, as the
+// jumping's first state; every base set to the row's total
+__global__ void __launch_bounds__(CAUSE_WALK_THREADS)
+euler_walk_split_sublists(const int32_t* __restrict__ w,
+                          int32_t* __restrict__ base, int B, int K,
+                          int32_t* scratch) {
+    const int row = blockIdx.y, two_k = 2 * K;
+    const size_t off = (size_t)row * K;
+    const SplitHash hash = split_hash(K);
+    const int NS = hash.ns;
+    const int32_t* succ = split_succ(scratch, B, row, K, NS);
+    const int32_t total = scratch[row];
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    for (int i = j; i < K; i += gridDim.x * blockDim.x) base[off + i] = total;
+    if (j >= NS) return;
+    int cur = split_slot(hash, j), nxt = -1;
+    uint32_t s = 0;
+    for (int steps = 1; cur < two_k; ++steps) {
+        if (cur < K) s += (uint32_t)w[off + cur];
+        cur = succ[cur];
+        if (cur >= two_k) break;
+        const int id = split_id(hash, cur);
+        if (id < NS) {
+            nxt = id;
+            break;
+        }
+        if (steps >= two_k) break;  // a cycle with no splitter on it
+    }
+    const SplitBuf first = split_buf(scratch, B, row, K, NS, 0);
+    first.val[j] = nxt >= 0 ? s : 0u;
+    first.dist[j] = nxt >= 0 ? 1 : 0;
+    first.nx[j] = nxt >= 0 ? nxt : j;
+}
+
+// c. one round of pointer jumping, buffer `src` into 1 - src
+__global__ void __launch_bounds__(CAUSE_WALK_THREADS)
+euler_walk_split_jump(int B, int K, int32_t* scratch, int src) {
+    const int NS = walk_hash(K).ns;
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= NS) return;
+    const SplitBuf in = split_buf(scratch, B, blockIdx.y, K, NS, src);
+    const SplitBuf out = split_buf(scratch, B, blockIdx.y, K, NS, 1 - src);
+    const int n = in.nx[j];
+    out.val[j] = in.val[j] + in.val[n];
+    out.dist[j] = in.dist[j] + in.dist[n];
+    out.nx[j] = in.nx[n];
+}
+
+// d. the reached sublists' d-slots stamped with the weight before them
+__global__ void __launch_bounds__(CAUSE_WALK_THREADS)
+euler_walk_split_stamp(const int32_t* __restrict__ w,
+                       int32_t* __restrict__ base, int B, int K,
+                       int32_t* scratch, int fin) {
+    const int row = blockIdx.y, two_k = 2 * K;
+    const size_t off = (size_t)row * K;
+    const SplitHash hash = split_hash(K);
+    const int NS = hash.ns;
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= NS) return;
+    const int32_t* succ = split_succ(scratch, B, row, K, NS);
+    const SplitBuf last = split_buf(scratch, B, row, K, NS, fin);
+    if (last.nx[j] != last.nx[0] || last.dist[j] > last.dist[0]) return;
+    uint32_t before = last.val[0] - last.val[j];
+    int cur = split_slot(hash, j);
+    for (int steps = 1;; ++steps) {
+        if (cur < K) {
+            base[off + cur] = (int32_t)before;
+            before += (uint32_t)w[off + cur];
+        }
+        cur = succ[cur];
+        if (cur >= two_k || split_id(hash, cur) < NS || steps >= two_k)
+            break;
+    }
+}
+
+static cudaError_t euler_walk_split(const int32_t* fc, const int32_t* ns,
+                                    const int32_t* parent, const int32_t* w,
+                                    int32_t* base, int B, int K,
+                                    int32_t* scratch, cudaStream_t st) {
+    const int NS = walk_hash(K).ns;
+    const int per = CAUSE_WALK_THREADS;
+    cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)B * sizeof(int32_t),
+                                    st);
+    if (e != cudaSuccess) return e;
+    // a: four runs a thread; b-d: a splitter a thread
+    const dim3 g_links((K + 4 * per - 1) / (4 * per), B);
+    const dim3 g_ns((NS + per - 1) / per, B);
+    euler_walk_split_links<<<g_links, per, 0, st>>>(fc, ns, parent, w, B, K,
+                                                     scratch);
+    euler_walk_split_sublists<<<g_ns, per, 0, st>>>(w, base, B, K, scratch);
+    const int rounds = walk_rounds(NS);
+    for (int r = 0; r < rounds; ++r)
+        euler_walk_split_jump<<<g_ns, per, 0, st>>>(B, K, scratch, r & 1);
+    euler_walk_split_stamp<<<g_ns, per, 0, st>>>(w, base, B, K, scratch,
+                                                 rounds & 1);
+    return cudaGetLastError();
+}
+
 extern "C" {
 
-// Int32 words of global scratch per row for rows of K runs: 0 when the
-// row fits in shared memory (uint16 successors need 2K <= 65535), -1 if
-// the device query fails.
-int cause_euler_walk_scratch_words(int K) {
-    if (K < 1) return 0;
+// The current card's opt-in limit of shared memory a block, the input of
+// weaver/euler.py's walk_form; -1 if the device query fails.
+int cause_euler_walk_smem_limit(void) {
     int dev = 0, limit = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&limit,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev) != cudaSuccess)
         return -1;
-    const int NS = walk_hash(K).ns;
-    // the block's static reduction buffer shares the limit
-    const bool fits = 2 * K <= 65535 &&
-                      walk_bytes(K, NS, sizeof(uint16_t)) +
-                              CAUSE_WALK_THREADS / 32 * sizeof(uint32_t) <=
-                          (size_t)limit;
-    return fits ? 0 : (int)(walk_words(K, NS) + (size_t)2 * K);
+    return limit;
+}
+
+// Int32 words of global scratch the split form takes on B rows of K
+// runs: B totals and B rows of split_row_words.
+long long cause_euler_walk_scratch_words(int B, int K) {
+    if (B < 1 || K < 1) return 0;
+    return B + (long long)B * (long long)split_row_words(K, walk_hash(K).ns);
 }
 
 // Rank B forests of K runs. fc, ns, parent, w, base are [B, K]
-// contiguous int32 device tensors; scratch is null when
-// cause_euler_walk_scratch_words(K) is 0, else B times that many int32.
-// Returns the cudaError_t of the launch.
+// contiguous int32 device tensors; `split` picks the form: 0 the row
+// form (2K <= 65535, a row in shared memory; a launch past the card's
+// limit fails), 1 the split form, whose scratch holds
+// cause_euler_walk_scratch_words(B, K) int32. Returns the cudaError_t of
+// the launches.
 int cause_euler_walk(const void* fc, const void* ns, const void* parent,
-                     const void* w, void* base, int B, int K, void* scratch,
-                     void* stream) {
-    if (B < 0 || K < 0 || (!scratch && 2 * K > 65535))
-        return (int)cudaErrorInvalidValue;
+                     const void* w, void* base, int B, int K, int split,
+                     void* scratch, void* stream) {
+    if (B < 0 || K < 0) return (int)cudaErrorInvalidValue;
     if (B == 0 || K == 0) return (int)cudaSuccess;
     const cudaStream_t st = (cudaStream_t)stream;
-    if (!scratch) {
-        // as many rows an SM as shared memory holds: the whole carveout
-        static std::atomic<bool> ready[CAUSE_MAX_DEVICES];
-        const cudaError_t e = smem_attrs_once(euler_walk_kernel<uint16_t>,
-                                              ready);
-        if (e != cudaSuccess) return (int)e;
-        euler_walk_kernel<uint16_t>
-            <<<B, CAUSE_WALK_THREADS,
-               walk_bytes(K, walk_hash(K).ns, sizeof(uint16_t)), st>>>(
-                (const int32_t*)fc, (const int32_t*)ns,
-                (const int32_t*)parent, (const int32_t*)w, (int32_t*)base, K,
-                nullptr);
-    } else {
-        euler_walk_kernel<int32_t><<<B, CAUSE_WALK_THREADS, 0, st>>>(
+    if (split == 1) {
+        if (!scratch || B > 65535) return (int)cudaErrorInvalidValue;
+        return (int)euler_walk_split(
             (const int32_t*)fc, (const int32_t*)ns, (const int32_t*)parent,
-            (const int32_t*)w, (int32_t*)base, K, (int32_t*)scratch);
+            (const int32_t*)w, (int32_t*)base, B, K, (int32_t*)scratch, st);
     }
+    if (split != 0 || 2 * K > 65535) return (int)cudaErrorInvalidValue;
+    // as many rows an SM as shared memory holds: the whole carveout
+    static std::atomic<bool> ready[CAUSE_MAX_DEVICES];
+    const cudaError_t e = smem_attrs_once(euler_walk_kernel, ready);
+    if (e != cudaSuccess) return (int)e;
+    euler_walk_kernel<<<B, CAUSE_WALK_THREADS,
+                        walk_bytes(K, walk_hash(K).ns), st>>>(
+        (const int32_t*)fc, (const int32_t*)ns, (const int32_t*)parent,
+        (const int32_t*)w, (int32_t*)base, K);
     return (int)cudaGetLastError();
 }
 

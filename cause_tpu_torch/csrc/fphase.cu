@@ -49,6 +49,22 @@
 //   flag word until that lane is staged (no second global read).
 // The ragged last tile is masked, so N needs no multiple of anything.
 // 1024 rows are one wave at 8 CTAs an SM (27 KB of shared memory each).
+//
+// That "row" form walks a row's tiles in turn, so a call with few wide
+// rows leaves most SMs idle (10,240 tiles in one CTA at the fleet row).
+// The "chunk" form gives each CTA a (row, chunk): a run of
+// CAUSE_F_CHUNK_TILES tiles. Its start pointers are what the Pallas
+// kernel computes per window (`tw0`, `sw0`): p0 = the count of kept
+// tokens before the chunk's first lane and q0 the count of segment
+// starts before it, found by a 256-ary search of the sorted lk and cs
+// (a load a thread and a block count a round: three rounds for a
+// million entries). The carry is seeded from them, (lk, tb)[p0 - 1] or
+// (0, 0) and ce[q0 - 1] or 0, and the tile loop runs over the chunk
+// alone. The chunk's last lane reads lane + 1's class and segment from
+// global memory in place of the held word, so a kill across a chunk
+// edge comes out as across a tile edge. The row form is the chunk form
+// with one chunk a row. The caller picks the form (weaver/fphase.py's
+// fphase_form).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,6 +77,11 @@
 #define CAUSE_F_WARPS (CAUSE_F_THREADS / 32)
 #define CAUSE_F_MIN_CTAS 8
 #define CAUSE_F_FULL 0xffffffffu
+// the chunk form's tiles a chunk (weaver/fphase.py's F_CHUNK_TILES; a
+// -D build may set another, as chip_smoke.py --forms does)
+#ifndef CAUSE_F_CHUNK_TILES
+#define CAUSE_F_CHUNK_TILES 4
+#endif
 
 __device__ __forceinline__ void f_cp16(void* dst, const void* src) {
     const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -160,7 +181,41 @@ __device__ __forceinline__ int32_t f_last_mark(uint32_t marks, int k0,
     return below;
 }
 
-template <bool VEC>
+// The counts of entries below x in the ascending a[0, n) and c[0, m),
+// by the whole block: each round samples 256 evenly spaced entries of
+// what is left, and the block's count of those below x narrows it to
+// one gap between samples.
+__device__ __forceinline__ void f_count_below(const int32_t* a, int n,
+                                              const int32_t* c, int m,
+                                              int32_t x, int* pa, int* pc) {
+    int lo_a = 0, hi_a = n, lo_c = 0, hi_c = m;
+    while (lo_a < hi_a || lo_c < hi_c) {  // the same bounds in every thread
+        const int sa = (hi_a - lo_a + CAUSE_F_THREADS - 1) / CAUSE_F_THREADS;
+        const int sc = (hi_c - lo_c + CAUSE_F_THREADS - 1) / CAUSE_F_THREADS;
+        const int ia = lo_a + (int)threadIdx.x * sa;
+        const int ic = lo_c + (int)threadIdx.x * sc;
+        const int na = __syncthreads_count(ia < hi_a && a[ia] < x);
+        const int nc = __syncthreads_count(ic < hi_c && c[ic] < x);
+        // the answer lies past the last sample below x, and at or before
+        // the first sample that is not
+        if (lo_a < hi_a) {
+            const int top = min(lo_a + na * sa, hi_a);
+            lo_a = na ? lo_a + (na - 1) * sa + 1 : lo_a;
+            hi_a = na ? top : lo_a;
+        }
+        if (lo_c < hi_c) {
+            const int top = min(lo_c + nc * sc, hi_c);
+            lo_c = nc ? lo_c + (nc - 1) * sc + 1 : lo_c;
+            hi_c = nc ? top : lo_c;
+        }
+    }
+    *pa = lo_a;
+    *pc = lo_c;
+}
+
+// CHUNKED: blockIdx.x = row * chunks + chunk, a chunk `chunk_tiles`
+// tiles; else blockIdx.x is the row (the row form compiles as before)
+template <bool VEC, bool CHUNKED>
 __global__ void __launch_bounds__(CAUSE_F_THREADS, CAUSE_F_MIN_CTAS)
 fphase_row_kernel(const int32_t* __restrict__ lk,
                   const int32_t* __restrict__ tb,
@@ -170,16 +225,19 @@ fphase_row_kernel(const int32_t* __restrict__ lk,
                   const int32_t* __restrict__ seg,
                   const int32_t* __restrict__ fl,
                   int32_t* __restrict__ rank, uint8_t* __restrict__ vis,
-                  int N, int U, int S) {
+                  int N, int U, int S, int chunk_tiles, int chunks) {
     __shared__ __align__(16) FShared sh;
     const int tid = threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5;
     const int k0 = tid * CAUSE_F_ITEMS;
-    const size_t rn = (size_t)blockIdx.x * (size_t)N;
-    const int32_t* lk_r = lk + (size_t)blockIdx.x * U;
-    const int32_t* tb_r = tb + (size_t)blockIdx.x * U;
-    const int32_t* cs_r = cs + (size_t)blockIdx.x * S;
-    const int32_t* ce_r = ce + (size_t)blockIdx.x * S;
+    const int row = CHUNKED ? blockIdx.x / chunks : blockIdx.x;
+    const int t_first =
+        CHUNKED ? (blockIdx.x - row * chunks) * chunk_tiles : 0;
+    const size_t rn = (size_t)row * (size_t)N;
+    const int32_t* lk_r = lk + (size_t)row * U;
+    const int32_t* tb_r = tb + (size_t)row * U;
+    const int32_t* cs_r = cs + (size_t)row * S;
+    const int32_t* ce_r = ce + (size_t)row * S;
     const int32_t* vc_r = vc + rn;
     const int32_t* seg_r = seg + rn;
     const int32_t* fl_r = fl + rn;
@@ -188,6 +246,15 @@ fphase_row_kernel(const int32_t* __restrict__ lk,
     sh.cmark[tid] = 0;
     int32_t carry_lane = 0, carry_base = 0, carry_end = 0;
     int p = 0, q = 0;  // the next token and the next coverage segment
+    if (CHUNKED && t_first > 0) {
+        // a later chunk: the pointers and the carry at its first lane
+        f_count_below(lk_r, U, cs_r, S, t_first * CAUSE_F_TILE, &p, &q);
+        if (p > 0) {
+            carry_lane = lk_r[p - 1];
+            carry_base = tb_r[p - 1];
+        }
+        if (q > 0) carry_end = ce_r[q - 1];
+    }
     int par = 0;       // parity of the chunk iteration
     // the last thread's flag word of the tile before, held until the next
     // tile's first lane is known: the word, whether its last lane is
@@ -196,11 +263,12 @@ fphase_row_kernel(const int32_t* __restrict__ lk,
     bool held_cov = false;
     int32_t held_seg = 0;
     const int T = (N + CAUSE_F_TILE - 1) / CAUSE_F_TILE;
-    f_prefetch<VEC>(sh, vc_r, seg_r, fl_r, lk_r, tb_r, cs_r, ce_r, 0, N, p,
-                    U, q, S);
+    const int t_end = CHUNKED ? min(T, t_first + chunk_tiles) : T;
+    f_prefetch<VEC>(sh, vc_r, seg_r, fl_r, lk_r, tb_r, cs_r, ce_r,
+                    t_first * CAUSE_F_TILE, N, p, U, q, S);
     __syncthreads();  // the marks are clear before any thread sets one
 
-    for (int t = 0; t < T; ++t) {
+    for (int t = t_first; t < t_end; ++t) {
         const int t0 = t * CAUSE_F_TILE;
         const int tend = min(t0 + CAUSE_F_TILE, N);
         asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -260,7 +328,7 @@ fphase_row_kernel(const int32_t* __restrict__ lk,
         }
         // past a barrier, this thread's reads of its staged words are
         // done: stage the next tile and the chunks at the new pointers
-        if (t + 1 < T)
+        if (t + 1 < t_end)
             f_prefetch<VEC>(sh, vc_r, seg_r, fl_r, lk_r, tb_r, cs_r, ce_r,
                             t0 + CAUSE_F_TILE, N, p, U, q, S);
 
@@ -291,7 +359,7 @@ fphase_row_kernel(const int32_t* __restrict__ lk,
 
         // the held word of the tile before: its last lane's next lane is
         // this tile's first
-        if (tid == CAUSE_F_THREADS - 1 && t > 0) {
+        if (tid == CAUSE_F_THREADS - 1 && t > t_first) {
             if (held_cov && held_seg >= 0 && sh.edge[1][0] == held_seg &&
                 f_hideish(sh.edge[0][0]))
                 held &= 0x00ffffffu;
@@ -305,19 +373,27 @@ fphase_row_kernel(const int32_t* __restrict__ lk,
             }
         }
 
-        // lane + 1's class and segment
+        // lane + 1's class and segment; past the chunk's last lane, from
+        // global memory (a chunk ends on a whole tile)
         const int32_t nv = __shfl_down_sync(CAUSE_F_FULL, v.x, 1);
         const int32_t ns = __shfl_down_sync(CAUSE_F_FULL, sg.x, 1);
         const bool last_w = warp == CAUSE_F_WARPS - 1;
+        int32_t edge_v = 0, edge_s = -1;
+        if (CHUNKED && tid == CAUSE_F_THREADS - 1 && t + 1 == t_end &&
+            t_end < T) {
+            edge_v = vc_r[t0 + CAUSE_F_TILE];
+            edge_s = seg_r[t0 + CAUSE_F_TILE];
+        }
         const int32_t vv[CAUSE_F_ITEMS + 1] = {
             v.x, v.y, v.z, v.w,
-            lane < 31 ? nv : (last_w ? 0 : sh.edge[0][warp + 1])};
+            lane < 31 ? nv : (last_w ? edge_v : sh.edge[0][warp + 1])};
         const int32_t ss[CAUSE_F_ITEMS + 1] = {
             sg.x, sg.y, sg.z, sg.w,
-            lane < 31 ? ns : (last_w ? -1 : sh.edge[1][warp + 1])};
+            lane < 31 ? ns : (last_w ? edge_s : sh.edge[1][warp + 1])};
         const int32_t ff[CAUSE_F_ITEMS] = {f.x, f.y, f.z, f.w};
-        // the tile's last lane waits for the next tile (held above)
-        const bool holds = tid == CAUSE_F_THREADS - 1 && t + 1 < T;
+        // the tile's last lane waits for the chunk's next tile (held
+        // above)
+        const bool holds = tid == CAUSE_F_THREADS - 1 && t + 1 < t_end;
 
         int32_t rk[CAUSE_F_ITEMS];
         uint32_t word = 0;
@@ -376,55 +452,78 @@ fphase_row_kernel(const int32_t* __restrict__ lk,
 
 // Let the kernel take the whole carveout as shared memory, which 8 CTAs
 // an SM need (once per device and process).
-template <bool VEC>
+template <bool VEC, bool CHUNKED>
 static cudaError_t fphase_attrs() {
     static std::atomic<bool> ready[CAUSE_MAX_DEVICES];
-    auto kernel = fphase_row_kernel<VEC>;
+    auto kernel = fphase_row_kernel<VEC, CHUNKED>;
     return smem_attrs_once(kernel, ready);
 }
+
+template <bool VEC, bool CHUNKED>
+static cudaError_t fphase_launch(const void* lk, const void* tb,
+                                 const void* cs, const void* ce,
+                                 const void* vc, const void* seg,
+                                 const void* fl, void* rank, void* vis,
+                                 int N, int U, int S, int chunk_tiles,
+                                 int chunks, int grid, cudaStream_t st) {
+    const cudaError_t e = fphase_attrs<VEC, CHUNKED>();
+    if (e != cudaSuccess) return e;
+    fphase_row_kernel<VEC, CHUNKED><<<grid, CAUSE_F_THREADS, 0, st>>>(
+        (const int32_t*)lk, (const int32_t*)tb, (const int32_t*)cs,
+        (const int32_t*)ce, (const int32_t*)vc, (const int32_t*)seg,
+        (const int32_t*)fl, (int32_t*)rank, (uint8_t*)vis, N, U, S,
+        chunk_tiles, chunks);
+    return cudaGetLastError();
+}
+
+typedef cudaError_t (*FPhaseLaunch)(const void*, const void*, const void*,
+                                    const void*, const void*, const void*,
+                                    const void*, void*, void*, int, int, int,
+                                    int, int, int, cudaStream_t);
 
 extern "C" {
 
 // CTAs of the kernel an SM holds (-1: a CUDA error).
 int cause_fphase_ctas_per_sm(void) {
     int n = 0;
-    if (fphase_attrs<true>() != cudaSuccess ||
+    if (fphase_attrs<true, false>() != cudaSuccess ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n, fphase_row_kernel<true>, CAUSE_F_THREADS, 0) != cudaSuccess)
+            &n, fphase_row_kernel<true, false>, CAUSE_F_THREADS, 0) !=
+            cudaSuccess)
         return -1;
     return n;
 }
 
 // Expand B rows. lk, tb: [B, U]; cs, ce: [B, S]; vc, seg, fl, rank,
 // vis: [B, N]; all contiguous device tensors, int32 but for vis, which
-// is a torch.bool (one byte per lane, 0 or 1). Returns the
-// cudaError_t of the launch.
+// is a torch.bool (one byte per lane, 0 or 1). `chunked` picks the
+// form: 0 the row form, 1 the chunk form (chunks of CAUSE_F_CHUNK_TILES
+// tiles). Returns the cudaError_t of the launch.
 int cause_fphase_expand(const void* lk, const void* tb, const void* cs,
                         const void* ce, const void* vc, const void* seg,
                         const void* fl, void* rank, void* vis, int B, int N,
-                        int U, int S, void* stream) {
-    if (B < 0 || N < 0 || U < 1 || S < 1) return (int)cudaErrorInvalidValue;
+                        int U, int S, int chunked, void* stream) {
+    if (B < 0 || N < 0 || U < 1 || S < 1 || (chunked != 0 && chunked != 1))
+        return (int)cudaErrorInvalidValue;
     if (B == 0 || N == 0) return (int)cudaSuccess;
+    const int T = (N + CAUSE_F_TILE - 1) / CAUSE_F_TILE;
+    const int chunk_tiles =
+        chunked && CAUSE_F_CHUNK_TILES < T ? CAUSE_F_CHUNK_TILES : T;
+    const int chunks = (T + chunk_tiles - 1) / chunk_tiles;
+    if ((long long)B * chunks > INT32_MAX) return (int)cudaErrorInvalidValue;
+    const int grid = B * chunks;
     // 16-byte lane copies and stores: every row starts 16-byte aligned
     const bool vec = N % 4 == 0 &&
                      ((uintptr_t)vc | (uintptr_t)seg | (uintptr_t)fl |
                       (uintptr_t)rank) % 16 == 0 &&
                      (uintptr_t)vis % 4 == 0;
     const cudaStream_t st = (cudaStream_t)stream;
-    const cudaError_t e = vec ? fphase_attrs<true>() : fphase_attrs<false>();
-    if (e != cudaSuccess) return (int)e;
-    if (vec) {
-        fphase_row_kernel<true><<<B, CAUSE_F_THREADS, 0, st>>>(
-            (const int32_t*)lk, (const int32_t*)tb, (const int32_t*)cs,
-            (const int32_t*)ce, (const int32_t*)vc, (const int32_t*)seg,
-            (const int32_t*)fl, (int32_t*)rank, (uint8_t*)vis, N, U, S);
-    } else {
-        fphase_row_kernel<false><<<B, CAUSE_F_THREADS, 0, st>>>(
-            (const int32_t*)lk, (const int32_t*)tb, (const int32_t*)cs,
-            (const int32_t*)ce, (const int32_t*)vc, (const int32_t*)seg,
-            (const int32_t*)fl, (int32_t*)rank, (uint8_t*)vis, N, U, S);
-    }
-    return (int)cudaGetLastError();
+    FPhaseLaunch launch = fphase_launch<false, false>;
+    if (vec && chunks > 1) launch = fphase_launch<true, true>;
+    else if (vec) launch = fphase_launch<true, false>;
+    else if (chunks > 1) launch = fphase_launch<false, true>;
+    return (int)launch(lk, tb, cs, ce, vc, seg, fl, rank, vis, N, U, S,
+                       chunk_tiles, chunks, grid, st);
 }
 
 }  // extern "C"

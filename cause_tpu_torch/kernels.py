@@ -63,9 +63,10 @@ _SIGNATURES = {
                         _I, _I, _VP, ctypes.c_size_t, _VP],
     "cause_sort_wide_scratch_bytes": [_I, _I, _I],
     "cause_sort_smem_limit": [],
-    "cause_euler_walk_scratch_words": [_I],
-    "cause_euler_walk": [_VP] * 5 + [_I, _I, _VP, _VP],
-    "cause_fphase_expand": [_VP] * 9 + [_I, _I, _I, _I, _VP],
+    "cause_euler_walk_smem_limit": [],
+    "cause_euler_walk_scratch_words": [_I, _I],
+    "cause_euler_walk": [_VP] * 5 + [_I, _I, _I, _VP, _VP],
+    "cause_fphase_expand": [_VP] * 9 + [_I] * 5 + [_VP],
     "cause_fphase_ctas_per_sm": [],
     "cause_k1_scratch_words": [_I],
     "cause_k1_ctas_per_sm": [_I, _I],
@@ -80,7 +81,8 @@ _SIGNATURES = {
     "cause_phase_cycles_take": [_VP],
 }
 # entry points that return other than an int
-_RESTYPES = {"cause_sort_wide_scratch_bytes": ctypes.c_size_t}
+_RESTYPES = {"cause_sort_wide_scratch_bytes": ctypes.c_size_t,
+             "cause_euler_walk_scratch_words": ctypes.c_longlong}
 
 
 def reset_launches() -> None:

@@ -7,12 +7,16 @@ Counterparts: ``_link_children``, ``_euler_rank`` and ``_host_jump`` of
 plain version (``euler_walk_plain``: ``_euler_rank``'s weighted
 preorder rank by pointer doubling) for tensors on the CPU, and launches
 the CUDA kernel (``csrc/euler_walk.cu``) for tensors on the card. The
-kernel ranks the Euler tour as a list in one CTA per row: one tour
-slot in 32 is a splitter (picked by a multiplicative hash of the
-slot), a walk per sublist, one walk along
-the splitter chain, and the reached sublists walked again to stamp the
-bases (a ruling set, where the Pallas kernel walks the whole tour in
-one thread). Everything is batched ``[B, K]`` int32.
+kernel ranks the Euler tour as a list (a ruling set, where the Pallas
+kernel walks the whole tour in one thread): one tour slot in 32 is a
+splitter (picked by a hash of the slot, which in the split form mixes
+its bits both ways), a walk per sublist, the splitter chain ranked, and the reached sublists walked
+again to stamp the bases. It takes one of two forms, by the rule
+``walk_form``: ``"row"``, one CTA a row in shared memory with one walk
+along the splitter chain; ``"split"``, the same steps over (row, block)
+CTAs in global scratch with the chain ranked by pointer jumping, for
+rows too wide for shared memory. Everything is batched
+``[B, K]`` int32.
 
 The walk and the doubling agree on every run the walk reaches. A run it
 never reaches keeps the row's total weight in the walk, while the
@@ -34,7 +38,36 @@ from .. import kernels
 from .gatherops import at_set, take1d
 
 __all__ = ["link_children", "euler_rank", "host_jump", "euler_walk",
-           "euler_walk_plain", "euler_walk_cuda"]
+           "euler_walk_plain", "euler_walk_cuda", "walk_form"]
+
+# csrc/euler_walk.cu: threads a CTA, and one tour slot in
+# 2**WALK_LOG_STRIDE is a splitter
+WALK_THREADS = 256
+WALK_LOG_STRIDE = 5
+WALK_FORMS = ("row", "split")  # the kernel's form codes 0 and 1
+
+
+def walk_row_bytes(K: int) -> int:
+    """Shared memory the row form's CTA takes for a row of ``K`` runs:
+    int32 weights and bases, four int32 tables a splitter (one tour slot
+    in ``2**WALK_LOG_STRIDE`` of next_pow2(2K)), uint16 successors and
+    the block's reduction buffer."""
+    ns = max(1, (1 << (2 * K - 1).bit_length()) >> WALK_LOG_STRIDE)
+    return (2 * K + 4 * ns) * 4 + 2 * K * 2 + WALK_THREADS // 32 * 4
+
+
+def walk_form(K: int, smem_limit: int) -> str:
+    """The form B2 takes for rows of ``K`` runs on a card whose blocks may
+    use ``smem_limit`` bytes of shared memory: ``"row"`` where a row fits
+    there (its uint16 successors need 2K <= 65535), ``"split"``
+    otherwise. Timed on an H100 (``chip_smoke.py --forms``, PERF.md): the
+    split form lost at K = 4,096 at every B from 1 to 256 and on the
+    merge tree's forests at 8 x 16,384, and won at K = 32,768 and wider
+    at every B timed."""
+    if 2 * K <= 65535 and walk_row_bytes(K) <= smem_limit:
+        return "row"
+    return "split"
+
 
 def link_children(order: torch.Tensor, parent_sort: torch.Tensor):
     """Given lanes sorted into sibling order (``order``) and each lane's
@@ -143,33 +176,37 @@ def _check(tables):
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch_words(device_index: int, K: int) -> int:
-    """Int32 words of global scratch a row of K runs needs on the card
-    (0: the row fits in shared memory); one device query per width."""
+def _smem_limit(device_index: int) -> int:
+    """Dynamic shared memory a block may use on the card (bytes)."""
     with torch.cuda.device(device_index):
-        words = kernels.library("euler_walk").cause_euler_walk_scratch_words(K)
-    if words < 0:
+        limit = kernels.library("euler_walk").cause_euler_walk_smem_limit()
+    if limit < 0:
         raise RuntimeError("euler_walk: CUDA device query failed")
-    return words
+    return limit
 
 
-def euler_walk_cuda(fc, ns, parent_run, run_len):
-    """Launch the B2 kernel on CUDA tables (see ``csrc/euler_walk.cu``)."""
+def euler_walk_cuda(fc, ns, parent_run, run_len, form=None):
+    """Launch the B2 kernel on CUDA tables (see ``csrc/euler_walk.cu``)
+    in ``form`` (``"row"`` or ``"split"``; None: the rule's,
+    ``walk_form``)."""
     tables = (fc, ns, parent_run, run_len)
     _check(tables)
     if fc.device.type != "cuda":
         raise ValueError(f"euler_walk_cuda needs CUDA tensors, got {fc.device}")
     B, K = fc.shape
+    if form is None:
+        form = walk_form(K, _smem_limit(fc.device.index))
+    split = WALK_FORMS.index(form)
     base = torch.empty_like(fc)
     lib = kernels.library("euler_walk")
-    words = _scratch_words(fc.device.index, K)
-    # the rows' arrays, when too wide for shared memory
-    scratch = (torch.empty((B, words), dtype=torch.int32, device=fc.device)
-               if words else None)
+    # the split form's arrays
+    scratch = (torch.empty(lib.cause_euler_walk_scratch_words(B, K),
+                           dtype=torch.int32, device=fc.device)
+               if split and B and K else None)
     with torch.cuda.device(fc.device):
         rc = lib.cause_euler_walk(
             fc.data_ptr(), ns.data_ptr(), parent_run.data_ptr(),
-            run_len.data_ptr(), base.data_ptr(), B, K,
+            run_len.data_ptr(), base.data_ptr(), B, K, split,
             scratch.data_ptr() if scratch is not None else None,
             kernels.stream_handle(fc.device))
     kernels.check(rc, "euler_walk")

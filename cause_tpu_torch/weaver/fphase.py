@@ -10,16 +10,54 @@ and lanes followed by a tombstone in the same covered segment.
 
 ``fphase_expand`` takes the plain version for tensors on the CPU and
 launches the CUDA kernel (``csrc/fphase.cu``) for tensors on the card.
+The kernel takes one of two forms, by the rule ``fphase_form``:
+``"row"``, one CTA a row walking its 1024-lane tiles in turn with a
+carry, for calls whose rows fill the card; ``"chunk"``, a CTA a run of
+``F_CHUNK_TILES`` tiles of a row, its pointers and carry found by a
+search of the row's sorted tokens and segment starts, for a few wide
+rows.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from .. import kernels
 from .arrays import VCLASS_H_HIDE, VCLASS_HIDE
 
-__all__ = ["fphase_expand", "fphase_expand_plain", "fphase_expand_cuda"]
+__all__ = ["fphase_expand", "fphase_expand_plain", "fphase_expand_cuda",
+           "fphase_form"]
+
+# csrc/fphase.cu: lanes a tile, the chunk form's tiles a chunk; the
+# chunk form's least SMs a row
+F_TILE = 1024
+F_CHUNK_TILES = 4
+F_SMS_A_ROW = 2
+F_FORMS = ("row", "chunk")  # the kernel's form codes 0 and 1
+
+
+def fphase_form(B: int, N: int, sms: int) -> str:
+    """The form B3 takes for ``B`` rows of ``N`` lanes on a card of ``sms``
+    SMs: ``"chunk"`` for rows of at least two chunks of ``F_CHUNK_TILES``
+    tiles with ``F_SMS_A_ROW`` SMs a row or more, ``"row"`` otherwise.
+    Timed on an H100 (``chip_smoke.py --forms``, PERF.md): at N = 131,072
+    the chunk form took a quarter of the row form's time up to B = 64,
+    tied at 128 and lost at 256, where the row form's CTAs already move
+    the bytes near the card's rate; at N = 10,485,760 it took 1% at B =
+    1-4. Chunks of 1 to 16 tiles came within 20% of one another there; 4
+    was fastest at B = 2 and 4."""
+    T = -(-N // F_TILE)
+    if T >= 2 * F_CHUNK_TILES and B * F_SMS_A_ROW <= sms:
+        return "chunk"
+    return "row"
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device_index: int) -> int:
+    """The card's SM count."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def fphase_expand_plain(lk, tb_l, cov_start, cov_end, vclass, seg, flags):
@@ -77,12 +115,18 @@ def _check(lk, tb_l, cov_start, cov_end, vclass, seg, flags):
         raise ValueError("fphase_expand needs U >= 1 and S >= 1")
 
 
-def fphase_expand_cuda(lk, tb_l, cov_start, cov_end, vclass, seg, flags):
-    """Launch the B3 kernel on CUDA tensors (see ``csrc/fphase.cu``)."""
+def fphase_expand_cuda(lk, tb_l, cov_start, cov_end, vclass, seg, flags,
+                       form=None):
+    """Launch the B3 kernel on CUDA tensors (see ``csrc/fphase.cu``) in
+    ``form`` (``"row"`` or ``"chunk"``; None: the rule's,
+    ``fphase_form``)."""
     _check(lk, tb_l, cov_start, cov_end, vclass, seg, flags)
     if lk.device.type != "cuda":
         raise ValueError(f"fphase_expand_cuda needs CUDA tensors, got {lk.device}")
     B, N = vclass.shape
+    if form is None:
+        form = fphase_form(B, N, _sms(lk.device.index))
+    chunked = F_FORMS.index(form)
     rank = torch.empty_like(vclass)
     vis = torch.empty(vclass.shape, dtype=torch.bool, device=vclass.device)
     lib = kernels.library("fphase")
@@ -91,7 +135,7 @@ def fphase_expand_cuda(lk, tb_l, cov_start, cov_end, vclass, seg, flags):
             lk.data_ptr(), tb_l.data_ptr(), cov_start.data_ptr(),
             cov_end.data_ptr(), vclass.data_ptr(), seg.data_ptr(),
             flags.data_ptr(), rank.data_ptr(), vis.data_ptr(),
-            B, N, lk.shape[1], cov_start.shape[1],
+            B, N, lk.shape[1], cov_start.shape[1], chunked,
             kernels.stream_handle(lk.device))
     kernels.check(rc, "fphase")
     kernels.launches["fphase"] += 1

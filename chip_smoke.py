@@ -39,8 +39,10 @@ Phases, one line each (times from CUDA events unless named host):
    B = 1 and 3 at n = 16,385, 65,536 and 131,072, 1,024 x 40,960, nine
    keys at P = 8192, 1, 2, 3 and 9 keys of every kind (rows of INT32_MAX
    only, full-range keys), each line naming its form; for B2 a chain and a
-   star at K = 4096 and 8192, two interleaved chains, B = 1, a row on
-   global scratch; for
+   star at K = 4096 and 8192, two interleaved chains, B = 1, rows too
+   wide for shared memory, and B = 1-3 at K = 16,384-131,072 (the
+   widest row form and the split form's widths, 4-32 blocks of
+   splitters); for
    K1/K2/K4 the doubled-budget row u_max = 8192 on global scratch, Kp <
    P, an overflowing row compared on its flags, N not a multiple of
    128, B = 1, Kp = 256 below P and P = Kp = 256 at the radix form's
@@ -51,7 +53,13 @@ Phases, one line each (times from CUDA events unless named host):
    widths; for B3 N below 1024 and not a multiple of 4, 128 or 1024,
    rows with no kept token, tokens at lanes 0 and N - 1, a tile of 1024
    tokens, segments over several tiles, a covered lane whose lane + 1
-   starts the next tile, S = 1, B = 1), kernel against plain version;
+   starts the next tile, S = 1, B = 1, and at B = 1-3 rows over several
+   chunks of the chunk form, with a token on every chunk's first lane, a
+   segment over two chunk edges and a kill across each), kernel against
+   plain version; every B2 and B3 call also in each of its forms (row
+   and split, row and chunk), each against the plain version, its line
+   naming the form its rule gives (the north star's must be the row
+   forms) and, where timed, each form's time;
    kernel, plain and, for the sort, library (``torch.sort``) times, with
    one line per B1 site (its keys' composite bit count, kernel against
    ``torch.sort``), one per K1/K2/K4 launch (ms, bound ms, CTAs per SM
@@ -59,7 +67,10 @@ Phases, one line each (times from CUDA events unless named host):
    (ms, bound ms, CTAs per SM); ``--phases`` adds K1's, K2's and K4's
    split between load/store, scans and sorts in both forms; ``--tiles``
    instead times B1's wide form at each tile width at the main path's
-   wide shapes and exits;
+   wide shapes and exits; ``--forms`` instead times B2's and B3's forms
+   at the north star's, the tree's and the fleet row's widths over B =
+   1-256 (the crossovers of ``euler.walk_form`` and
+   ``fphase.fphase_form``) and exits;
 3. north star: ``batched_pair_lanes`` -> ``batched_v5_inputs`` ->
    ``lanes_from_numpy`` -> ``batched_weave_digest`` on the card; launch
    counts of one dispatch, p50 of a few, against the plain path;
@@ -294,9 +305,11 @@ Phases, one line each (times from CUDA events unless named host):
    10,485,760 lanes: the overflow ladder, a warm and 3 timed steps), the
    last step's outputs bit-identical to the plain path on the card at the
    same row and budget, each kernel call of it held against its plain
-   version and timed against its bound (and B1 against ``torch.sort``),
-   then its API level (``merge_many`` of 64 replicas of 10,000 + 32
-   nodes); its three JSON lines with ``card``.
+   version and timed against its bound (and B1 against ``torch.sort``,
+   B2 and B3 in each form they have: the fleet row takes the split and
+   chunk forms; B2's split-form sublists counted, the longest and the
+   mean), then its API level (``merge_many`` of 64 replicas of 10,000 +
+   32 nodes); its three JSON lines with ``card``.
 18. the serving plane's acceptance instruments: (a) in this process,
    ``serve_soak._mk_fleet`` at phase 10's served size (32 tenants of
    10,000 elements, capacity 16, ``d_max`` 64) and 4 of the soak's
@@ -425,6 +438,10 @@ SOURCE = {
     "k4_rank_kills": "cause_tpu_torch/csrc/befuse_k4.cu",
 }
 FUSED = ("k1_sort_redirect", "k2_runs", "k4_rank_kills")
+# the forms of B2 and B3 (euler.walk_form, fphase.fphase_form pick one)
+FORMS = {"euler_walk": ("row", "split"), "fphase": ("row", "chunk")}
+# the forms the rules give the north star's B2 and B3 calls
+NORTH_STAR_FORMS = {"euler_walk": "row", "fphase": "row"}
 # launches of one dispatch of each pipeline
 V5_LAUNCHES = {"sort": 6, "euler_walk": 1, "fphase": 1}
 V5F_LAUNCHES = {"sort": 2, "euler_walk": 1, "fphase": 1,
@@ -436,7 +453,10 @@ I32_MIN = int(np.iinfo(np.int32).min)
 
 
 def fail(msg: str) -> None:
+    """Print the failure on both streams (a caller that keeps only the
+    end of stderr still reads why) and exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -617,11 +637,49 @@ def radix_bits(torch, ops, num_keys) -> list:
     return total.tolist()
 
 
-def check_call(torch, name, ops, kw, time_it: bool, flags_only=False):
+def rule_form(torch, name, ops) -> str:
+    """The form B2 or B3 takes on this call by its module's rule
+    (``euler.walk_form``, ``fphase.fphase_form``), as the wrapper picks
+    it."""
+    from cause_tpu_torch.weaver import euler, fphase
+
+    index = ops[0].device.index
+    if name == "euler_walk":
+        return euler.walk_form(ops[0].shape[1], euler._smem_limit(index))
+    B, N = ops[4].shape
+    return fphase.fphase_form(B, N, fphase._sms(index))
+
+
+def forms_of(torch, name, ops) -> tuple:
+    """The forms B2 or B3 has at this call's shape: B2's row form only
+    where a row fits in shared memory."""
+    from cause_tpu_torch.weaver import euler
+
+    if name == "euler_walk" and euler.walk_form(
+            ops[0].shape[1], euler._smem_limit(ops[0].device.index)) != "row":
+        return ("split",)
+    return FORMS[name]
+
+
+def forms_text(rec) -> str:
+    """A B2 or B3 call's form by the rule, and each form's time when
+    timed; empty for the other kernels."""
+    if "form" not in rec:
+        return ""
+    times = rec.get("form_ms")
+    return f" form {rec['form']}" + (" (" + ", ".join(
+        f"{f} {ms:.4f} ms" for f, ms in times.items()) + ")" if times else "")
+
+
+def check_call(torch, name, ops, kw, time_it: bool, flags_only=False,
+               all_forms=True):
     """Kernel against plain version on one call; ``flags_only`` (an
     overflowing row, whose other outputs the reference leaves
     unspecified) holds only the ``scal`` rows of the fused kernels to
-    the plain version, after a launch that must not fault."""
+    the plain version, after a launch that must not fault. B2 and B3
+    run in the form their rule gives and, with ``all_forms``, again in
+    each form they have at the shape (``forms_of``), each held against
+    the plain version and, when timed, timed."""
     kern, plain = kernel_fns(name)
     if name == "sort":
         run = lambda f: f(ops, **kw)  # noqa: E731
@@ -637,12 +695,24 @@ def check_call(torch, name, ops, kw, time_it: bool, flags_only=False):
     if flags_only:
         rec["all_err"] = rec["err"]
         rec["err"] = max_err(torch, got[-1:], want[-1:])
+    if name in FORMS:
+        rec["form"] = rule_form(torch, name, ops)
+    if name in FORMS and all_forms:
+        for form in forms_of(torch, name, ops):
+            g = kern(*ops, form=form)
+            torch.cuda.synchronize()
+            g = g if isinstance(g, tuple) else (g,)
+            rec["err"] = max(rec["err"], max_err(torch, g, want))
     if time_it:
         rec["ms"] = cuda_ms(torch, lambda: run(kern))
         rec["plain_ms"] = cuda_ms(torch, lambda: run(plain))
         if name == "sort":
             lib = library_fn(torch, ops, kw.get("num_keys", 1))
             rec["library_ms"] = cuda_ms(torch, lib) if lib else float("nan")
+        if name in FORMS:
+            rec["form_ms"] = {
+                form: cuda_ms(torch, lambda: kern(*ops, form=form))
+                for form in forms_of(torch, name, ops)}
         rec["bound_ms"] = bound_ms(call_bytes(ops, want))
     return rec
 
@@ -652,7 +722,7 @@ def edge_cases(torch, dev):
     duplicate keys with int32-max sentinels, rows too wide for shared
     memory (B1's wide form, the fused kernels' global-scratch paths),
     unreached forest runs."""
-    from cause_tpu_torch.weaver import befuse, euler
+    from cause_tpu_torch.weaver import befuse, euler, fphase
 
     rng = np.random.default_rng(20261016)
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
@@ -711,13 +781,18 @@ def edge_cases(torch, dev):
         w = rng.integers(0, 6, size=(B, K)).astype(np.int32)
         return fc, ns, T(par.astype(np.int32)), T(w)
 
+    # the last five at B = 1-3 at the row form's widest row and past it
+    # (the split form's rows, over 4-32 blocks of 256 splitters)
     for shape, B, K in (("chain", 2, 4096), ("star", 2, 4096),
                         ("two chains", 2, 4096), ("chain", 1, 8192),
-                        ("star", 1, 8192)):
+                        ("star", 1, 8192), ("chain", 1, 16384),
+                        ("two chains", 2, 20000), ("star", 3, 40000),
+                        ("two chains", 1, 131072), ("chain", 3, 65537)):
         cases.append(("euler_walk", f"{shape} B={B} K={K}",
                       shaped(shape, B, K), {}))
     for B, K, n_valid in ((4, 64, 40), (2, 16384, 12000), (3, 300, 300),
-                          (2, 32768, 30000), (1, 4096, 1)):
+                          (2, 32768, 30000), (1, 4096, 1),
+                          (1, 70000, 65000), (3, 24577, 24577)):
         parent_sort = np.full((B, K), K, np.int32)
         special = rng.random((B, K)) < 0.3
         w = np.zeros((B, K), np.int32)
@@ -743,10 +818,20 @@ def edge_cases(torch, dev):
             (2, 6144, 200, 4, "long segments"), (2, 4099, 100, 10,
                                                    "tile-edge kill"),
             (2, 4096, 100, 10, "tile-edge kill"), (2, 2048, 50, 1, "random"),
-            (1, 20480, 4096, 512, "random")):
-        ops = fphase_inputs(rng, B, N, U, S, kind)
-        if kind == "tile-edge kill" and not tile_edge_killed(torch, ops):
-            fail("B3 edge case: no tile's last lane is killed by its next")
+            (1, 20480, 4096, 512, "random"),
+            # across the chunk form's edges (chunks of 4 tiles), B = 1-3
+            (1, 12388, 300, 8, "chunk edges"),
+            (2, 12389, 300, 8, "chunk edges"),
+            (3, 32768, 600, 8, "chunk edges"),
+            (1, 131072, 20000, 3000, "random"),
+            (3, 40961, 8000, 900, "random"),
+            (2, 8192, 2048, 100, "random")):
+        chunk = (fphase.F_CHUNK_TILES * fphase.F_TILE
+                 if kind == "chunk edges" else fphase.F_TILE)
+        ops = fphase_inputs(rng, B, N, U, S, kind, chunk)
+        if kind in ("tile-edge kill", "chunk edges") and \
+                not tile_edge_killed(torch, ops, chunk):
+            fail(f"B3 edge case: no {kind} lane is killed by its next")
         cases.append(("fphase", f"{kind} B={B} N={N} U={U} S={S}",
                       tuple(T(x) for x in ops), {}))
     for tag, B, P, U, kind in (
@@ -820,7 +905,14 @@ def fphase_inputs(rng, B, N, U, S, kind, tile=1024):
     invariants (token lanes distinct and ascending, N after; segments
     disjoint with ascending starts, start N / end 0 after), with the
     token lanes and segments of the given kind; the kinds bound to B3's
-    tiles take their width ``tile``."""
+    tiles take their width ``tile`` ("chunk edges": the chunk form's
+    chunk of ``tile`` lanes: a token on every chunk's first lane, a
+    segment over the first two chunk edges, and the lane before each of
+    those edges visible but for a tombstone on the chunk's first lane)."""
+    if kind == "chunk edges" and (N < 3 * tile + 3 or S < 2
+                                  or U < -(-N // tile)):
+        raise ValueError("chunk edges: N >= 3 chunks + 3, S >= 2 and a "
+                         "token a chunk")
     lk = np.full((B, U), N, np.int32)
     tb = np.zeros((B, U), np.int32)
     cs = np.full((B, S), N, np.int32)
@@ -832,6 +924,12 @@ def fphase_inputs(rng, B, N, U, S, kind, tile=1024):
     for r in range(B):
         if kind == "no tokens":
             lanes = np.zeros(0, np.int64)
+        elif kind == "chunk edges":
+            starts = np.arange(0, N, tile)
+            rest = np.setdiff1d(np.arange(N), starts)
+            k = int(rng.integers(0, min(U - len(starts), len(rest)) + 1))
+            lanes = np.sort(np.r_[starts, rng.choice(rest, size=k,
+                                                     replace=False)])
         elif kind == "full tile":  # every lane of the second tile
             extra = rng.choice(np.r_[0:tile, 2 * tile:N], size=U - tile,
                                replace=False)
@@ -850,6 +948,9 @@ def fphase_inputs(rng, B, N, U, S, kind, tile=1024):
         elif kind == "tile-edge kill":  # over the first two tile edges
             segs = np.array([[tile - 20, tile + 20],
                              [2 * tile - 20, 2 * tile + 20]])
+        elif kind == "chunk edges":  # over two chunk edges, then short
+            segs = np.array([[tile - 5, 2 * tile + 7],
+                             [3 * tile - 3, min(3 * tile + 2, N)]])
         else:
             cuts = np.sort(rng.choice(np.arange(1, N),
                                       size=2 * min(S, N // 4),
@@ -857,9 +958,9 @@ def fphase_inputs(rng, B, N, U, S, kind, tile=1024):
             segs = cuts[rng.random(len(cuts)) < 0.6]
         segs = segs[:S]
         cs[r, :len(segs)], ce[r, :len(segs)] = segs[:, 0], segs[:, 1]
-    if kind == "tile-edge kill":
-        # a tile's last lane, visible but for the tombstone after it in
-        # its segment (an ordinal no other lane has)
+    if kind in ("tile-edge kill", "chunk edges"):
+        # a tile's (chunk's) last lane, visible but for the tombstone
+        # after it in its segment (an ordinal no other lane has)
         for ln in (tile - 1, 2 * tile - 1):
             seg[:, ln:ln + 2] = 1 << 20
             vc[:, ln], vc[:, ln + 1] = 0, 1
@@ -985,7 +1086,7 @@ def profile_dispatch(torch, dispatch, out_dir: str, wall_ms: float,
     busy = sum(d for _, d in by.values()) / reps
 
     def port(name):
-        return any(k in name for k in ("sort_rows_", "euler_walk_kernel",
+        return any(k in name for k in ("sort_rows_", "euler_walk_",
                                        "fphase_row_kernel",
                                        "k1_radix_kernel", "k1_net_kernel",
                                        "k2_radix_kernel", "k2_net_kernel",
@@ -1215,6 +1316,125 @@ def tile_sweep(torch, dev, card: str, rounds: int = 5) -> None:
     say(f"[tiles] fastest tile by shape count: {wins}; {card}")
 
 
+# --forms: B2 at the north star's K, the tree's widest row form, its
+# split levels and the fleet row's (v5); B3 at the north star's N, the
+# tree's widest level and the fleet row, its chunk form also from
+# builds of fphase.cu at other chunk lengths; B from 1 to 256 while a
+# shape holds at most FORM_SWEEP_LANES lanes
+FORM_SWEEP_B = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+FORM_SWEEP_K = (4096, 16384, 32768, 65536, 1_152_002)
+FORM_SWEEP_N = (20480, 131072, 10_485_760)
+FORM_SWEEP_CHUNKS = (1, 2, 8, 16)
+FORM_SWEEP_LANES = 1 << 26
+
+
+def chunk_builds() -> dict:
+    """``fphase.cu`` built with -DCAUSE_F_CHUNK_TILES=c for each c of
+    ``FORM_SWEEP_CHUNKS`` (one nvcc each, all started together), and the
+    default build under its own length: chunk tiles -> library."""
+    import subprocess as sp
+
+    from cause_tpu_torch import kernels
+    from cause_tpu_torch.weaver import fphase
+
+    out = kernels.BUILD / "chunks"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for c in FORM_SWEEP_CHUNKS:
+        so = out / f"libfphase-chunk{c}.so"
+        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS,
+               f"-DCAUSE_F_CHUNK_TILES={c}", "-o", str(so),
+               str(kernels.CSRC / kernels.SOURCES["fphase"])]
+        jobs[c] = (so, sp.Popen(cmd, stdout=sp.PIPE, stderr=sp.STDOUT,
+                                text=True))
+    libs = {fphase.F_CHUNK_TILES: kernels.library("fphase")}
+    for c, (so, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"nvcc fphase.cu chunk {c}: {log[-3000:]}")
+        libs[c] = kernels.load(so)
+    return dict(sorted(libs.items()))
+
+
+def form_sweep(torch, dev, card: str, reps: int = 5) -> None:
+    """``--forms``: B2's row and split forms (the row form only where a
+    row fits in shared memory) and B3's row form and chunk form (at
+    several chunk lengths, ``chunk_builds``) on the same calls, at
+    ``FORM_SWEEP_K``/``FORM_SWEEP_N`` and B in ``FORM_SWEEP_B``: every
+    form's result held bit-equal to the plain version, then each timed
+    (CUDA events, the mean of ``reps`` calls after one warm-up), beside
+    the form the rule gives. A row is made once with numpy (B2: a random
+    forest of K runs, every run valid; B3: ``fphase_inputs``' random
+    kind with U = N / 8 and S = N / 64) and repeated B times on the
+    card."""
+    from cause_tpu_torch import kernels
+    from cause_tpu_torch.weaver import euler, fphase
+
+    rng = np.random.default_rng(20261018)
+    sms = fphase._sms(dev.index)
+    smem = euler._smem_limit(dev.index)
+    on = lambda x, B: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(x)).to(dev).expand(B, -1).contiguous()
+    for K in FORM_SWEEP_K:
+        parent_sort = np.r_[K, (rng.random(K - 1) * np.arange(1, K))
+                            .astype(np.int64)].astype(np.int32)[None]
+        w = rng.integers(0, 6, size=(1, K)).astype(np.int32)
+        order = np.argsort(parent_sort, axis=1, kind="stable").astype(
+            np.int32)
+        par = np.where(parent_sort < K, parent_sort, -1).astype(np.int32)
+        for B in FORM_SWEEP_B:
+            if B * K > FORM_SWEEP_LANES:
+                break
+            fc, ns = euler.link_children(on(order, B), on(parent_sort, B))
+            ops = (fc, ns, on(par, B), on(w, B))
+            want = euler.euler_walk_plain(*ops)
+            times = {}
+            for form in forms_of(torch, "euler_walk", ops):
+                run = lambda: euler.euler_walk_cuda(*ops, form=form)  # noqa: E731
+                if max_err(torch, (run(),), (want,)):
+                    fail(f"[forms] euler_walk {form} B={B} K={K} "
+                         f"disagrees with the plain version")
+                times[form] = cuda_ms(torch, run, reps=reps, warm=1)
+            say(f"[forms] euler_walk B={B} K={K}: " + ", ".join(
+                f"{f} {ms:.4f} ms" for f, ms in times.items())
+                + f"; the rule: {euler.walk_form(K, smem)}, fastest "
+                f"{min(times, key=times.get)}")
+            del fc, ns, ops, want
+    libs = chunk_builds()
+    try:
+        for N in FORM_SWEEP_N:
+            row = fphase_inputs(rng, 1, N, max(2, N // 8), max(2, N // 64),
+                                "random")
+            for B in FORM_SWEEP_B:
+                if B * N > FORM_SWEEP_LANES:
+                    break
+                ops = tuple(on(x, B) for x in row)
+                want = fphase.fphase_expand_plain(*ops)
+                times = {}
+                for c, lib in libs.items():
+                    kernels._LIBS["fphase"] = lib
+                    forms = ("row", "chunk") if c == fphase.F_CHUNK_TILES \
+                        else ("chunk",)
+                    for form in forms:
+                        if form == "chunk" and c >= -(-N // fphase.F_TILE):
+                            continue
+                        run = lambda: fphase.fphase_expand_cuda(  # noqa: E731
+                            *ops, form=form)
+                        tag = form if form == "row" else f"chunk {c}"
+                        if max_err(torch, run(), want):
+                            fail(f"[forms] fphase {tag} B={B} N={N} "
+                                 f"disagrees with the plain version")
+                        times[tag] = cuda_ms(torch, run, reps=reps, warm=1)
+                say(f"[forms] fphase B={B} N={N}: " + ", ".join(
+                    f"{f} {ms:.4f} ms" for f, ms in times.items())
+                    + f"; the rule: {fphase.fphase_form(B, N, sms)}, "
+                    f"fastest {min(times, key=times.get)}")
+                del ops, want
+    finally:
+        kernels._LIBS["fphase"] = libs[fphase.F_CHUNK_TILES]
+    say(f"[forms] {card}")
+
+
 def device_kernels(torch, fn, reps: int = 2):
     """(kernels per call, device ms per call) of ``fn`` on the card, from a
     torch.profiler trace of ``reps`` calls."""
@@ -1279,6 +1499,7 @@ def check_recorded(torch, calls, tag: str, sites=SORT_SITES,
     per kernel."""
     timed = set() if timed is None else timed
     per = {}
+    taken = {}
     n_sorts = n_timed = 0
     for name, ops, kw in calls:
         site = ""
@@ -1288,11 +1509,17 @@ def check_recorded(torch, calls, tag: str, sites=SORT_SITES,
             n_sorts += 1
         key = (name, tuple(tuple(x.shape) for x in ops),
                tuple(sorted(kw.items())))
-        rec = check_call(torch, name, ops, kw, time_it=key not in timed)
+        # the first call of a key also runs B2's and B3's every form
+        first = key not in timed
+        rec = check_call(torch, name, ops, kw, time_it=first,
+                         all_forms=first)
         if rec["err"]:
             fail(f"{tag}: {name} at {[tuple(x.shape) for x in ops]} "
                  f"{kw or ''} disagrees with its plain version "
                  f"(max_abs_err {rec['err']})")
+        if "form" in rec:
+            forms = taken.setdefault(name, {})
+            forms[rec["form"]] = forms.get(rec["form"], 0) + 1
         if key in timed:
             continue
         timed.add(key)
@@ -1301,17 +1528,22 @@ def check_recorded(torch, calls, tag: str, sites=SORT_SITES,
                                     "bound_ms": 0.0})
         if name == "sort":
             tot.setdefault("library_ms", 0.0)
-        for k in tot:
-            tot[k] += rec[k]
+        for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            if k in tot:
+                tot[k] += rec[k]
+        for form, ms in rec.get("form_ms", {}).items():
+            tot.setdefault("form_ms", {}).setdefault(form, 0.0)
+            tot["form_ms"][form] += ms
         shapes = "x".join(str(d) for d in ops[0].shape)
         say(f"{tag}: {name}{site} {shapes} n_ops={len(ops)} {kw or ''}: "
             f"max_abs_err 0, ms {rec['ms']:.4f} plain_ms "
             f"{rec['plain_ms']:.4f} bound_ms {rec['bound_ms']:.4f}"
             + (f" library_ms {rec['library_ms']:.4f} ms/library_ms "
                f"{rec['ms'] / rec['library_ms']:.3f}"
-               if name == "sort" else ""))
+               if name == "sort" else "") + forms_text(rec))
     say(f"{tag}: {len(calls)} kernel calls, each equal to its plain "
-        f"version on the card ({n_timed} distinct shapes timed)")
+        f"version on the card ({n_timed} distinct shapes timed); B2 and "
+        f"B3 also in each form; forms by the rules {taken}")
     return per
 
 
@@ -1321,6 +1553,8 @@ def kernel_sums_line(per) -> str:
         f"{n} {v['ms']:.4f} ms, plain {v['plain_ms']:.4f}, bound "
         f"{v['bound_ms']:.6f}" + (f", torch.sort {v['library_ms']:.4f}"
                                   if "library_ms" in v else "")
+        + "".join(f", {f} form {ms:.4f}"
+                  for f, ms in v.get("form_ms", {}).items())
         for n, v in per.items())
 
 
@@ -1419,7 +1653,7 @@ def phase_delta(torch, dev, ns_p50: float, p50, profile_dir=None) -> None:
                 f"{kw or ''}: max_abs_err 0, ms {rec['ms']:.4f} plain_ms "
                 f"{rec['plain_ms']:.4f} bound_ms {rec['bound_ms']:.4f}"
                 + (f" library_ms {rec['library_ms']:.4f}"
-                   if name == "sort" else ""))
+                   if name == "sort" else "") + forms_text(rec))
         delta()  # warm
         # the full arm and the window in turns, in this phase: the host's
         # speed drifts between phases
@@ -3695,9 +3929,14 @@ LADDER_SITE, LADDER_TWIN = "sLADDER000000", "sLADDERTWIN00"
 def add_sums(total, per) -> None:
     """Add ``check_recorded``'s per-kernel sums into ``total``."""
     for kern, v in per.items():
-        tot = total.setdefault(kern, dict.fromkeys(v, 0.0))
-        for k in v:
-            tot[k] += v[k]
+        tot = total.setdefault(kern, {})
+        for k, x in v.items():
+            if isinstance(x, dict):  # B2's and B3's sums by form
+                forms = tot.setdefault(k, {})
+                for f, ms in x.items():
+                    forms[f] = forms.get(f, 0.0) + ms
+            else:
+                tot[k] = tot.get(k, 0.0) + x
 
 
 def ladder_trees():
@@ -4010,7 +4249,7 @@ BENCH_CLI_TIMEOUT = 600
 BENCH_KEYS = {"config", "metric", "weaver", "value", "unit"}
 BENCH_SKIP_KEYS = {"config", "weaver", "skipped"}
 # the B1-B3 kernels' names in a torch.profiler trace (csrc/)
-BENCH_KERNEL_NAMES = {"sort": "sort_rows_", "euler_walk": "euler_walk_kernel",
+BENCH_KERNEL_NAMES = {"sort": "sort_rows_", "euler_walk": "euler_walk_",
                       "fphase": "fphase_row_kernel"}
 # launches of one config-5 step of each kernel, and its sorts in order
 BENCH_LAUNCHES = {"v5": V5_LAUNCHES, "v4": GEN_LAUNCHES["v4"]}
@@ -4500,26 +4739,31 @@ def shard_entry(torch):
     return got
 
 
-def shard_dryrun(torch) -> None:
-    """Phase 15, step (f): ``dryrun_multichip`` over 4 gloo ranks in a
-    subprocess (exit 0), then over one NCCL rank on the card."""
-    from cause_tpu_torch.parallel.entry import dryrun_multichip
-
-    tag = "[15 dryrun]"
+def shard_dryrun_start() -> Beside:
+    """Phase 15, step (f), started: ``dryrun_multichip`` over 4 gloo
+    ranks on the CPU in a subprocess, beside the phase's steps on the
+    card."""
     prog = ("from cause_tpu_torch.parallel.entry import dryrun_multichip; "
             f"dryrun_multichip({SHARD_DRYRUN_RANKS}, device='cpu'); "
             "print('dryrun ok')")
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-c", prog], cwd=REPO_ROOT,
-                         env=no_obs_env(), capture_output=True, text=True,
-                         timeout=SHARD_DRYRUN_TIMEOUT)
-    secs = time.perf_counter() - t0
-    if out.returncode != 0 or "dryrun ok" not in out.stdout:
+    return Beside("[15 dryrun]", [sys.executable, "-c", prog],
+                  SHARD_DRYRUN_TIMEOUT)
+
+
+def shard_dryrun(torch, run: Beside) -> None:
+    """Phase 15, step (f): the gloo dry run of ``shard_dryrun_start``
+    collected (exit 0), then ``dryrun_multichip`` over one NCCL rank on
+    the card."""
+    from cause_tpu_torch.parallel.entry import dryrun_multichip
+
+    tag = run.tag
+    run.collect()
+    if "dryrun ok" not in run.stdout:
         fail(f"{tag} dryrun_multichip({SHARD_DRYRUN_RANKS}, device='cpu') "
-             f"exited {out.returncode}: {out.stderr[-2000:]}")
+             f"printed no result: {run.stderr[-2000:]}")
     say(f"{tag} dryrun_multichip({SHARD_DRYRUN_RANKS}, device='cpu'): "
-        f"gloo ranks, exit 0 in {secs:.1f} s (host clock, the "
-        f"subprocess's start included)")
+        f"gloo ranks, exit 0 in {run.secs:.1f} s (host clock, the "
+        f"subprocess's start included, beside the steps)")
     t0 = time.perf_counter()
     dryrun_multichip(1)
     say(f"{tag} dryrun_multichip(1) on the card: one NCCL rank, passed in "
@@ -4538,13 +4782,17 @@ def phase_sharded(torch, dev, card: str, batch, v5, u_max: int, pairs,
     from cause_tpu_torch import kernels
 
     t_phase = time.perf_counter()
-    mesh = shard_mesh(torch, dev)
-    counts, per = shard_steps(torch, dev, mesh, batch, v5, u_max)
-    shard_wave(torch, mesh, pairs, wave_digest)
-    other = shard_maps(torch, dev, mesh)
-    for k, v in shard_entry(torch).items():
-        other[k] += v
-    shard_dryrun(torch)
+    gloo = shard_dryrun_start()
+    try:
+        mesh = shard_mesh(torch, dev)
+        counts, per = shard_steps(torch, dev, mesh, batch, v5, u_max)
+        shard_wave(torch, mesh, pairs, wave_digest)
+        other = shard_maps(torch, dev, mesh)
+        for k, v in shard_entry(torch).items():
+            other[k] += v
+        shard_dryrun(torch, gloo)
+    finally:
+        gloo.stop()
     dist.destroy_process_group()
     expect_launches({k: counts[k] + other[k] for k in kernels.SOURCES},
                     tuple(kernels.SOURCES), "[15 sharded]")
@@ -5132,6 +5380,51 @@ def soak_chaos(run: Beside) -> float:
     return secs
 
 
+def walk_sublists(torch, fc, ns, parent) -> tuple:
+    """B2's split form's ruling set on ``[B, K]`` tables, its splitters
+    picked as ``csrc/euler_walk.cu``'s ``split_hash`` picks them:
+    (splitters a row, the longest and the mean sublist over the rows'
+    splitters in the tour), a sublist's length being the slots a thread
+    walks from its splitter to the next or to the tour's end, one
+    dependent load each. Found on the card by pointer jumping over the
+    tour's successors."""
+    from cause_tpu_torch.weaver import euler
+
+    B, K = fc.shape
+    two_k = 2 * K
+    M = 1 << (two_k - 1).bit_length()
+    mask, r = M - 1, (M.bit_length() - 1 + 1) // 2
+    a = ((M * 0x9E3779B9) >> 32) | 1
+    c = (0x85EBCA6B & mask) | 1
+    n_split = max(1, M >> euler.WALK_LOG_STRIDE)
+    dev = fc.device
+    i = torch.arange(K, device=dev, dtype=torch.int64)
+    f, s, p = fc.long(), ns.long(), parent.long()
+    succ = torch.cat([
+        torch.where(f < 0, K + i, torch.where(f < K, f, two_k)),
+        torch.where(s >= 0, torch.where(s < K, s, two_k),
+                    torch.where((p >= 0) & (p < K), K + p, two_k))], 1)
+    slot = torch.arange(two_k + 1, device=dev, dtype=torch.int64)
+    x = (slot * a) & mask
+    x ^= x >> r
+    x = (x * c) & mask
+    x ^= x >> r
+    stops = ((x * a) & mask) < n_split  # a splitter's slot, or END
+    stops[two_k] = True
+    # a step to the next slot, or to the sink (slot 2K) after a walk's
+    # last slot
+    nxt = torch.cat([torch.where(stops[succ], two_k, succ),
+                     torch.full((B, 1), two_k, device=dev,
+                                dtype=torch.int64)], 1)
+    dist = torch.ones_like(nxt)
+    dist[:, two_k] = 0
+    for _ in range(two_k.bit_length() + 1):
+        dist = dist + dist.gather(1, nxt)
+        nxt = nxt.gather(1, nxt)
+    lengths = dist[:, :two_k][:, stops[:two_k]]
+    return n_split, int(lengths.max()), float(lengths.float().mean())
+
+
 def soak_fleet(torch, dev, card: str, timed) -> tuple:
     """Phase 17 (d): ``fleet_bench`` at its full configuration in this
     process: for v5 and v4 the one row of K * cap lanes through the
@@ -5181,6 +5474,14 @@ def soak_fleet(torch, dev, card: str, timed) -> tuple:
             f"timed steps {got}")
         add_sums(per, check_recorded(torch, calls, f"[17 fleet {kernel}]",
                                      sites=sites, timed=timed))
+        for name, ops, _ in calls:
+            if name == "euler_walk":
+                n_split, longest, mean = walk_sublists(torch, *ops[:3])
+                say(f"[17 fleet {kernel}] B2's split form's ruling set at "
+                    f"{'x'.join(map(str, ops[0].shape))}: {n_split} "
+                    f"splitters a row, sublists of {mean:.1f} slots on "
+                    f"average and {longest} at most (the dependent loads "
+                    f"of a thread's walk, each walked twice)")
         del last, want, calls
     rec = fleet_bench.api_level(**FLEET_API)
     say(json.dumps(dict(rec, card=card)))
@@ -6141,6 +6442,11 @@ def main() -> int:
                     help="only time B1's wide form at each tile width at "
                          "the main path's wide shapes, from builds of "
                          "sort.cu with -DCAUSE_WIDE_TILE, then exit")
+    ap.add_argument("--forms", action="store_true",
+                    help="only time B2's row and split forms and B3's row "
+                         "and chunk forms at the north star's, the "
+                         "tree's and the fleet row's widths over B = 1 to "
+                         "256, then exit")
     ap.add_argument("--collector", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.collector:
@@ -6173,6 +6479,9 @@ def main() -> int:
         f"{time.perf_counter() - t0:.3f} s (host clock)")
     if args.tiles:
         tile_sweep(torch, dev, card)
+        return 0
+    if args.forms:
+        form_sweep(torch, dev, card)
         return 0
 
     # ------------------------------------------------ north-star inputs
@@ -6233,7 +6542,10 @@ def main() -> int:
                      f" bound_ms {rec['bound_ms']:.4f}")
             for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
                 per[name][k] += rec.get(k, 0.0)
-        say(line)
+        say(line + forms_text(rec))
+        if name in FORMS and rec["form"] != NORTH_STAR_FORMS[name]:
+            fail(f"the north star's {name} call takes the {rec['form']} "
+                 f"form, not {NORTH_STAR_FORMS[name]}")
         if name in FUSED and time_it:
             P, Kp = fused_widths(name, ops, kw)
             say(f"[2 kernels] {name} launch at P={P} Kp={Kp}: ms "
@@ -6248,7 +6560,7 @@ def main() -> int:
                 f"N={ops[4].shape[1]} U={ops[0].shape[1]} "
                 f"S={ops[2].shape[1]}: ms {rec['ms']:.4f} (CUDA events, mean "
                 f"of 10 calls), bound ms {rec['bound_ms']:.4f}, CTAs per SM "
-                f"{ctas_per_sm(name)} (one CTA a row)")
+                f"{ctas_per_sm(name)} ({rec['form']} form)")
         if name == "sort" and path == "v5":
             bits = radix_bits(torch, ops, kw.get("num_keys", 1))
             say(f"[2 kernels] B1 site {next(sites, '?')} {shapes} "
@@ -6274,6 +6586,9 @@ def main() -> int:
                          flags_only=flags_only)
         say(f"[2 kernels] edge {name} {tag}: max_abs_err {rec['err']}"
             + (f" (flags; all outputs {rec['all_err']})" if flags_only
+               else "") + forms_text(rec)
+            + (f", each of {'/'.join(forms_of(torch, name, ops))} too"
+               if name in FORMS
                else ""))
         per[name]["err"] = max(per[name]["err"], rec["err"])
         if rec["err"]:
