@@ -436,18 +436,6 @@ static cudaError_t euler_walk_split(const int32_t* fc, const int32_t* ns,
 
 extern "C" {
 
-// The current card's opt-in limit of shared memory a block, the input of
-// weaver/euler.py's walk_form; -1 if the device query fails.
-int cause_euler_walk_smem_limit(void) {
-    int dev = 0, limit = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&limit,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev) != cudaSuccess)
-        return -1;
-    return limit;
-}
-
 // Int32 words of global scratch the split form takes on B rows of K
 // runs: B totals and B rows of split_row_words.
 long long cause_euler_walk_scratch_words(int B, int K) {

@@ -1,4 +1,4 @@
-// B1: stable lexicographic sort of int32 rows, in three forms.
+// B1: stable lexicographic sort of int32 rows, in four forms.
 //
 // Replaces the Pallas kernel of cause_tpu/weaver/pallas_sort.py
 // (`_kernel_body`, launched by the pallas_call at :140 and :157 behind
@@ -12,12 +12,12 @@
 // it: the bitonic network is log2(P) * (log2(P) + 1) / 2 compare-exchange
 // stages (78 at P = 4096) whatever the keys hold, each bound by how fast
 // elements move between threads. A sort spread over several CTAs adds
-// the passes' own traffic: (composite + position) read and written once
-// a digit pass.
+// the passes' own traffic.
 //
-// The form is a static rule on (P = next_pow2(n), num_keys) in
-// cause_sort_rows, written once for the callers in weaver/bitonic.py
-// (`b1_form`) and mirrored here:
+// The form is decided by the caller alone, by the rule of
+// weaver/bitonic.py (`b1_form`, with the cluster's CTA width), and passed
+// in as a form code: this file holds no copy of the rule and asks the
+// card nothing at a call.
 // - radix (one or two keys, 256 <= P <= 8192: every site of the wave,
 //   and the doubled-budget retry), one CTA a row, radix.cuh: the keys are
 //   range-compressed to the bits the row's data spans (at most 15 bits
@@ -27,13 +27,6 @@
 //   position key. Only the keys (and positions) are sorted; each payload
 //   is staged in shared memory once and gathered by final position (the
 //   Pallas kernel moves every operand at every stage).
-// - wide (P > 8192, or keys and positions too large for the 227 KB of
-//   shared memory a block may use), radix_wide.cuh: the same stable LSD
-//   radix idea over a row spread across (row, tile) CTAs, each digit pass
-//   one launch through global memory (a tile's offsets from the row's
-//   digit totals and a look-back over its earlier tiles), on scratch the
-//   caller allocates (its size: wide_layout). The pass count follows the
-//   data on the device; the host never reads it.
 // - network (P < 256, or three or more keys up to 8192 that fit), one
 //   CTA a row: bitonic_net from bitonic.cuh in shared memory, ending a
 //   stage that stays inside a warp's 64-element chunk with a warp barrier
@@ -41,17 +34,33 @@
 //   (keys INT32_MAX, positions n..P-1), so padding sorts after every real
 //   element even when real keys equal INT32_MAX, and only the first n
 //   outputs are written.
+// - cluster (every other row a cluster of up to 16 CTAs holds: 131,072
+//   lanes on an H100), radix_cluster.cuh: the same stable LSD radix idea
+//   over a row held in the distributed shared memory of a thread-block
+//   cluster, one launch, no scratch.
+// - wide (rows past the cluster's reach), radix_wide.cuh: the same idea
+//   over a row spread across (row, tile) CTAs of 4096 lanes, each digit
+//   pass one launch through global memory (a tile's offsets from the
+//   row's digit totals and a look-back over its earlier tiles), on
+//   scratch the caller allocates (its size: wide_layout). The pass count
+//   follows the data on the device; the host never reads it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bitonic.cuh"
 #include "radix.cuh"
+#include "radix_cluster.cuh"
 #include "radix_wide.cuh"
 #include "smem_attrs.cuh"
 
 #define CAUSE_SORT_MAX_OPS 9
 #define CAUSE_SORT_THREADS 512
+// the form codes of cause_sort_rows (weaver/bitonic.py: B1_FORMS)
+#define CAUSE_SORT_FORM_RADIX 0
+#define CAUSE_SORT_FORM_NETWORK 1
+#define CAUSE_SORT_FORM_CLUSTER 2
+#define CAUSE_SORT_FORM_WIDE 3
 
 struct SortArgs {
     const int32_t* in[CAUSE_SORT_MAX_OPS];
@@ -157,32 +166,133 @@ static cudaError_t launch_radix(const SortArgs& args, int n_ops, int B, int n,
     return cudaGetLastError();
 }
 
+// ----------------------------------------------------------- cluster form
+
+// The cluster form's CTA of L lanes: `threads` threads of `ipt` items.
+template <int L>
+struct ClusterCta {
+    static constexpr int threads =
+        L == 4096 ? CAUSE_CLUSTER_NARROW_THREADS : CAUSE_CLUSTER_THREADS;
+    static constexpr int ipt = L / threads;
+};
+
+template <typename KT, int L>
+static void (*cluster_kernel())(SortArgs, int, int, int) {
+    return sort_rows_cluster<KT, ClusterCta<L>::ipt, ClusterCta<L>::threads,
+                             SortArgs>;
+}
+
+// The cluster kernel's attributes, once per device and process: the
+// shared memory (smem_attrs_once) and clusters past the portable 8 CTAs.
+template <typename KT, int L>
+static cudaError_t cluster_attrs_once() {
+    static std::atomic<bool> smem_ready[CAUSE_MAX_DEVICES];
+    static std::atomic<bool> ready[CAUSE_MAX_DEVICES];
+    auto kernel = cluster_kernel<KT, L>();
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < CAUSE_MAX_DEVICES && ready[dev].load(std::memory_order_acquire))
+        return cudaSuccess;
+    e = smem_attrs_once(kernel, smem_ready);
+    if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e == cudaSuccess && dev < CAUSE_MAX_DEVICES)
+        ready[dev].store(true, std::memory_order_release);
+    return e;
+}
+
+static void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& at,
+                           int C, int B, int threads, size_t smem,
+                           cudaStream_t st) {
+    cfg = cudaLaunchConfig_t{};
+    cfg.gridDim = dim3((unsigned)(C * B), 1, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    at.id = cudaLaunchAttributeClusterDimension;
+    at.val.clusterDim.x = (unsigned)C;
+    at.val.clusterDim.y = 1;
+    at.val.clusterDim.z = 1;
+    cfg.attrs = &at;
+    cfg.numAttrs = 1;
+}
+
+template <typename KT, int L>
+static cudaError_t launch_cluster(const SortArgs& args, int n_ops,
+                                  int num_keys, int B, int n,
+                                  cudaStream_t st) {
+    const cudaError_t e = cluster_attrs_once<KT, L>();
+    if (e != cudaSuccess) return e;
+    constexpr int threads = ClusterCta<L>::threads;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute at;
+    cluster_config(cfg, at, (n + L - 1) / L, B, threads,
+                   cluster_smem_bytes(sizeof(KT), L, threads), st);
+    return cudaLaunchKernelEx(&cfg, cluster_kernel<KT, L>(), args, n_ops,
+                              num_keys, n);
+}
+
+// The largest cluster of the cluster form at L lanes a CTA that the card
+// co-schedules (cudaOccupancyMaxActiveClusters >= 1), the smaller of its
+// two word widths; 0 if none.
+template <int L>
+static int cluster_reach() {
+    constexpr int threads = ClusterCta<L>::threads;
+    int best = CAUSE_CLUSTER_MAX;
+    for (int wide = 0; wide < 2; ++wide) {
+        const void* kernel = wide ? (const void*)cluster_kernel<uint64_t, L>()
+                                  : (const void*)cluster_kernel<uint32_t, L>();
+        if ((wide ? cluster_attrs_once<uint64_t, L>()
+                  : cluster_attrs_once<uint32_t, L>()) != cudaSuccess) {
+            cudaGetLastError();
+            return 0;
+        }
+        int C = best;
+        for (; C >= 1; --C) {
+            cudaLaunchConfig_t cfg;
+            cudaLaunchAttribute at;
+            cluster_config(cfg, at, C, 1, threads,
+                           cluster_smem_bytes(wide ? 8 : 4, L, threads), 0);
+            int active = 0;
+            if (cudaOccupancyMaxActiveClusters(&active, kernel, &cfg) !=
+                cudaSuccess) {
+                cudaGetLastError();  // a refused size is not a launch error
+                continue;
+            }
+            if (active >= 1) break;
+        }
+        best = C;
+    }
+    return best;
+}
+
 // -------------------------------------------------------------- wide form
 
-template <typename KT, int IPT>
+template <typename KT>
 static cudaError_t launch_wide_scatter(const SortArgs& args,
                                        const WideBufs<KT>& w, int B, int n,
                                        int tiles, int g, int d,
                                        cudaStream_t st) {
     static std::atomic<bool> ready[CAUSE_MAX_DEVICES];
-    auto kernel = sort_rows_wide_scatter<KT, IPT, SortArgs>;
+    auto kernel = sort_rows_wide_scatter<KT, SortArgs>;
     const cudaError_t e = smem_attrs_once(kernel, ready);
     if (e != cudaSuccess) return e;
     kernel<<<(unsigned)(B * tiles), CAUSE_WIDE_THREADS,
-             wide_scatter_smem(sizeof(KT), IPT * CAUSE_WIDE_THREADS), st>>>(
-        args, w, B, n, tiles, g, d);
+             wide_scatter_smem(sizeof(KT)), st>>>(args, w, B, n, tiles, g, d);
     return cudaGetLastError();
 }
 
-// Every launch of one wide sort: the zeroing of the digit totals and
-// look-back words, ranges, plans, then per group its digit totals and the
-// most digit passes a group may have (a pass beyond a row's plan returns
-// at once), and the gather. No host sync.
+// Every launch of one wide sort: the zeroing of the digit totals,
+// look-back words and counters, ranges and plans, then per group its
+// digit totals and the most digit passes a group may have (a pass beyond
+// a row's plan returns at once), and the gather. No host sync.
 template <typename KT>
 static cudaError_t launch_wide(const SortArgs& args, int n_ops, int num_keys,
-                               int B, int n, int tile, unsigned char* scratch,
+                               int B, int n, unsigned char* scratch,
                                cudaStream_t st) {
-    const WideLayout L = wide_layout(B, n, num_keys, tile);
+    const WideLayout L = wide_layout(B, n, num_keys);
     const size_t elems = (size_t)B * (size_t)n;
     WideBufs<KT> w;
     w.comp[0] = (KT*)(scratch + L.comp);
@@ -192,126 +302,100 @@ static cudaError_t launch_wide(const SortArgs& args, int n_ops, int num_keys,
     w.ghist = (uint32_t*)(scratch + L.ghist);
     w.status = (uint32_t*)(scratch + L.status);
     w.counter = (uint32_t*)(scratch + L.counter);
+    w.done = (uint32_t*)(scratch + L.done);
     w.part = (int32_t*)(scratch + L.part);
     w.plan = (WidePlan*)(scratch + L.plan);
-    const int tiles = wide_tiles(n, tile);
+    const int tiles = wide_tiles(n);
     const unsigned grid = (unsigned)(B * tiles);
     cudaError_t e = cudaMemsetAsync(scratch + L.ghist, 0, L.part - L.ghist, st);
     if (e != cudaSuccess) return e;
-    sort_rows_wide_ranges<<<grid, CAUSE_WIDE_THREADS, 0, st>>>(
-        args, num_keys, n, tile, tiles, w.part);
-    sort_rows_wide_plan<<<B, 32, 0, st>>>(w.part, w.plan, num_keys, tiles,
-                                          8 * (int)sizeof(KT));
+    sort_rows_wide_ranges<KT><<<grid, CAUSE_WIDE_THREADS, 0, st>>>(
+        args, w, num_keys, n, tiles);
     e = cudaGetLastError();
     for (int g = 0; g < wide_groups(num_keys) && e == cudaSuccess; ++g) {
         sort_rows_wide_digits<KT, SortArgs>
-            <<<grid, CAUSE_WIDE_THREADS, 0, st>>>(args, w, B, n, tile, tiles,
-                                                   g);
+            <<<grid, CAUSE_WIDE_THREADS, 0, st>>>(args, w, B, n, tiles, g);
         e = cudaGetLastError();
         for (int d = 0; d < (int)sizeof(KT) && e == cudaSuccess; ++d)
-#ifdef CAUSE_WIDE_TILE
-            e = launch_wide_scatter<KT, CAUSE_WIDE_TILE / CAUSE_WIDE_THREADS>(
-                args, w, B, n, tiles, g, d, st);
-#else
-            e = tile == 1024
-                ? launch_wide_scatter<KT, 4>(args, w, B, n, tiles, g, d, st)
-                : launch_wide_scatter<KT, 16>(args, w, B, n, tiles, g, d, st);
-#endif
+            e = launch_wide_scatter<KT>(args, w, B, n, tiles, g, d, st);
     }
     if (e != cudaSuccess) return e;
     sort_rows_wide_gather<KT, SortArgs>
         <<<(unsigned)(n_ops * B * tiles), CAUSE_WIDE_THREADS, 0, st>>>(
-            args, w, B, n, tile, tiles);
+            args, w, num_keys, B, n, tiles);
     return cudaGetLastError();
-}
-
-// Lanes a CTA of the wide form for B rows of n lanes on the current
-// card: 4096 once the rows' tiles of 4096 cover half the card's SMs,
-// else 1024; 0 if the card cannot be asked. Timed at the main path's
-// wide shapes (chip_smoke.py --tiles, H100): at 32 CTAs of 4096 or
-// fewer, 1024 lanes took 2-29% less time than 4096; at 128 or more,
-// 4096 took 15-31% less than 1024 and 2-12% less than 2048; 2048 beat
-// the better of the two by at most 7% at the path's shapes. A build
-// with -DCAUSE_WIDE_TILE=T (1024, 2048 or 4096) takes T everywhere:
-// that is how --tiles times the widths against each other.
-static int wide_tile(int B, int n) {
-#ifdef CAUSE_WIDE_TILE
-    static_assert(CAUSE_WIDE_TILE == 1024 || CAUSE_WIDE_TILE == 2048 ||
-                      CAUSE_WIDE_TILE == 4096,
-                  "a wide tile is 1024, 2048 or 4096 lanes");
-    (void)B;
-    (void)n;
-    return CAUSE_WIDE_TILE;
-#else
-    int dev = 0, sms = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-        return 0;
-    return 2LL * B * wide_tiles(n, 4096) >= sms ? 4096 : 1024;
-#endif
-}
-
-// The form rule of weaver/bitonic.py's b1_form.
-enum SortForm { FORM_RADIX, FORM_WIDE, FORM_NETWORK };
-
-static SortForm sort_form(int n, int num_keys, int smem_limit) {
-    int P = 1;
-    while (P < n) P <<= 1;
-    if (num_keys <= 2 && P >= CAUSE_RADIX_MIN_P && P <= CAUSE_RADIX_MAX_P)
-        return FORM_RADIX;
-    if (P > CAUSE_RADIX_MAX_P ||
-        (size_t)(num_keys + 1) * (size_t)P * sizeof(int32_t) > (size_t)smem_limit)
-        return FORM_WIDE;
-    return FORM_NETWORK;
 }
 
 extern "C" {
 
-// Largest dynamic shared memory a block may use on this card (bytes).
-int cause_sort_smem_limit(void) {
-    int dev = 0, bytes = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-    if (cudaDeviceGetAttribute(&bytes,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev) != cudaSuccess)
-        return 0;
-    return bytes;
+#ifdef CAUSE_CLUSTER_CLOCKS
+// The cluster form's phase cycles since the last call (radix_cluster.cuh),
+// into out[0..CAUSE_CLUSTER_PHASES - 1]; zeroes them.
+int cause_cluster_cycles_take(unsigned long long* out) {
+    cudaError_t e = cudaMemcpyFromSymbol(out, cause_cluster_cycles,
+                                         sizeof(cause_cluster_cycles));
+    const unsigned long long zero[CAUSE_CLUSTER_PHASES] = {};
+    if (e == cudaSuccess)
+        e = cudaMemcpyToSymbol(cause_cluster_cycles, zero, sizeof(zero));
+    return (int)e;
+}
+#endif
+
+// The current card's reach of the cluster form, the input of
+// weaver/bitonic.py's rule: into out[0..1] the largest cluster the card
+// co-schedules at 4096 and at 8192 lanes a CTA (0: none). Called once
+// per device (bitonic.b1_limits). Returns the cudaError_t of the
+// device query.
+int cause_sort_cluster_reach(int* out) {
+    int dev = 0;
+    const cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    out[0] = cluster_reach<4096>();
+    out[1] = cluster_reach<8192>();
+    return (int)cudaSuccess;
 }
 
-// Bytes of scratch cause_sort_rows takes for B rows of n lanes and
-// num_keys keys on the current card: wide_layout's total at the tile
-// wide_tile picks when the form is wide, else 0 (also when the card
-// cannot be asked).
+// Bytes of scratch the wide form takes for B rows of n lanes and
+// num_keys keys (wide_layout's total); 0 for arguments it does not take.
 size_t cause_sort_wide_scratch_bytes(int B, int n, int num_keys) {
-    if (B < 0 || n < 0 || num_keys < 1 || num_keys > CAUSE_SORT_MAX_OPS ||
-        sort_form(n, num_keys, cause_sort_smem_limit()) != FORM_WIDE)
+    if (B < 1 || n < 1 || num_keys < 1 || num_keys > CAUSE_SORT_MAX_OPS)
         return 0;
-    const int tile = wide_tile(B, n);
-    return tile ? wide_layout(B, n, num_keys, tile).total : 0;
+    return wide_layout(B, n, num_keys).total;
 }
 
 // Sort B rows of n int32 elements. `ins`/`outs` are host arrays of n_ops
 // device pointers to [B, n] contiguous tensors; an output must not alias
-// an input. The wide form (sort_form) takes `scratch`, a device buffer of
-// exactly cause_sort_wide_scratch_bytes(B, n, num_keys) bytes
-// (`scratch_bytes`); the other forms take no scratch. Returns the
-// cudaError_t of the launches, cudaErrorInvalidValue for arguments that
-// do not match the form.
+// an input. `form` is the form weaver/bitonic.py's b1_form picked (its
+// CAUSE_SORT_FORM_* code): radix, network, cluster (`lanes` a CTA: 4096
+// or 8192, ceil(n / lanes) CTAs a cluster) or wide (`scratch` a device
+// buffer of exactly cause_sort_wide_scratch_bytes(B, n, num_keys) bytes,
+// `scratch_bytes`). `lanes` is 0 for the other forms; only the wide form
+// takes scratch. Returns the
+// cudaError_t of the launches, cudaErrorInvalidValue for arguments the
+// form does not take.
 int cause_sort_rows(void* const* ins, void* const* outs, int n_ops,
-                    int num_keys, int B, int n, void* scratch,
-                    size_t scratch_bytes, void* stream) {
+                    int num_keys, int B, int n, int form, int lanes,
+                    void* scratch, size_t scratch_bytes, void* stream) {
     if (n_ops < 1 || n_ops > CAUSE_SORT_MAX_OPS || num_keys < 1 ||
-        num_keys > n_ops || B < 0 || n < 0)
+        num_keys > n_ops || B < 0 || n < 0 || form < CAUSE_SORT_FORM_RADIX ||
+        form > CAUSE_SORT_FORM_WIDE)
         return (int)cudaErrorInvalidValue;
     if (B == 0 || n == 0) return (int)cudaSuccess;
-    const SortForm form = sort_form(n, num_keys, cause_sort_smem_limit());
-    const bool wide = form == FORM_WIDE;
-    const int tile = wide ? wide_tile(B, n) : 0;
+    int P = 1;
+    while (P < n) P <<= 1;
+    const bool wide = form == CAUSE_SORT_FORM_WIDE;
     if (wide != (scratch != nullptr) ||
-        scratch_bytes != cause_sort_wide_scratch_bytes(B, n, num_keys) ||
-        (wide && (tile == 0 ||
-                  (size_t)n_ops * B * wide_tiles(n, tile) > (size_t)INT32_MAX ||
+        (form == CAUSE_SORT_FORM_RADIX &&
+         (num_keys > 2 || P < CAUSE_RADIX_MIN_P || P > CAUSE_RADIX_MAX_P)) ||
+        (form == CAUSE_SORT_FORM_NETWORK && P > CAUSE_RADIX_MAX_P) ||
+        (form == CAUSE_SORT_FORM_CLUSTER &&
+         ((lanes != 4096 && lanes != 8192) ||
+                       (n + lanes - 1) / lanes > CAUSE_CLUSTER_MAX ||
+                       (long long)B * ((n + lanes - 1) / lanes) > INT32_MAX)) ||
+        (form != CAUSE_SORT_FORM_CLUSTER && lanes != 0) ||
+        (wide && (scratch_bytes !=
+                      cause_sort_wide_scratch_bytes(B, n, num_keys) ||
+                  (size_t)n_ops * B * wide_tiles(n) > (size_t)INT32_MAX ||
                   n > (int)CAUSE_WIDE_COUNT)))
         return (int)cudaErrorInvalidValue;
     SortArgs args;
@@ -320,9 +404,7 @@ int cause_sort_rows(void* const* ins, void* const* outs, int n_ops,
         args.out[k] = k < n_ops ? (int32_t*)outs[k] : nullptr;
     }
     const cudaStream_t st = (cudaStream_t)stream;
-    int P = 1;
-    while (P < n) P <<= 1;
-    if (form == FORM_RADIX) {
+    if (form == CAUSE_SORT_FORM_RADIX) {
         if (radix_ipt(P) == 8)
             return (int)(num_keys == 1
                 ? launch_radix<1, 8>(args, n_ops, B, n, P, st)
@@ -331,11 +413,21 @@ int cause_sort_rows(void* const* ins, void* const* outs, int n_ops,
             ? launch_radix<1, 16>(args, n_ops, B, n, P, st)
             : launch_radix<2, 16>(args, n_ops, B, n, P, st));
     }
+    if (form == CAUSE_SORT_FORM_CLUSTER) {
+        if (lanes == 4096)
+            return (int)(num_keys == 1
+                ? launch_cluster<uint32_t, 4096>(args, n_ops, num_keys, B, n, st)
+                : launch_cluster<uint64_t, 4096>(args, n_ops, num_keys, B, n,
+                                                 st));
+        return (int)(num_keys == 1
+            ? launch_cluster<uint32_t, 8192>(args, n_ops, num_keys, B, n, st)
+            : launch_cluster<uint64_t, 8192>(args, n_ops, num_keys, B, n, st));
+    }
     if (wide)
         return (int)(num_keys == 1
-            ? launch_wide<uint32_t>(args, n_ops, num_keys, B, n, tile,
+            ? launch_wide<uint32_t>(args, n_ops, num_keys, B, n,
                                     (unsigned char*)scratch, st)
-            : launch_wide<uint64_t>(args, n_ops, num_keys, B, n, tile,
+            : launch_wide<uint64_t>(args, n_ops, num_keys, B, n,
                                     (unsigned char*)scratch, st));
     static std::atomic<bool> ready[CAUSE_MAX_DEVICES];
     const cudaError_t e = smem_attrs_once(sort_rows_kernel, ready);

@@ -17,6 +17,10 @@ Every kernel wrapper adds one to its entry of ``launches`` where it
 launches its kernel, and nowhere else, so a run can show that its main
 path went through the kernels (``reset_launches`` before, read after).
 
+The card's limits that the wrappers' form rules share (a block's opt-in
+shared memory, the SM count) come from PyTorch's device properties,
+``device_limits``, cached per device.
+
 Nothing here runs at import time: a machine without ``nvcc`` or a card
 imports the package, and only a launch on a CUDA tensor builds.
 """
@@ -24,16 +28,18 @@ imports the package, and only a launch on a CUDA tensor builds.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 __all__ = ["SOURCES", "launches", "reset_launches", "build_all", "load",
-           "library", "check", "stream_handle", "source_hash"]
+           "library", "check", "stream_handle", "source_hash",
+           "DeviceLimits", "device_limits"]
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -60,10 +66,9 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "cause_sort_rows": [ctypes.POINTER(_VP), ctypes.POINTER(_VP), _I, _I,
-                        _I, _I, _VP, ctypes.c_size_t, _VP],
+                        _I, _I, _I, _I, _VP, ctypes.c_size_t, _VP],
     "cause_sort_wide_scratch_bytes": [_I, _I, _I],
-    "cause_sort_smem_limit": [],
-    "cause_euler_walk_smem_limit": [],
+    "cause_sort_cluster_reach": [ctypes.POINTER(_I)],
     "cause_euler_walk_scratch_words": [_I, _I],
     "cause_euler_walk": [_VP] * 5 + [_I, _I, _I, _VP, _VP],
     "cause_fphase_expand": [_VP] * 9 + [_I] * 5 + [_VP],
@@ -79,6 +84,8 @@ _SIGNATURES = {
     "cause_k4_rank_kills": [_VP] * 17 + [_I] * 6 + [_VP, _VP],
     # only in a build with -DCAUSE_PHASE_CLOCKS (chip_smoke.py --phases)
     "cause_phase_cycles_take": [_VP],
+    # only in a build with -DCAUSE_CLUSTER_CLOCKS (chip_smoke.py --tiles)
+    "cause_cluster_cycles_take": [_VP],
 }
 # entry points that return other than an int
 _RESTYPES = {"cause_sort_wide_scratch_bytes": ctypes.c_size_t,
@@ -191,6 +198,24 @@ def library(name: str) -> ctypes.CDLL:
                     if n not in _LIBS:
                         _LIBS[n] = load(p)
     return _LIBS[name]
+
+
+class DeviceLimits(NamedTuple):
+    """What the form rules read of a card: the dynamic shared memory a
+    block may use (bytes) and the SM count."""
+    smem: int
+    sms: int
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(device_index: int) -> DeviceLimits:
+    """The card's limits, from PyTorch's device properties, once per
+    device and process."""
+    import torch
+
+    props = torch.cuda.get_device_properties(device_index)
+    return DeviceLimits(props.shared_memory_per_block_optin,
+                        props.multi_processor_count)
 
 
 def check(rc: int, what: str) -> None:

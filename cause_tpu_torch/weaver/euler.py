@@ -29,7 +29,6 @@ it equals the walk on every input.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -175,14 +174,9 @@ def _check(tables):
             raise ValueError("euler_walk tables must be contiguous")
 
 
-@functools.lru_cache(maxsize=None)
 def _smem_limit(device_index: int) -> int:
     """Dynamic shared memory a block may use on the card (bytes)."""
-    with torch.cuda.device(device_index):
-        limit = kernels.library("euler_walk").cause_euler_walk_smem_limit()
-    if limit < 0:
-        raise RuntimeError("euler_walk: CUDA device query failed")
-    return limit
+    return kernels.device_limits(device_index).smem
 
 
 def euler_walk_cuda(fc, ns, parent_run, run_len, form=None):

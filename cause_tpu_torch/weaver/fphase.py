@@ -20,7 +20,6 @@ rows.
 
 from __future__ import annotations
 
-import functools
 
 import torch
 
@@ -54,10 +53,9 @@ def fphase_form(B: int, N: int, sms: int) -> str:
     return "row"
 
 
-@functools.lru_cache(maxsize=None)
 def _sms(device_index: int) -> int:
     """The card's SM count."""
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
+    return kernels.device_limits(device_index).sms
 
 
 def fphase_expand_plain(lk, tb_l, cov_start, cov_end, vclass, seg, flags):

@@ -438,10 +438,12 @@ SOURCE = {
     "k4_rank_kills": "cause_tpu_torch/csrc/befuse_k4.cu",
 }
 FUSED = ("k1_sort_redirect", "k2_runs", "k4_rank_kills")
-# the forms of B2 and B3 (euler.walk_form, fphase.fphase_form pick one)
-FORMS = {"euler_walk": ("row", "split"), "fphase": ("row", "chunk")}
-# the forms the rules give the north star's B2 and B3 calls
-NORTH_STAR_FORMS = {"euler_walk": "row", "fphase": "row"}
+# the forms of B1, B2 and B3 (bitonic.b1_form, euler.walk_form,
+# fphase.fphase_form pick one; B1's by call, bitonic.b1_forms)
+FORMS = {"euler_walk": ("row", "split"), "fphase": ("row", "chunk"),
+         "sort": ("radix", "network", "cluster", "wide")}
+# the forms the rules give the north star's B1, B2 and B3 calls
+NORTH_STAR_FORMS = {"euler_walk": "row", "fphase": "row", "sort": "radix"}
 # launches of one dispatch of each pipeline
 V5_LAUNCHES = {"sort": 6, "euler_walk": 1, "fphase": 1}
 V5F_LAUNCHES = {"sort": 2, "euler_walk": 1, "fphase": 1,
@@ -637,26 +639,34 @@ def radix_bits(torch, ops, num_keys) -> list:
     return total.tolist()
 
 
-def rule_form(torch, name, ops) -> str:
-    """The form B2 or B3 takes on this call by its module's rule
-    (``euler.walk_form``, ``fphase.fphase_form``), as the wrapper picks
-    it."""
-    from cause_tpu_torch.weaver import euler, fphase
+def rule_form(torch, name, ops, kw=None) -> str:
+    """The form B1, B2 or B3 takes on this call by its module's rule
+    (``bitonic.b1_form``, ``euler.walk_form``, ``fphase.fphase_form``),
+    as the wrapper picks it."""
+    from cause_tpu_torch.weaver import bitonic, euler, fphase
 
     index = ops[0].device.index
+    if name == "sort":
+        return bitonic.b1_form(ops[0].shape[1], (kw or {}).get("num_keys", 1),
+                               bitonic.b1_limits(index or 0))
     if name == "euler_walk":
         return euler.walk_form(ops[0].shape[1], euler._smem_limit(index))
     B, N = ops[4].shape
     return fphase.fphase_form(B, N, fphase._sms(index))
 
 
-def forms_of(torch, name, ops) -> tuple:
-    """The forms B2 or B3 has at this call's shape: B2's row form only
-    where a row fits in shared memory."""
-    from cause_tpu_torch.weaver import euler
+def forms_of(torch, name, ops, kw=None) -> tuple:
+    """The forms B1, B2 or B3 has at this call's shape: B1's by
+    ``bitonic.b1_forms``, B2's row form only where a row fits in shared
+    memory."""
+    from cause_tpu_torch.weaver import bitonic, euler
 
+    index = ops[0].device.index
+    if name == "sort":
+        return bitonic.b1_forms(ops[0].shape[1], (kw or {}).get("num_keys", 1),
+                                bitonic.b1_limits(index or 0))
     if name == "euler_walk" and euler.walk_form(
-            ops[0].shape[1], euler._smem_limit(ops[0].device.index)) != "row":
+            ops[0].shape[1], euler._smem_limit(index)) != "row":
         return ("split",)
     return FORMS[name]
 
@@ -676,15 +686,15 @@ def check_call(torch, name, ops, kw, time_it: bool, flags_only=False,
     """Kernel against plain version on one call; ``flags_only`` (an
     overflowing row, whose other outputs the reference leaves
     unspecified) holds only the ``scal`` rows of the fused kernels to
-    the plain version, after a launch that must not fault. B2 and B3
+    the plain version, after a launch that must not fault. B1, B2 and B3
     run in the form their rule gives and, with ``all_forms``, again in
     each form they have at the shape (``forms_of``), each held against
     the plain version and, when timed, timed."""
     kern, plain = kernel_fns(name)
     if name == "sort":
-        run = lambda f: f(ops, **kw)  # noqa: E731
+        run = lambda f, **f_kw: f(ops, **kw, **f_kw)  # noqa: E731
     else:
-        run = lambda f: f(*ops, **kw)  # noqa: E731
+        run = lambda f, **f_kw: f(*ops, **kw, **f_kw)  # noqa: E731
     got = run(kern)
     torch.cuda.synchronize()
     want = run(plain)
@@ -696,10 +706,10 @@ def check_call(torch, name, ops, kw, time_it: bool, flags_only=False,
         rec["all_err"] = rec["err"]
         rec["err"] = max_err(torch, got[-1:], want[-1:])
     if name in FORMS:
-        rec["form"] = rule_form(torch, name, ops)
+        rec["form"] = rule_form(torch, name, ops, kw)
     if name in FORMS and all_forms:
-        for form in forms_of(torch, name, ops):
-            g = kern(*ops, form=form)
+        for form in forms_of(torch, name, ops, kw):
+            g = run(kern, form=form)
             torch.cuda.synchronize()
             g = g if isinstance(g, tuple) else (g,)
             rec["err"] = max(rec["err"], max_err(torch, g, want))
@@ -709,10 +719,10 @@ def check_call(torch, name, ops, kw, time_it: bool, flags_only=False,
         if name == "sort":
             lib = library_fn(torch, ops, kw.get("num_keys", 1))
             rec["library_ms"] = cuda_ms(torch, lib) if lib else float("nan")
-        if name in FORMS:
+        if name in FORMS and all_forms:
             rec["form_ms"] = {
-                form: cuda_ms(torch, lambda: kern(*ops, form=form))
-                for form in forms_of(torch, name, ops)}
+                form: cuda_ms(torch, lambda: run(kern, form=form))
+                for form in forms_of(torch, name, ops, kw)}
         rec["bound_ms"] = bound_ms(call_bytes(ops, want))
     return rec
 
@@ -854,8 +864,8 @@ def edge_cases(torch, dev):
             fail("K1 edge case 'duplicate runs' counts no conflict")
         cases.append(("k1_sort_redirect", f"{tag}: B={B} P={P} U={U}", ops,
                       {"U": U}))
-    # B1's wide form: B = 1 and 3 past 8,192 lanes, the v1 sort-join's
-    # 1,024 x 40,960, nine keys at P = 8192, every key kind
+    # B1 past 8,192 lanes (the cluster form): B = 1 and 3, the v1
+    # sort-join's 1,024 x 40,960, nine keys at P = 8192, every key kind
     for B, n, n_ops, nk, kind in (
             (1, 16385, 3, 1, "narrow"), (3, 16385, 4, 2, "full"),
             (1, 16385, 9, 9, "extremes"), (3, 16385, 3, 3, "equal"),
@@ -865,6 +875,25 @@ def edge_cases(torch, dev):
             (1, 131072, 4, 3, "full"), (3, 131072, 3, 2, "all_max"),
             (3, 8192, 9, 9, "full"), (1024, 40960, 3, 2, "full"),
             (1024, 40960, 3, 1, "narrow")):
+        sort_case(B, n, n_ops, nk, kind)
+    # the cluster form at its edges: one lane past a CTA (8,193: two
+    # CTAs of 4,096 lanes, the second of one lane), 16,385 and 65,536
+    # (the most CTAs of 4,096) and 131,072 (the most of 8,192), B = 1 and
+    # 3, nine keys at P = 8192, every key kind; then the wide form past
+    # the cluster's reach, B = 1
+    for B, n, n_ops, nk, kind in (
+            (1, 8193, 3, 1, "narrow"), (3, 8193, 4, 2, "extremes"),
+            (1, 8193, 9, 9, "all_max"), (3, 8193, 3, 2, "sibling"),
+            (1, 16385, 5, 2, "all_max"), (3, 16385, 7, 2, "sibling"),
+            (1, 65536, 4, 2, "extremes"), (3, 65536, 3, 1, "equal"),
+            (1, 131072, 9, 9, "narrow"), (3, 131072, 5, 2, "full"),
+            (1, 131072, 3, 1, "equal"), (3, 131072, 4, 3, "sibling"),
+            (1, 8192, 9, 9, "extremes"), (3, 8192, 9, 9, "all_max"),
+            (1, 8000, 9, 9, "sibling"),
+            (1, 131073, 3, 2, "narrow"), (1, 131073, 9, 9, "extremes"),
+            (1, 262144, 5, 2, "full"), (1, 262144, 3, 1, "all_max"),
+            (1, 262144, 4, 3, "sibling"), (1, 1048577, 4, 2, "narrow"),
+            (1, 1048577, 3, 1, "extremes"), (1, 1048577, 2, 1, "equal")):
         sort_case(B, n, n_ops, nk, kind)
     return cases
 
@@ -1246,74 +1275,243 @@ TILE_SHAPES = (
     (8, 16384, 7, 2), (16, 16384, 3, 2), (32, 16384, 3, 2),
     (256, 10384, 2, 1), (256, 10384, 3, 2), (1024, 20480, 7, 2),
     (1024, 20480, 4, 3), (1024, 40960, 3, 2))
-WIDE_TILES = (1024, 2048, 4096)
+# shapes of the main path's calls that the rule sends to the network form
+# (P < 256, or three keys), which the cluster form can also take (rows,
+# lanes, operands, keys): the wave's sites A, C, E and F at 1,024 rows,
+# the tree's and the soup's rows, the ladder's three-key child sort
+NETWORK_SHAPES = (
+    (1024, 16, 3, 2), (1024, 16, 2, 1), (1024, 64, 7, 2), (1024, 64, 3, 2),
+    (1024, 64, 3, 1), (1024, 64, 2, 1), (64, 128, 3, 2), (8, 128, 3, 2),
+    (1, 128, 4, 3), (1, 128, 7, 2), (1, 2048, 4, 3))
+# the B1 calls ``--tiles`` profiles launch by launch: (label, generation,
+# index of the call among the generation's sorts)
+PROFILED_SORTS = (("v4 id sort, fleet row", "v4 fleet", 0),
+                  ("v5 site C, fleet row", "v5 fleet", 1),
+                  ("v1 sort-join, north star", "v1 north star", 1))
 
 
-def tile_sweep(torch, dev, card: str, rounds: int = 5) -> None:
-    """``--tiles``: ``sort.cu`` rebuilt with -DCAUSE_WIDE_TILE=T for each
-    tile width T of the wide form, and run at ``TILE_SHAPES`` beside the
-    default build (its tile rule) and ``torch.sort``. Keys are drawn from
-    [0, 2n), about the bits of the main path's lane and base keys; the
-    payloads are lane numbers. Every build's result is held bit-equal to
-    the plain version. The times are CUDA events, the mean of 10 calls a
-    round, ``rounds`` rounds of every build in turn; the median is
-    printed."""
+def b1_real_calls(torch, dev) -> dict:
+    """The B1 calls of one step of the fleet row (``fleet_bench``'s v4
+    and v5 rows at ``FLEET``, through the overflow ladder) and of v1's
+    north-star dispatch (1,024 pairs), each recorded once in call order:
+    {generation: [(ops, num_keys), ...]}. Every call launches the
+    kernel; the recorder keeps a copy of the inputs of the first call of
+    each shape, operand count and key count."""
+    from cause_tpu_torch import benchgen, fleet_bench
+    from cause_tpu_torch.weaver import torchw, torchw4, torchw5
+
+    out = {}
+
+    def recorder(gen, real):
+        def call(ops, num_keys=1):
+            calls = out.setdefault(gen, [])
+            key = (tuple(ops[0].shape), len(ops), num_keys)
+            if key not in {(tuple(o[0].shape), len(o), k) for o, k in calls}:
+                calls.append((tuple(x.clone() for x in ops), num_keys))
+            return real(ops, num_keys)
+        return call
+
+    runs = (("v4 fleet", torchw4,
+             lambda: fleet_bench.kernel_level(**FLEET, device=dev)),
+            ("v5 fleet", torchw5,
+             lambda: fleet_bench.kernel_level_v5(**FLEET, device=dev)))
+    for gen, mod, run in runs:
+        real = mod.sort_pairs
+        mod.sort_pairs = recorder(gen, real)
+        try:
+            run()
+        finally:
+            mod.sort_pairs = real
+    batch = benchgen.batched_pair_lanes(PAIRS, N_BASE, N_DIV, CAP,
+                                        hide_every=8)
+    a1 = [torch.from_numpy(np.ascontiguousarray(batch[k])).to(
+        dev, dtype=torch.bool if k == "valid" else torch.int32)
+        for k in benchgen.LANE_KEYS]
+    real = torchw.sort_pairs
+    torchw.sort_pairs = recorder("v1 north star", real)
+    try:
+        torchw.batched_merge_weave(*a1, device=dev)
+    finally:
+        torchw.sort_pairs = real
+    torch.cuda.synchronize()
+    return out
+
+
+def b1_launch_profile(torch, label: str, ops, nk: int, reps: int = 3):
+    """Every device launch of one B1 call (memsets included) under
+    torch.profiler, in order, with its device ms (mean of ``reps``
+    calls after one warm call), printed one line a call."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from cause_tpu_torch.weaver import bitonic
+
+    bitonic.sort_pairs_cuda(ops, nk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            bitonic.sort_pairs_cuda(ops, nk)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            evs = sorted((e for e in json.load(f)["traceEvents"]
+                          if e.get("cat") in ("kernel", "gpu_memset")),
+                         key=lambda e: e["ts"])
+    per = len(evs) // reps
+    rows = []
+    for i in range(per):
+        name = evs[i]["name"].split("(")[0].replace("void ", "")
+        name = name.split("<")[0] + ("<...>" if "<" in name else "")
+        ms = sum(evs[i + r * per]["dur"] for r in range(reps)) / reps / 1e3
+        rows.append((name, ms))
+    shape = "x".join(map(str, ops[0].shape))
+    say(f"[tiles profile] {label} {shape} n_ops={len(ops)} keys={nk}: "
+        f"{per} launches, device {sum(ms for _, ms in rows):.4f} ms: "
+        + ", ".join(f"{n} {ms:.4f}" for n, ms in rows)
+        + f" (torch.profiler, mean of {reps} calls)")
+
+
+def b1_variants(n: int, nk: int, limits) -> list:
+    """Every (form, lanes a CTA) B1 can run rows of ``n`` lanes and
+    ``nk`` keys in on this card: the radix and network forms where they
+    take the row, the cluster form at each CTA width whose cluster the
+    card co-schedules."""
+    from cause_tpu_torch.weaver import bitonic
+
+    out = []
+    for form in bitonic.b1_forms(n, nk, limits):
+        if form == "cluster":
+            out += [(form, lanes) for lanes, most in limits.clusters
+                    if -(-n // lanes) <= min(most, bitonic.CLUSTER_MAX)]
+        else:
+            out.append((form, 0))
+    return out
+
+
+CLUSTER_PHASES = ("ranges and plan", "loads", "ranking", "counts",
+                  "barrier 1", "offsets", "stage and stores", "barrier 2",
+                  "gather")
+
+
+def cluster_clocks(torch, dev, real) -> None:
+    """``--tiles``: where the cluster form's time goes, from a build of
+    ``sort.cu`` with -DCAUSE_CLUSTER_CLOCKS (thread 0's clock64() cycles
+    between the kernel's marks, summed over its CTAs): v1's sort-join at
+    the north star and synthetic rows of the tree's and the ladder's
+    shapes, at both CTA widths, each share of the cycles printed."""
+    import ctypes
     import subprocess as sp
 
     from cause_tpu_torch import kernels
     from cause_tpu_torch.weaver import bitonic
 
-    out = kernels.BUILD / "tiles"
-    out.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for tile in WIDE_TILES:
-        so = out / f"libsort-tile{tile}.so"
-        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS,
-               f"-DCAUSE_WIDE_TILE={tile}", "-o", str(so),
-               str(kernels.CSRC / kernels.SOURCES["sort"])]
-        jobs[tile] = (so, sp.Popen(cmd, stdout=sp.PIPE, stderr=sp.STDOUT,
-                                   text=True))
-    libs = {"rule": kernels.library("sort")}
-    for tile, (so, proc) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            fail(f"nvcc sort.cu tile {tile}: {log[-3000:]}")
-        libs[tile] = kernels.load(so)
-
-    rng = np.random.default_rng(20261017)
-    wins = {}
+    so = kernels.BUILD / "libsort-clocks.so"
+    out = sp.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS,
+                  "-DCAUSE_CLUSTER_CLOCKS", "-o", str(so),
+                  str(kernels.CSRC / kernels.SOURCES["sort"])],
+                 capture_output=True, text=True)
+    if out.returncode:
+        fail(f"nvcc sort.cu -DCAUSE_CLUSTER_CLOCKS: {out.stdout[-3000:]}")
+    lib, rule_lib = kernels.load(so), kernels.library("sort")
+    rng = np.random.default_rng(20261018)
+    calls = [("v1 sort-join", *real["v1 north star"][1])]
+    for B, n in ((1, 16384), (8, 16384), (256, 10384), (1, 131072)):
+        ops = tuple(torch.from_numpy(rng.integers(0, 2 * n, size=(B, n))
+                                     .astype(np.int32)).to(dev)
+                    for _ in range(2)) + (
+            torch.arange(n, dtype=torch.int32, device=dev)
+            .expand(B, n).contiguous(),)
+        calls.append(("synthetic", ops, 2))
+    cycles = (ctypes.c_ulonglong * len(CLUSTER_PHASES))()
+    kernels._LIBS["sort"] = lib
     try:
-        for B, n, n_ops, nk in TILE_SHAPES:
+        for label, ops, nk in calls:
+            for lanes in bitonic.CLUSTER_LANES:
+                if -(-ops[0].shape[1] // lanes) > bitonic.CLUSTER_MAX:
+                    continue
+                run = lambda: bitonic.sort_pairs_cuda(  # noqa: E731
+                    ops, nk, form="cluster", lanes=lanes)
+                run()
+                torch.cuda.synchronize()
+                kernels.check(lib.cause_cluster_cycles_take(cycles), "clocks")
+                ms = cuda_ms(torch, run, warm=0)
+                kernels.check(lib.cause_cluster_cycles_take(cycles), "clocks")
+                total = sum(cycles) or 1
+                say(f"[tiles clocks] {label} "
+                    f"{'x'.join(map(str, ops[0].shape))} n_ops={len(ops)} "
+                    f"keys={nk}, {lanes} lanes a CTA: {ms:.4f} ms in the "
+                    f"clocked build; " + ", ".join(
+                        f"{nm} {100 * c / total:.1f}%"
+                        for nm, c in zip(CLUSTER_PHASES, cycles)))
+    finally:
+        kernels._LIBS["sort"] = rule_lib
+
+
+def tile_sweep(torch, dev, card: str, real=None, rounds: int = 5) -> None:
+    """``--tiles``: B1 at ``TILE_SHAPES``, at ``NETWORK_SHAPES`` and at
+    every distinct call of ``real`` (``b1_real_calls``: the fleet row's
+    and v1's), in every form and CTA width it can take (``b1_variants``),
+    beside ``torch.sort`` and the byte bound. Synthetic keys are drawn from [0, 2n), about the
+    bits of the main path's lane and base keys; the payloads are lane
+    numbers. Every variant's result is held bit-equal to the plain
+    version. The times are CUDA events, the mean of 10 calls a round,
+    ``rounds`` rounds of every variant in turn; the median is printed,
+    with the rule's pick and the fastest variant."""
+    from cause_tpu_torch.weaver import bitonic
+
+    limits = bitonic.b1_limits(dev.index or 0)
+    rng = np.random.default_rng(20261017)
+    shapes = [(f"synthetic {B}x{n}", None, B, n, n_ops, nk)
+              for B, n, n_ops, nk in TILE_SHAPES + NETWORK_SHAPES]
+    for gen, calls in (real or {}).items():
+        shapes += [(gen, (ops, nk), *ops[0].shape, len(ops), nk)
+                   for ops, nk in calls if ops[0].shape[1] > 8192]
+    picks = {}
+    for label, call, B, n, n_ops, nk in shapes:
+        if call is None:
             ops = tuple(
                 torch.from_numpy(rng.integers(0, 2 * n, size=(B, n))
                                  .astype(np.int32)).to(dev) if i < nk else
                 torch.arange(n, dtype=torch.int32, device=dev)
                 .expand(B, n).contiguous() for i in range(n_ops))
-            if bitonic.b1_form(n, nk, bitonic._smem_limit(dev.index)) != "wide":
-                fail(f"tiles: {B}x{n} keys={nk} is not a wide row")
-            want = bitonic.sort_pairs_plain(ops, nk)
-            lib_call = library_fn(torch, ops, nk)
-            run = lambda: bitonic.sort_pairs_cuda(ops, nk)  # noqa: E731
-            times = {k: [] for k in (*libs, "torch.sort")}
-            for _ in range(rounds):
-                for key, lib in libs.items():
-                    kernels._LIBS["sort"] = lib
-                    if max_err(torch, run(), want):
-                        fail(f"tiles: {B}x{n} keys={nk} at tile {key} "
-                             f"disagrees with the plain version")
-                    times[key].append(cuda_ms(torch, run, warm=1))
+        else:
+            ops = call[0]
+        want = bitonic.sort_pairs_plain(ops, nk)
+        lib_call = library_fn(torch, ops, nk)
+        variants = b1_variants(n, nk, limits)
+        times = {v: [] for v in variants}
+        times["torch.sort"] = []
+        for _ in range(rounds):
+            for form, lanes in variants:
+                run = lambda: bitonic.sort_pairs_cuda(  # noqa: E731
+                    ops, nk, form=form, lanes=lanes or None)
+                if max_err(torch, run(), want):
+                    fail(f"tiles: {label} keys={nk} in {form} at {lanes} "
+                         f"lanes disagrees with the plain version")
+                times[(form, lanes)].append(cuda_ms(torch, run, warm=1))
+            if lib_call:
                 times["torch.sort"].append(cuda_ms(torch, lib_call, warm=1))
-            med = {k: float(np.median(v)) for k, v in times.items()}
-            best = min(WIDE_TILES, key=lambda t: med[t])
-            wins[best] = wins.get(best, 0) + 1
-            say(f"[tiles] {B}x{n} n_ops={n_ops} keys={nk}: "
-                + ", ".join(f"tile {t} {med[t]:.4f} ms" for t in WIDE_TILES)
-                + f", the rule's build {med['rule']:.4f} ms, torch.sort "
-                f"{med['torch.sort']:.4f} ms; fastest tile {best} (CUDA "
-                f"events, median of {rounds} rounds of 10 calls, in turns)")
-    finally:
-        kernels._LIBS["sort"] = libs["rule"]
-    say(f"[tiles] fastest tile by shape count: {wins}; {card}")
+        med = {k: float(np.median(v)) if v else float("nan")
+               for k, v in times.items()}
+        rule = bitonic.b1_form(n, nk, limits)
+        lanes = bitonic.cluster_lanes(n, limits) if rule == "cluster" else 0
+        best = min(variants, key=lambda v: med[v])
+        picks[best[0]] = picks.get(best[0], 0) + 1
+        say(f"[tiles] {label} n_ops={n_ops} keys={nk}: "
+            + ", ".join(f"{f}{f' {lanes_}' if lanes_ else ''} "
+                        f"{med[(f, lanes_)]:.4f} ms" for f, lanes_ in variants)
+            + f", torch.sort {med['torch.sort']:.4f} ms, bound "
+            f"{bound_ms(call_bytes(ops, want)):.4f} ms; the rule: {rule} "
+            f"{lanes} ({med[(rule, lanes)]:.4f} ms), fastest "
+            f"{best[0]} {best[1]} (CUDA events, median of {rounds} rounds "
+            f"of 10 calls, in turns)")
+        del ops, want
+    say(f"[tiles] fastest form by shape count: {picks}; limits {limits}; "
+        f"{card}")
 
 
 # --forms: B2 at the north star's K, the tree's widest row form, its
@@ -1476,14 +1674,14 @@ def expect_launches(counts, want, what: str) -> None:
 
 def b1_form(ops, num_keys: int) -> str:
     """B1's width P for rows of these operands and the form it takes
-    there, by the module's own rule (``bitonic.b1_form``: radix, wide or
-    network)."""
+    there, by the module's own rule (``bitonic.b1_form``: radix, network,
+    cluster or wide)."""
     from cause_tpu_torch.weaver import bitonic
 
     n = ops[0].shape[1]
     P = 1 << max(0, (n - 1).bit_length())
-    form = bitonic.b1_form(n, num_keys,
-                           bitonic._smem_limit(ops[0].device.index))
+    form = bitonic.b1_form(
+        n, num_keys, bitonic.b1_limits(ops[0].device.index or 0))
     return f"P={P} {form}"
 
 
@@ -1509,10 +1707,18 @@ def check_recorded(torch, calls, tag: str, sites=SORT_SITES,
             n_sorts += 1
         key = (name, tuple(tuple(x.shape) for x in ops),
                tuple(sorted(kw.items())))
-        # the first call of a key also runs B2's and B3's every form
+        # the first call of a key also runs B2's and B3's every form; B1
+        # runs its every form on the first call of each (rows, P, keys)
+        fkey = key
+        if name == "sort":  # shaped as a key, for TimedPerWidth too
+            n = ops[0].shape[1]
+            fkey = ("sort forms",
+                    ((ops[0].shape[0], 1 << max(0, (n - 1).bit_length())),),
+                    (("num_keys", kw.get("num_keys", 1)),))
         first = key not in timed
         rec = check_call(torch, name, ops, kw, time_it=first,
-                         all_forms=first)
+                         all_forms=fkey not in timed)
+        timed.add(fkey)
         if rec["err"]:
             fail(f"{tag}: {name} at {[tuple(x.shape) for x in ops]} "
                  f"{kw or ''} disagrees with its plain version "
@@ -1542,8 +1748,8 @@ def check_recorded(torch, calls, tag: str, sites=SORT_SITES,
                f"{rec['ms'] / rec['library_ms']:.3f}"
                if name == "sort" else "") + forms_text(rec))
     say(f"{tag}: {len(calls)} kernel calls, each equal to its plain "
-        f"version on the card ({n_timed} distinct shapes timed); B2 and "
-        f"B3 also in each form; forms by the rules {taken}")
+        f"version on the card ({n_timed} distinct shapes timed); B1, B2 "
+        f"and B3 also in each form; forms by the rules {taken}")
     return per
 
 
@@ -6439,9 +6645,11 @@ def main() -> int:
                          "between load/store, scans and sorts, in both "
                          "forms, from builds stamped with clock64()")
     ap.add_argument("--tiles", action="store_true",
-                    help="only time B1's wide form at each tile width at "
-                         "the main path's wide shapes, from builds of "
-                         "sort.cu with -DCAUSE_WIDE_TILE, then exit")
+                    help="only profile B1's launches at three of the main "
+                         "path's calls and time B1 in every form and CTA "
+                         "width at the main path's shapes past 8,192 "
+                         "lanes and those the rule sends to the network "
+                         "form, then exit")
     ap.add_argument("--forms", action="store_true",
                     help="only time B2's row and split forms and B3's row "
                          "and chunk forms at the north star's, the "
@@ -6478,7 +6686,12 @@ def main() -> int:
     say(f"[1 build] {len(kernels.SOURCES)} kernels built in "
         f"{time.perf_counter() - t0:.3f} s (host clock)")
     if args.tiles:
-        tile_sweep(torch, dev, card)
+        real = b1_real_calls(torch, dev)
+        for label, gen, i in PROFILED_SORTS:
+            ops, nk = real[gen][i]
+            b1_launch_profile(torch, label, ops, nk)
+        tile_sweep(torch, dev, card, real)
+        cluster_clocks(torch, dev, real)
         return 0
     if args.forms:
         form_sweep(torch, dev, card)
@@ -6543,9 +6756,10 @@ def main() -> int:
             for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
                 per[name][k] += rec.get(k, 0.0)
         say(line + forms_text(rec))
-        if name in FORMS and rec["form"] != NORTH_STAR_FORMS[name]:
-            fail(f"the north star's {name} call takes the {rec['form']} "
-                 f"form, not {NORTH_STAR_FORMS[name]}")
+        if name in FORMS and rec["form"] != NORTH_STAR_FORMS[name] and (
+                name != "sort" or path == "v5"):
+            fail(f"the north star's {path} {name} call takes the "
+                 f"{rec['form']} form, not {NORTH_STAR_FORMS[name]}")
         if name in FUSED and time_it:
             P, Kp = fused_widths(name, ops, kw)
             say(f"[2 kernels] {name} launch at P={P} Kp={Kp}: ms "
@@ -6587,7 +6801,7 @@ def main() -> int:
         say(f"[2 kernels] edge {name} {tag}: max_abs_err {rec['err']}"
             + (f" (flags; all outputs {rec['all_err']})" if flags_only
                else "") + forms_text(rec)
-            + (f", each of {'/'.join(forms_of(torch, name, ops))} too"
+            + (f", each of {'/'.join(forms_of(torch, name, ops, kw))} too"
                if name in FORMS
                else ""))
         per[name]["err"] = max(per[name]["err"], rec["err"])

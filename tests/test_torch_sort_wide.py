@@ -1,29 +1,37 @@
 """B1's wide form (``csrc/radix_wide.cuh``) modelled in numpy.
 
-The wide form sorts rows past 8,192 lanes, and rows whose keys would not
-fit a block's shared memory, by stable LSD radix passes spread over
-(row, tile) CTAs; it runs only on the card. ``_wide_model`` repeats its
-steps here: per-tile partial ranges reduced per row; the per-row plan
-(each key's code ``k - min`` and bit length, keys packed greedily into
-composites of at most 32 bits for one key and 64 for more, least
-significant key last; groups sorted least significant first); every
-launch of the host's fixed loop, a pass beyond the row's plan a no-op;
-the row's digit totals of a group's first pass at its start, and of
-each later pass from the pass before it as it writes out; per pass
-each tile's digit counts and the look-back's sum over the row's earlier
-tiles (equal to the exclusive scan over (digit, tile) that makes the
-pass stable), the stable in-tile rank of warp-striped items (lanes past
-the row's end ranked last under digit 255) and the coalesced scatter
-from the staged tile; the ping-pong buffers' parity counted from the
-plan; the final gather of every operand by position. The model is held
-bit-equal to ``jax.lax.sort(..., is_stable=True)`` and to the port's
-``sort_pairs_plain``, at small widths over 1-20 tiles and at real width.
-The form rule (``b1_form``) is checked beside it, against a table and
-against the constants of the headers it shares with ``sort.cu``. Every
-value is an integer, so every comparison is exact.
+The wide form sorts the rows B1's cluster form cannot hold (past the
+lanes a thread-block cluster keeps in shared memory) by stable LSD radix
+passes spread over (row, tile) CTAs; it runs only on the card.
+``_wide_model`` repeats its steps here: per-tile partial ranges (the
+minimum, the largest key below INT32_MAX, whether INT32_MAX occurs)
+reduced per row; the per-row plan (each key's code ``k - min`` with
+INT32_MAX coded just above the largest other key, and its bit length;
+keys packed greedily into words of at most 32 bits for one key and 64
+for more, least significant key last; groups sorted least significant
+first; a group's word carrying the row position in its low bits where
+the group's bits and a position's fit, its digits then starting above
+it); every launch of the host's fixed loop, a pass beyond the row's
+plan a no-op; the row's digit totals of a group's first pass at its
+start, and of each later pass from the pass before it as it writes out;
+per pass each tile's digit counts and the look-back's sum over the row's
+earlier tiles (equal to the exclusive scan over (digit, tile) that makes
+the pass stable), the stable in-tile rank of warp-striped items (lanes
+past the row's end ranked last under digit 255) and the coalesced
+scatter from the staged tile; the ping-pong buffers' parity counted from
+the plan; the final gather of the payloads by position and the last
+group's keys decoded from its words. The model is held bit-equal to
+``jax.lax.sort(..., is_stable=True)`` and to the port's
+``sort_pairs_plain``, at small widths over 1-20 tiles and at real width,
+and at small widths to the Pallas kernel in interpret mode.
+The form rule (``b1_form``) is checked beside it, against a table, and
+the form codes and bounds the wrapper passes against the ``#define``s
+the library compiles with. Every value is an integer, so every
+comparison is exact.
 """
 
 import re
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -33,8 +41,9 @@ from jax import lax
 
 import torch
 
+from cause_tpu.weaver.pallas_sort import pallas_bitonic_sort
 from cause_tpu_torch import kernels
-from cause_tpu_torch.weaver import bitonic
+from cause_tpu_torch.weaver import bitonic, euler, fphase
 from cause_tpu_torch.weaver.bitonic import (b1_form, sort_pairs,
                                             sort_pairs_plain)
 
@@ -42,24 +51,45 @@ I32_MAX = int(np.iinfo(np.int32).max)
 I32_MIN = int(np.iinfo(np.int32).min)
 THREADS, BINS = 256, 256
 H100_SMEM = 232448  # the opt-in shared memory of an H100 block
+WIDE_TILE = 4096    # csrc/radix_wide.cuh: CAUSE_WIDE_IPT x CAUSE_WIDE_THREADS
 
 
 def _bits(top: int) -> int:
     return int(top).bit_length()
 
 
-def _wide_plan(keys, tile):
-    """One row's plan from its per-tile partial ranges: per key the
-    minimum and bit length; the groups (least significant first) as
-    (first key, last key, passes, passes before)."""
-    nk, n = keys.shape
-    starts = np.arange(0, n, tile)
+def _ranges(keys, starts):
+    """Per key (row of ``keys``) the minimum, the largest key below
+    INT32_MAX and whether INT32_MAX occurs, reduced over the slices that
+    begin at ``starts`` and then over the slices: the partial ranges a
+    tile (or a cluster's CTA) publishes and their reduction."""
+    is_max = keys == I32_MAX
     part_mn = np.minimum.reduceat(keys, starts, axis=1)
-    part_mx = np.maximum.reduceat(keys, starts, axis=1)
-    mn = part_mn.min(axis=1).astype(np.int64)
-    mx = part_mx.max(axis=1).astype(np.int64)
-    bits = [_bits(mx[q] - mn[q]) for q in range(nk)]
-    limit = 32 if nk == 1 else 64
+    part_mx = np.maximum.reduceat(np.where(is_max, I32_MIN, keys), starts,
+                                  axis=1)
+    part_any = np.logical_or.reduceat(is_max, starts, axis=1)
+    return (part_mn.min(axis=1).astype(np.int64),
+            part_mx.max(axis=1).astype(np.int64), part_any.any(axis=1))
+
+
+def _plan(keys, starts, limit):
+    """One row's plan from its partial ranges (``wide_range`` and
+    ``wide_groups_of``): per key the minimum, INT32_MAX's code point and
+    the bit length; the bits of a row position; the groups (least
+    significant first) as (first key, last key, passes, passes before,
+    packed)."""
+    nk, n = keys.shape
+    mn, mx, any_max = _ranges(keys, starts)
+    mx1, bits = [], []
+    for q in range(nk):
+        if mx[q] < mn[q]:              # every key INT32_MAX
+            mn[q] = I32_MAX
+            mx1.append(I32_MAX)
+            bits.append(0)
+            continue
+        mx1.append(int(mx[q]) + 1)
+        bits.append(_bits((mx[q] + 1 if any_max[q] else mx[q]) - mn[q]))
+    pbits = _bits(n - 1)
     groups, total, q = [], 0, nk - 1
     while q >= 0:
         last, b = q, 0
@@ -67,35 +97,87 @@ def _wide_plan(keys, tile):
             b += bits[q]
             q -= 1
         passes = -(-b // 8)
-        groups.append((q + 1, last, passes, total))
+        groups.append((q + 1, last, passes, total, b + pbits <= limit))
         total += passes
-    return {"mn": mn, "bits": bits, "groups": groups, "total": total}
+    return {"mn": mn, "mx1": mx1, "bits": bits, "pbits": pbits,
+            "groups": groups, "total": total}
+
+
+def _wide_plan(keys, tile):
+    return _plan(keys, np.arange(0, keys.shape[1], tile),
+                 32 if keys.shape[0] == 1 else 64)
+
+
+def _code(keys, plan, q, p):
+    k = keys[q][p].astype(np.int64)
+    k = np.where(k == I32_MAX, plan["mx1"][q], k)
+    return (k - plan["mn"][q]).astype(np.uint64)
 
 
 def _compose(keys, plan, group, p):
-    first, last = group[0], group[1]
+    """A group's words of the lanes at row positions ``p``: the codes
+    of its keys, the position below them where the group is packed."""
+    first, last, packed = group[0], group[1], group[4]
     x = np.zeros(p.shape, np.uint64)
     for q in range(first, last + 1):
-        code = (keys[q][p].astype(np.int64) - plan["mn"][q]).astype(np.uint64)
-        x = (x << np.uint64(plan["bits"][q])) | code
+        x = (x << np.uint64(plan["bits"][q])) | _code(keys, plan, q, p)
+    if packed:
+        x = (x << np.uint64(plan["pbits"])) | p.astype(np.uint64)
     return x
 
 
-def _digit(c, d):
-    return ((c >> np.uint64(8 * d)) & np.uint64(255)).astype(np.int64)
+def _shift(plan, group):
+    return plan["pbits"] if group[4] else 0
 
 
-def _scatter(c, p, d, n, tile, total):
+def _word_pos(w, plan):
+    return (w & np.uint64((1 << plan["pbits"]) - 1)).astype(np.int64)
+
+
+def _decode(plan, group, q, w):
+    """Key q of ``group`` decoded from its words (``wide_key_of``)."""
+    c = w >> np.uint64(_shift(plan, group))
+    for q2 in range(group[1], q, -1):
+        c = c >> np.uint64(plan["bits"][q2])
+    code = (c & np.uint64((1 << plan["bits"][q]) - 1)).astype(np.int64)
+    v = code + plan["mn"][q]
+    v = np.where(v == plan["mx1"][q], I32_MAX, v)
+    return v.astype(np.int32)
+
+
+def _outputs(ops, num_keys, plan, final, word):
+    """Every output of a sorted row (``wide_out_kind``): a payload or a
+    key of an earlier group gathered at the ``final`` positions, a key
+    of the last group decoded from its ``word``s, a key of no bits its
+    one value."""
+    g = plan["groups"][-1]
+    outs = []
+    for k, x in enumerate(ops):
+        if k < num_keys and plan["bits"][k] == 0:
+            outs.append(np.full(x.shape, plan["mn"][k], np.int32))
+        elif k < num_keys and plan["total"] and g[0] <= k <= g[1]:
+            outs.append(_decode(plan, g, k, word))
+        else:
+            outs.append(x[final])
+    return outs
+
+
+def _digit(c, bit):
+    return ((c >> np.uint64(bit)) & np.uint64(255)).astype(np.int64)
+
+
+def _scatter(c, p, bit, n, tile, total):
     """One digit pass of the row, given the row's digit ``total``s from
     its group's start: (a) each tile's digit counts and the look-back's
     sum of the earlier tiles' counts, so a (digit, tile)'s offset is the
     row's count of lower digits plus that sum, which is the exclusive
     scan over (digit, tile); (b) each tile's stable warp-level rank, its
-    staging in local sorted order and the coalesced write-out. Returns
-    the row's (composites, positions) after the pass."""
+    staging in local sorted order and the coalesced write-out. The digit
+    starts at ``bit`` of the word. Returns the row's (words, positions)
+    after the pass."""
     tiles = -(-n // tile)
     ipt = tile // THREADS
-    dig = _digit(c, d)
+    dig = _digit(c, bit)
     t_of = np.arange(n) // tile
     cnt_t = np.bincount(t_of * BINS + dig,
                         minlength=tiles * BINS).reshape(tiles, BINS)
@@ -145,7 +227,9 @@ def _scatter(c, p, d, n, tile, total):
 
 def _wide_row(keys, tile):
     """One row through every launch of the host's loop. Returns (final
-    positions, plan, both position buffers)."""
+    positions, plan, the positions each ping-pong buffer holds, the
+    final words): a packed group's passes write words only, and its
+    positions are the words' low bits."""
     nk, n = keys.shape
     plan = _wide_plan(keys, tile)
     comp = [np.zeros(n, np.uint64), np.zeros(n, np.uint64)]
@@ -158,37 +242,51 @@ def _wide_row(keys, tile):
             if g >= len(plan["groups"]) or d >= plan["groups"][g][2]:
                 continue               # beyond the row's plan: a no-op
             group = plan["groups"][g]
+            packed = group[4]
+            bit = _shift(plan, group) + 8 * d
             pb = group[3] + d
             par = pb % 2
             if d == 0:                 # the group's first pass composes
-                p = np.arange(n) if pb == 0 else pos[par]
+                if pb == 0:
+                    p = np.arange(n)
+                elif plan["groups"][g - 1][4]:
+                    p = _word_pos(comp[par], plan)
+                else:
+                    p = pos[par]
                 c = _compose(keys, plan, group, p)
-                total = np.bincount(_digit(c, 0), minlength=BINS)
+                total = np.bincount(_digit(c, bit), minlength=BINS)
             else:
-                c, p = comp[par], pos[par]
-            comp[1 - par], pos[1 - par] = _scatter(c, p, d, n, tile, total)
+                c = comp[par]
+                p = np.zeros(n, np.int64) if packed else pos[par]
+            comp[1 - par], out_p = _scatter(c, p, bit, n, tile, total)
+            if not packed:
+                pos[1 - par] = out_p
             if d + 1 < group[2]:       # counted as the pass writes out
-                total = np.bincount(_digit(comp[1 - par], d + 1),
+                total = np.bincount(_digit(comp[1 - par], bit + 8),
                                     minlength=BINS)
     passes = plan["total"]
-    final = np.arange(n) if passes == 0 else pos[passes % 2]
-    return final, plan, pos
+    last = plan["groups"][-1]
+    held = [_word_pos(comp[b], plan) if last[4] else pos[b] for b in (0, 1)]
+    final = np.arange(n) if passes == 0 else held[passes % 2]
+    return final, plan, held, comp[passes % 2]
 
 
 def _wide_model(ops, num_keys, tile):
     """The wide form over ``[B, n]`` operands: each row sorted by
-    ``_wide_row``, every operand gathered by final position. Returns
-    (outputs, plans, position buffers)."""
+    ``_wide_row``, then its outputs (``_outputs``: payloads gathered by
+    final position, the last group's keys decoded). Returns (outputs,
+    plans, the positions each row's buffers hold)."""
     B, n = ops[0].shape
     outs = [np.empty_like(x) for x in ops]
     plans, bufs = [], []
     for r in range(B):
         keys = np.stack([ops[q][r] for q in range(num_keys)])
-        final, plan, pos = _wide_row(keys, tile)
-        for k, x in enumerate(ops):
-            outs[k][r] = x[r][final]
+        final, plan, held, word = _wide_row(keys, tile)
+        for k, o in enumerate(_outputs([x[r] for x in ops], num_keys, plan,
+                                       final, word)):
+            outs[k][r] = o
         plans.append(plan)
-        bufs.append(pos)
+        bufs.append(held)
     return outs, plans, bufs
 
 
@@ -275,6 +373,22 @@ def test_wide_model_matches_lax_sort_and_plain(kind, num_keys, n):
             assert [g[:2] for g in plan["groups"]] == [(1, 2), (0, 0)]
 
 
+@pytest.mark.parametrize("kind,num_keys,n", [
+    ("narrow", 2, 900), ("extremes", 1, 777), ("child", 3, 600),
+])
+def test_wide_model_matches_the_pallas_kernel(kind, num_keys, n):
+    """At small widths, against the TPU kernel itself in interpret mode
+    (as ``tests/test_pallas_sort.py`` runs it): rows of 3-4 tiles of 256
+    lanes, a packed group, a 32-bit one, and two groups."""
+    ops = _operands(kind, num_keys, 2, n, seed=3 * n + num_keys)
+    got, _, _ = _wide_model(ops, num_keys, tile=256)
+    want = pallas_bitonic_sort(tuple(jnp.asarray(x) for x in ops),
+                               num_keys=num_keys)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, np.asarray(w))
+    _assert_sorted_like_references(ops, num_keys, got)
+
+
 @pytest.mark.parametrize("tile", [256, 512, 1024])
 def test_wide_model_tile_widths(tile):
     """Several warps' items a thread (512: two, 1024: four), ragged last
@@ -296,7 +410,7 @@ def test_wide_model_reads_the_buffer_its_plan_names():
     odd = rng.integers(0, 1 << 20, size=(1, n)).astype(np.int32)  # 3
     even = rng.integers(0, 1 << 16, size=(1, n)).astype(np.int32)  # 2
     for key, total in ((odd, 3), (even, 2)):
-        final, plan, pos = _wide_row(key, 256)
+        final, plan, pos, _ = _wide_row(key, 256)
         assert plan["total"] == total
         assert np.array_equal(final, pos[total % 2])
         want = np.argsort(key[0], kind="stable")
@@ -310,10 +424,9 @@ def test_wide_model_reads_the_buffer_its_plan_names():
 ])
 def test_wide_model_at_real_width(n, num_keys, kind):
     """Rows of the v1 sort-join's width (40,960) and of the tree's upper
-    levels (131,072), at the card's widest tile, against np.lexsort."""
+    levels (131,072), at the card's tile, against np.lexsort."""
     ops = _operands(kind, num_keys, 1, n, seed=n + num_keys)
-    tile = 4096
-    got, plans, _ = _wide_model(ops, num_keys, tile=tile)
+    got, plans, _ = _wide_model(ops, num_keys, tile=WIDE_TILE)
     order = np.lexsort(tuple(ops[q][0] for q in reversed(range(num_keys))))
     for g, x in zip(got, ops):
         assert np.array_equal(g[0], x[0][order])
@@ -321,41 +434,182 @@ def test_wide_model_at_real_width(n, num_keys, kind):
                                  8 * -(-num_keys // 2))
 
 
-# b1_form on an H100, by P and key count
+def test_wide_model_codes_intmax_above_the_largest_key():
+    """The v4 id sort's keys at the fleet row: hi up to 10,000 and lo up
+    to 2^24, both padded with INT32_MAX. INT32_MAX is coded just above
+    the largest other key, so the keys take 14 and 25 bits (5 passes,
+    not the 8 of two 31-bit codes), and with a position of 24 bits
+    (10,485,760 lanes) the word still holds all three: the passes carry
+    8 bytes a lane. The model sorts such a row exactly."""
+    rng = np.random.default_rng(11)
+    n = 3000
+    hi = rng.integers(0, 10001, size=(1, n))
+    lo = rng.integers(0, 1 << 24, size=(1, n))
+    pad = rng.random((1, n)) < 0.1
+    hi[pad], lo[pad] = I32_MAX, I32_MAX
+    hi[0, :2], lo[0, :2] = (10000, 0), ((1 << 24) - 1, 0)
+    ops = [hi.astype(np.int32), lo.astype(np.int32),
+           np.arange(n, dtype=np.int32)[None]]
+    got, plans, _ = _wide_model(ops, 2, tile=256)
+    _assert_sorted_like_references(ops, 2, got)
+    plan = plans[0]
+    assert plan["bits"] == [14, 25] and plan["total"] == 5
+    assert plan["groups"][0][4]                     # packed at n = 3000
+    assert sum(plan["bits"]) + _bits(10_485_760 - 1) <= 64
+
+
+@pytest.mark.parametrize("n,num_keys,kind,packed", [
+    (5000, 2, "sibling", True), (5000, 1, "narrow", True),
+    (5000, 2, "full", False), (3000, 3, "child", False),
+])
+def test_wide_model_packs_the_position_where_it_fits(n, num_keys, kind,
+                                                     packed):
+    """A group's words carry the row position where its bits and a
+    position's fit 32 bits (one key) or 64; else the positions travel in
+    their own buffers. Both sort exactly, and the decoded keys are the
+    keys."""
+    ops = _operands(kind, num_keys, 2, n, seed=n + 3 * num_keys)
+    got, plans, _ = _wide_model(ops, num_keys, tile=512)
+    _assert_sorted_like_references(ops, num_keys, got)
+    for plan in plans:
+        assert plan["groups"][0][4] == packed
+        assert plan["pbits"] == _bits(n - 1)
+
+
+# b1_form on an H100 (its limits as bitonic.b1_limits reads them on the
+# card, NVIDIA H100 80GB HBM3: clusters of 16 at both CTA widths), by P
+# and key count
+H100 = bitonic.B1Limits(H100_SMEM, ((4096, 16), (8192, 16)))
 FORMS = {
     128: ("network", "network", "network", "network"),
     256: ("radix", "radix", "network", "network"),
-    8192: ("radix", "radix", "network", "wide"),   # 9 keys: 10 x 32 KB
-    16384: ("wide",) * 4,
-    131072: ("wide",) * 4,
+    8192: ("radix", "radix", "network", "cluster"),   # 9 keys: 10 x 32 KB
+    16384: ("cluster",) * 4,
+    131072: ("cluster",) * 4,
+    262144: ("wide",) * 4,
 }
 
 
 @pytest.mark.parametrize("num_keys", [1, 2, 3, 9])
-@pytest.mark.parametrize("P", [128, 256, 8192, 16384, 131072])
+@pytest.mark.parametrize("P", [128, 256, 8192, 16384, 131072, 262144])
 def test_b1_form_rule(P, num_keys):
-    """Radix at one or two keys and 256 <= P <= 8192; wide past 8,192
-    lanes or where the network's keys and positions overflow a block's
-    shared memory; the network else. A ragged row takes its P's form."""
+    """Radix at one or two keys and 256 <= P <= 8192; the network at P
+    <= 8192 where its keys and positions fit a block's shared memory;
+    the cluster form where a cluster the card co-schedules holds the row
+    (16 CTAs of 8,192 lanes on an H100); wide past it. A ragged row
+    takes its P's form."""
     want = FORMS[P][(1, 2, 3, 9).index(num_keys)]
-    assert b1_form(P, num_keys, H100_SMEM) == want
-    assert b1_form(P - P // 4 + 1, num_keys, H100_SMEM) == want
+    assert b1_form(P, num_keys, H100) == want
+    assert b1_form(P - P // 4 + 1, num_keys, H100) == want
+    assert bitonic.b1_forms(P, num_keys, H100)[0] == want
+    assert bitonic.b1_forms(P, num_keys, H100)[-1] == "wide"
 
 
-def test_b1_form_constants_match_the_headers():
-    """The rule's bounds and the operand limit are the ones ``sort.cu``
-    and ``radix.cuh`` compile with, so the C mirror of ``b1_form``
-    (``sort_form``) decides alike."""
+@pytest.mark.parametrize("n,clusters,lanes", [
+    (16384, ((4096, 16), (8192, 16)), 4096),
+    (65536, ((4096, 16), (8192, 16)), 4096),
+    (65537, ((4096, 16), (8192, 16)), 8192),
+    (131072, ((4096, 16), (8192, 16)), 8192),
+    (131073, ((4096, 16), (8192, 16)), 0),
+    (65536, ((4096, 8), (8192, 8)), 8192),     # a card of smaller clusters
+    (65537, ((4096, 8), (8192, 8)), 0),
+    (40960, ((4096, 0), (8192, 5)), 8192),     # no cluster at 4096 lanes
+    (8192, ((4096, 0), (8192, 0)), 0),         # no cluster at all
+])
+def test_cluster_lanes_never_exceed_the_cards_clusters(n, clusters, lanes):
+    """The cluster form's CTA width: the first width at which the row's
+    CTAs make a cluster the card co-schedules (never more CTAs than
+    ``cudaOccupancyMaxActiveClusters`` allows, nor than 16); a row no
+    such cluster holds goes wide."""
+    limits = bitonic.B1Limits(H100_SMEM, clusters)
+    assert bitonic.cluster_lanes(n, limits) == lanes
+    form = bitonic.b1_form(n, 9, limits)
+    assert form == ("cluster" if lanes else "wide")
+    if lanes:
+        most = dict(clusters)[lanes]
+        assert -(-n // lanes) <= min(most, bitonic.CLUSTER_MAX)
+
+
+@pytest.mark.parametrize("n,num_keys,forms", [
+    (16, 2, ("network", "cluster", "wide")),
+    (64, 1, ("network", "cluster", "wide")),
+    (128, 3, ("network", "cluster", "wide")),
+    (2048, 3, ("network", "cluster", "wide")),
+    (4096, 2, ("radix", "network", "cluster", "wide")),
+])
+def test_b1_forms_beside_the_network(n, num_keys, forms):
+    """Every form a call the rule sends to the network (or to radix) can
+    take, as the smoke times them: the cluster form holds each such row
+    too, and the wide form every row."""
+    assert bitonic.b1_forms(n, num_keys, H100) == forms
+
+
+@pytest.mark.parametrize("smem,sms,walk,chunk", [
+    (H100_SMEM, 132, "row", "chunk"),     # NVIDIA H100 80GB HBM3
+    (H100_SMEM, 114, "row", "chunk"),     # an H100 PCIe
+    (101376, 84, "split", "chunk"),       # a card of sm_86's shared memory
+])
+def test_device_limits_read_torch_properties(monkeypatch, smem, sms, walk,
+                                             chunk):
+    """The limits B2's and B3's rules share come from PyTorch's device
+    properties (no kernel library is built for them), cached per
+    device, and feed ``euler._smem_limit`` and ``fphase._sms``."""
+    asked = []
+
+    def props(index):
+        asked.append(index)
+        return SimpleNamespace(shared_memory_per_block_optin=smem,
+                               multi_processor_count=sms)
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", props)
+    monkeypatch.setattr(kernels, "library", None)  # never called
+    kernels.device_limits.cache_clear()
+    try:
+        assert kernels.device_limits(0) == kernels.DeviceLimits(smem, sms)
+        assert euler._smem_limit(0) == smem and fphase._sms(0) == sms
+        assert asked == [0]
+        # B2 at a row of 16,000 runs: in shared memory where its 208 KB
+        # fit; B3 at one fleet row: chunks
+        assert euler.walk_form(16000, euler._smem_limit(0)) == walk
+        assert fphase.fphase_form(1, 10_485_760, fphase._sms(0)) == chunk
+    finally:
+        kernels.device_limits.cache_clear()
+
+
+def test_b1_form_codes_match_the_library():
+    """The form codes and bounds the wrapper passes to
+    ``cause_sort_rows`` are the ones ``sort.cu``, ``radix.cuh``,
+    ``radix_cluster.cuh`` and ``radix_wide.cuh`` compile with: the code
+    of each form, the radix form's widths, the operand limit, the
+    largest cluster, and CTA widths that are whole multiples of the
+    kernels' threads at the items a thread the library instantiates."""
     def define(name, src):
         text = (kernels.CSRC / src).read_text()
         return int(re.search(rf"#define {name} (\d+)", text).group(1))
 
+    for code, form in enumerate(bitonic.B1_FORMS):
+        assert define(f"CAUSE_SORT_FORM_{form.upper()}", "sort.cu") == code
     assert define("CAUSE_RADIX_MIN_P", "radix.cuh") == bitonic.RADIX_MIN_P
     assert define("CAUSE_RADIX_MAX_P", "radix.cuh") == bitonic.RADIX_MAX_P
     assert define("CAUSE_SORT_MAX_OPS", "sort.cu") == bitonic.MAX_OPS
-    rule = (kernels.CSRC / "sort.cu").read_text()
-    assert ("P > CAUSE_RADIX_MAX_P ||\n        (size_t)(num_keys + 1) * "
-            "(size_t)P * sizeof(int32_t) > (size_t)smem_limit") in rule
+    assert define("CAUSE_CLUSTER_MAX", "radix_cluster.cuh") == \
+        bitonic.CLUSTER_MAX
+    threads = define("CAUSE_CLUSTER_THREADS", "radix_cluster.cuh")
+    assert bitonic.CLUSTER_LANES == (threads * 8, threads * 16)
+    assert define("CAUSE_WIDE_IPT", "radix_wide.cuh") * define(
+        "CAUSE_WIDE_THREADS", "radix_wide.cuh") == WIDE_TILE
+
+
+def test_sort_pairs_cuda_refuses_cpu_tensors_in_every_form():
+    """On CPU tensors the kernel wrapper raises whatever the form; the
+    dispatching wrapper takes the plain version and launches nothing."""
+    x = torch.zeros((1, 16385), dtype=torch.int32)
+    for form in bitonic.B1_FORMS:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            bitonic.sort_pairs_cuda((x, x), 1, form=form)
+    kernels.reset_launches()
+    sort_pairs((x, x), 1)
+    assert kernels.launches["sort"] == 0
 
 
 @pytest.mark.parametrize("n,num_keys", [(16385, 1), (16385, 2), (8192, 9)])
