@@ -16,6 +16,10 @@ rebuilds and an unchanged one is reused.
 Every kernel wrapper adds one to its entry of ``launches`` where it
 launches its kernel, and nowhere else, so a run can show that its main
 path went through the kernels (``reset_launches`` before, read after).
+The dispatchers of B1-B3 (``sort_pairs``, ``euler_walk``,
+``fphase_expand``) run each call under an obs span (``kernel.b1`` ...
+``kernel.b3``) that, live, records the call's form and shapes and its
+contract (``contract_bytes``): the least any implementation must move.
 
 The card's limits that the wrappers' form rules share (a block's opt-in
 shared memory, the SM count) come from PyTorch's device properties,
@@ -39,7 +43,7 @@ from typing import Dict, NamedTuple, Optional
 
 __all__ = ["SOURCES", "launches", "reset_launches", "build_all", "load",
            "library", "check", "stream_handle", "source_hash",
-           "DeviceLimits", "device_limits"]
+           "DeviceLimits", "device_limits", "contract_bytes"]
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -229,3 +233,15 @@ def stream_handle(device) -> Optional[int]:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def contract_bytes(*tensors) -> int:
+    """A kernel call's contract: the ``nbytes`` of each of its input and
+    output tensors, each tensor counted once (scratch is never passed).
+    A lower bound on the bytes any implementation of the call moves."""
+    seen, total = set(), 0
+    for x in tensors:
+        if id(x) not in seen:
+            seen.add(id(x))
+            total += x.nbytes
+    return total

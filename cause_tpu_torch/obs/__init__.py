@@ -4,7 +4,7 @@ The port of ``cause_tpu.obs``: spans, counters/gauges, a bounded event
 ring with JSONL streaming, the Chrome-trace/Perfetto exporter, the
 CRDT-semantic events, the convergence-lag tracer and journeys, the
 fleet and cost folds, the perf ledger, the live fold the serving loop
-reads, the device-side ``devprof`` and ``stages``, and the networked
+reads, the device-side ``devprof``, and the networked
 half: the ``ship`` uplink, the ``collector`` and the ``watch``
 dashboard (all imported on demand, as the reference imports them). The
 same event names, fields and environment variables as the reference, so

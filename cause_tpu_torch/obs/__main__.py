@@ -2,7 +2,6 @@
 
     python -m cause_tpu_torch.obs events.jsonl -o trace.json   # Perfetto
     python -m cause_tpu_torch.obs export events.jsonl ...      # the same
-    python -m cause_tpu_torch.obs stages [--smoke] [--reps N]  # stage ladder
     python -m cause_tpu_torch.obs ledger --check               # perf ledger
     python -m cause_tpu_torch.obs fleet events.jsonl           # fleet health
     python -m cause_tpu_torch.obs gap [--obs events.jsonl]     # gap report
@@ -13,11 +12,10 @@
 The default (first) form converts an obs JSONL event stream to a
 Perfetto trace — open the output at https://ui.perfetto.dev (or
 chrome://tracing); with ``--summary`` it also prints per-span-name
-aggregate wall times and the final counter values. ``stages`` runs
-the v5 stage-prefix profiler on the card (``cause_tpu_torch.obs.stages``;
-``--device cpu`` on the CPU); ``ledger`` manages the persistent perf
-ledger (``cause_tpu_torch.obs.ledger``); ``watch`` is the live
-dashboard over streams or a collector (``cause_tpu_torch.obs.watch``).
+aggregate wall times and the final counter values. ``ledger`` manages
+the persistent perf ledger (``cause_tpu_torch.obs.ledger``); ``watch``
+is the live dashboard over streams or a collector
+(``cause_tpu_torch.obs.watch``).
 """
 
 from __future__ import annotations
@@ -33,11 +31,6 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "export":
         return _convert_main(argv[1:])
-    if argv and argv[0] == "stages":
-        # runs kernels — resolved only when asked for
-        from .stages import main as stages_main
-
-        return stages_main(argv[1:])
     if argv and argv[0] == "ledger":
         from .ledger import main as ledger_main
 

@@ -6,7 +6,9 @@ reads the same to the other package's folds. It is the ONE substrate
 the port reports through:
 
 - **spans** — ``with obs.span("wave.dispatch", kernel="v5"):`` —
-  record wall time (epoch-anchored, perf_counter-measured), pid/tid,
+  record wall time (start ``ts_ns`` and end ``end_ns`` from one clock,
+  epoch ns, the clock ``torch.profiler``'s ``trace_start_ns`` counts
+  from; ``ts_us`` and ``dur_us`` derived from them), pid/tid,
   nesting (parent id + depth), the reporting process's platform tag
   (``gpu`` on the card, ``cpu`` otherwise; never ``tpu``), and the
   port's program identity — the ``BENCH_KERNEL`` pipeline and the
@@ -31,18 +33,40 @@ the port reports through:
   viewer.
 
 Stdlib-only at import time: the program-identity snapshot imports the
-kernel library lazily, on enabled-span close.
+kernel library lazily, on live-span close.
 
-Off by default: with ``CAUSE_TPU_OBS`` unset (or ``0``), ``span()``
-returns a shared no-op context manager, ``counter()``/``gauge()``
-return a shared no-op instrument, nothing is recorded, no file is
-opened, and no program-identity input (``BENCH_KERNEL``, the kernel
-sources) is ever read (the snapshot happens only on enabled-span
-close). Enable with ``CAUSE_TPU_OBS=1``; stream with
+Off by default: with ``CAUSE_TPU_OBS`` unset (or ``0``) and no
+``torch.profiler`` recording, ``span()`` returns a shared no-op context
+manager (its cost: one read of the profiler's state, and only where
+``torch`` is already imported), ``counter()``/``gauge()`` return a
+shared no-op instrument, nothing is recorded, no file is opened, no
+CUDA event is made, and no program-identity input (``BENCH_KERNEL``,
+the kernel sources) is ever read (the snapshot happens only on
+live-span close). Enable with ``CAUSE_TPU_OBS=1``; stream with
 ``CAUSE_TPU_OBS_OUT=<path>``; bound the ring with
 ``CAUSE_TPU_OBS_RING`` (default 65536 events). This package's state is
 its own: configuring one package's obs does not configure the other's,
 though both read the same variables when they first resolve.
+
+A recording profiler turns the program's spans on. While a
+``torch.profiler`` records, every ``span()`` is live even with obs
+off: it opens ``torch.profiler.record_function(<span name>)``, so the
+span is a host range of the profiler's own trace, on its clock, around
+the ops and launches it issued, and its record (marked ``profiled``)
+goes to the ring, not to the sink. Counters, gauges and events stay
+obs-only. Stopping the profiler turns the spans off again.
+
+The device interval: a live span given the tensor (or device) whose
+work it wraps (``span(name, on=x)``) records, where that is a CUDA
+device, a timing ``torch.cuda.Event`` on the device's current stream at
+enter and at exit. Its record then carries ``dev_us``: the span's
+length on the device's timeline, from the stream reaching the span's
+first work to it finishing its last. ``dev_us`` is resolved lazily,
+once the work is done: the ring's read (``events()``), ``flush()`` and
+``export_jsonl()`` wait for it, and a span's close settles the ones
+already done; the record reaches the sink and the subscribers when it
+is resolved. Nothing synchronizes inside a span. On the CPU a record
+has no ``dev_us``.
 """
 
 from __future__ import annotations
@@ -51,6 +75,7 @@ import atexit
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -76,14 +101,41 @@ __all__ = [
 
 _TRUTHY = ("1", "true", "yes")
 _DEFAULT_RING = 65536
+# live spans whose device interval is still open past which a span's
+# close settles the ones already done
+_PENDING_POLL = 64
+_PROFILER = "torch.autograd.profiler"
+# the process id stamped on every record: read once, and again in a
+# forked child (a system call costs tens of microseconds in a
+# sandboxed process, and spans close on the wave's hot path)
+_PID = os.getpid()
+
+
+def _reset_pid() -> None:
+    global _PID
+    _PID = os.getpid()
+
+
+os.register_at_fork(after_in_child=_reset_pid)
+
+
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` records in this process: the
+    profiler module's own flag, read only where ``torch`` is already
+    imported (obs itself never imports it)."""
+    prof = sys.modules.get(_PROFILER)
+    return prof is not None and prof._is_profiler_enabled
 
 
 class _NullSpan:
     """The disabled-mode span: one shared instance, every method a
     no-op. Deliberately tiny — the disabled ``span()`` call is on trace
-    -time and wave hot paths and must stay sub-microsecond."""
+    -time and wave hot paths and must stay sub-microsecond. ``live``
+    is False: a call site computes derived attributes only for a live
+    span."""
 
     __slots__ = ()
+    live = False
 
     def __enter__(self):
         return self
@@ -160,6 +212,7 @@ class _State:
     __slots__ = (
         "enabled", "out", "ring", "counters", "gauges", "lock",
         "tls", "fd", "platform", "ids", "atexit_armed", "subscribers",
+        "pending",
     )
 
     def __init__(self, enabled_: bool, out: str, ring_size: int):
@@ -180,6 +233,9 @@ class _State:
         # tuple in the common case so record() pays one attribute
         # read, nothing else
         self.subscribers: tuple = ()
+        # closed spans whose device interval is not resolved yet, in
+        # close order: (record, start event, end event, emit)
+        self.pending: deque = deque()
 
     # ---------------------------------------------------------- sink
     def write_line(self, obj: dict) -> None:
@@ -203,11 +259,39 @@ class _State:
         except OSError:
             self.out = ""  # sink is best-effort; stop retrying
 
-    def record(self, obj: dict) -> None:
+    def record(self, obj: dict, emit: bool = True) -> None:
+        """Keep ``obj`` in the ring and, where ``emit``, stream it."""
         self.ring.append(obj)
+        if emit:
+            self.emit(obj)
+
+    def emit(self, obj: dict) -> None:
+        """Stream ``obj`` to the sink and the subscribers."""
         self.write_line(obj)
         for sub in self.subscribers:
             sub.push(obj)
+
+    def settle(self, wait: bool) -> None:
+        """Resolve the ``dev_us`` of closed spans in close order and
+        stream those that obs emits: every one when ``wait`` (waiting
+        for their end events outside the lock), else those whose work is
+        already done."""
+        if not self.pending:
+            return
+        if wait:
+            with self.lock:
+                ends = [p[2] for p in self.pending]
+            for end in ends:
+                end.synchronize()
+        with self.lock:
+            while self.pending:
+                rec, start, end, emit = self.pending[0]
+                if not end.query():
+                    break
+                self.pending.popleft()
+                rec["dev_us"] = round(start.elapsed_time(end) * 1e3, 3)
+                if emit:
+                    self.emit(rec)
 
 
 _STATE: Optional[_State] = None
@@ -244,9 +328,16 @@ def _arm_atexit(st: _State) -> None:
 def _atexit_flush() -> None:
     # the final counter snapshot: an abandoned bench child exits
     # naturally (SystemExit between phases), so its counters land in
-    # the sidecar even though nobody waits for it
+    # the sidecar even though nobody waits for it; spans whose device
+    # interval is open are resolved first, best-effort (the card may be
+    # gone by now)
     st = _STATE
-    if st is not None and st.enabled and (st.counters or st.gauges):
+    if st is not None and st.enabled and (st.counters or st.gauges
+                                          or st.pending):
+        try:
+            st.settle(wait=True)
+        except Exception:  # noqa: BLE001 - telemetry never fails an exit
+            st.pending.clear()
         flush()
 
 
@@ -379,7 +470,7 @@ def _switches_snapshot() -> Dict[str, str]:
     """The program-identity snapshot stamped on spans: the
     ``BENCH_KERNEL`` pipeline when set, and the hash of the kernel
     library's sources, headers and flags (what a build on the card
-    compiles). Read ONLY on enabled-span close — disabled mode reads
+    compiles). Read ONLY on live-span close — disabled mode reads
     neither."""
     from .. import kernels
 
@@ -391,21 +482,28 @@ def _switches_snapshot() -> Dict[str, str]:
 
 
 class _Span:
-    """An enabled span: context manager recording one "span" event on
-    close. ``set(**attrs)`` adds attributes mid-flight."""
+    """A live span: context manager recording one "span" event on
+    close. ``set(**attrs)`` adds attributes mid-flight. Opened while a
+    profiler records, it is also a ``record_function`` range of the
+    profiler's trace; given a CUDA tensor or device (``on``), it also
+    times its work on the device (module docstring)."""
 
     __slots__ = ("st", "name", "attrs", "sid", "parent", "depth",
-                 "t0", "ts_us")
+                 "ts_ns", "on", "stream", "rf", "events")
+    live = True
 
-    def __init__(self, st: _State, name: str, attrs: dict):
+    def __init__(self, st: _State, name: str, attrs: dict, on=None):
         self.st = st
         self.name = name
         self.attrs = attrs
         self.sid = next(st.ids)
         self.parent = 0
         self.depth = 0
-        self.t0 = 0.0
-        self.ts_us = 0
+        self.ts_ns = 0
+        self.on = on
+        self.stream = None
+        self.rf = None
+        self.events = None
 
     def set(self, **attrs):
         self.attrs.update(attrs)
@@ -420,22 +518,40 @@ class _Span:
             self.parent = stack[-1]
         self.depth = len(stack)
         stack.append(self.sid)
-        self.ts_us = time.time_ns() // 1000
-        self.t0 = time.perf_counter()
+        self.ts_ns = time.time_ns()
+        if _profiling():
+            self.rf = sys.modules[_PROFILER].record_function(self.name)
+            self.rf.__enter__()
+        dev = _cuda_device(self.on)
+        if dev is not None:
+            # a CUDA tensor or device: torch is loaded
+            cuda = sys.modules["torch"].cuda
+            self.stream = cuda.current_stream(dev)
+            self.events = (cuda.Event(enable_timing=True),
+                           cuda.Event(enable_timing=True))
+            self.events[0].record(self.stream)
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        dur_us = int((time.perf_counter() - self.t0) * 1e6)
         st = self.st
+        # a span that raised may not have queued its work: no interval
+        events = self.events if exc_type is None else None
+        if events is not None:
+            events[1].record(self.stream)
+        if self.rf is not None:
+            self.rf.__exit__(exc_type, exc, tb)
+        end_ns = time.time_ns()
         stack = getattr(st.tls, "stack", None)
         if stack and stack[-1] == self.sid:
             stack.pop()
         rec = {
             "ev": "span",
             "name": self.name,
-            "ts_us": self.ts_us,
-            "dur_us": dur_us,
-            "pid": os.getpid(),
+            "ts_us": self.ts_ns // 1000,
+            "dur_us": (end_ns - self.ts_ns) // 1000,
+            "ts_ns": self.ts_ns,
+            "end_ns": end_ns,
+            "pid": _PID,
             "tid": threading.get_ident(),
             "id": self.sid,
             "parent": self.parent,
@@ -443,13 +559,30 @@ class _Span:
             "platform": _platform(st),
             "switches": _switches_snapshot(),
         }
+        if self.rf is not None:
+            rec["profiled"] = True
         if self.attrs:
             rec["attrs"] = dict(self.attrs)
         if exc_type is not None:
             rec["error"] = exc_type.__name__
+        emit = st.enabled
         with st.lock:
-            st.record(rec)
+            if events is None:
+                st.record(rec, emit)
+            else:
+                st.record(rec, emit=False)
+                st.pending.append((rec, events[0], events[1], emit))
+        if len(st.pending) > _PENDING_POLL:
+            st.settle(wait=False)
         return False
+
+
+def _cuda_device(on):
+    """The CUDA device of ``on`` (a tensor or a device), or None."""
+    if on is None:
+        return None
+    dev = getattr(on, "device", on)
+    return dev if getattr(dev, "type", None) == "cuda" else None
 
 
 class _Counter:
@@ -487,7 +620,7 @@ class _Gauge:
             "ev": "gauge",
             "name": self.name,
             "ts_us": time.time_ns() // 1000,
-            "pid": os.getpid(),
+            "pid": _PID,
             "platform": _platform(st),
             "value": value,
         }
@@ -501,12 +634,15 @@ class _Gauge:
         return self.st.gauges.get(self.name, 0)
 
 
-def span(name: str, **attrs):
-    """A wall-time span. Disabled mode returns the shared no-op."""
+def span(name: str, on=None, **attrs):
+    """A wall-time span, live while obs is on or a profiler records;
+    otherwise the shared no-op. ``on``, the tensor (or device) whose
+    work the span wraps, gives a live span on a CUDA device its device
+    interval (``dev_us``)."""
     st = _resolve_state()
-    if not st.enabled:
+    if not st.enabled and not _profiling():
         return _NULL_SPAN
-    return _Span(st, name, attrs)
+    return _Span(st, name, attrs, on)
 
 
 def event(name: str, **fields) -> None:
@@ -521,7 +657,7 @@ def event(name: str, **fields) -> None:
         "ev": "event",
         "name": name,
         "ts_us": time.time_ns() // 1000,
-        "pid": os.getpid(),
+        "pid": _PID,
         "tid": threading.get_ident(),
         "parent": stack[-1] if stack else 0,
         "platform": _platform(st),
@@ -558,16 +694,18 @@ def counters_snapshot() -> dict:
 
 
 def flush() -> None:
-    """Snapshot the counter/gauge registry into the event stream (and
-    the sink). Call at phase boundaries; also runs at exit."""
+    """Resolve the device intervals of closed spans, then snapshot the
+    counter/gauge registry into the event stream (and the sink). Call
+    at phase boundaries; also runs at exit."""
     st = _resolve_state()
+    st.settle(wait=True)
     if not st.enabled:
         return
     with st.lock:
         rec = {
             "ev": "counters",
             "ts_us": time.time_ns() // 1000,
-            "pid": os.getpid(),
+            "pid": _PID,
             "platform": _platform(st),
             "counters": dict(st.counters),
             "gauges": dict(st.gauges),
@@ -576,8 +714,10 @@ def flush() -> None:
 
 
 def events() -> list:
-    """A snapshot list of the ring buffer's events (oldest first)."""
+    """A snapshot list of the ring buffer's events (oldest first), the
+    device intervals of closed spans resolved."""
     st = _resolve_state()
+    st.settle(wait=True)
     with st.lock:
         return list(st.ring)
 
@@ -586,12 +726,13 @@ def export_jsonl(path: str) -> int:
     """Write the ring buffer (plus a final counter snapshot) to
     ``path`` as JSON lines; returns the number of lines written."""
     st = _resolve_state()
+    st.settle(wait=True)
     with st.lock:
         evs = list(st.ring)
         snap = {
             "ev": "counters",
             "ts_us": time.time_ns() // 1000,
-            "pid": os.getpid(),
+            "pid": _PID,
             "platform": _platform(st),
             "counters": dict(st.counters),
             "gauges": dict(st.gauges),

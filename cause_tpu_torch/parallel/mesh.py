@@ -55,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from ..obs.core import span
 
 __all__ = [
     "REPLICA_AXIS",
@@ -123,9 +124,11 @@ def replica_digest(hi, lo, rank, visible) -> torch.Tensor:
     """``[B]`` int32 digests (the uint32 bits) of ``[B, m]`` replicas:
     the wraparound sum of the kept lanes' (rank < m) terms."""
     m = rank.shape[-1]
-    kept = rank < m
-    x = mix32(hi, lo, torch.where(kept, rank, 0), visible)
-    return torch.where(kept, x, 0).sum(dim=-1, dtype=torch.int32)
+    with span("replica.digest", on=rank,
+              rows=rank.shape[0] if rank.dim() > 1 else 1, lanes=m):
+        kept = rank < m
+        x = mix32(hi, lo, torch.where(kept, rank, 0), visible)
+        return torch.where(kept, x, 0).sum(dim=-1, dtype=torch.int32)
 
 
 # ------------------------------------------------------------- the mesh

@@ -48,6 +48,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from .. import kernels
+from ..obs.core import span
 
 __all__ = ["sort_pairs", "sort_pairs_plain", "sort_pairs_cuda", "b1_form",
            "b1_forms", "b1_limits", "cluster_lanes", "B1Limits"]
@@ -192,10 +193,21 @@ def sort_pairs_cuda(operands: Sequence[torch.Tensor], num_keys: int = 1,
 def sort_pairs(operands: Sequence[torch.Tensor],
                num_keys: int = 1) -> Tuple[torch.Tensor, ...]:
     """Sort ``[B, n]`` int32 operands row by row (module docstring):
-    the plain version on the CPU, the B1 kernel on the card."""
-    dev = operands[0].device
-    if dev.type == "cpu":
-        return sort_pairs_plain(operands, num_keys)
-    if dev.type == "cuda":
-        return sort_pairs_cuda(operands, num_keys)
-    raise ValueError(f"no sort for device {dev}")
+    the plain version on the CPU, the B1 kernel on the card, under the
+    ``kernel.b1`` span (its form, shapes and contract bytes)."""
+    x0 = operands[0]
+    dev = x0.device
+    with span("kernel.b1", on=x0, rows=x0.shape[0] if x0.dim() > 1 else 1,
+              lanes=x0.shape[-1], operands=len(operands),
+              keys=num_keys) as sp:
+        if dev.type == "cpu":
+            out = sort_pairs_plain(operands, num_keys)
+        elif dev.type == "cuda":
+            out = sort_pairs_cuda(operands, num_keys)
+        else:
+            raise ValueError(f"no sort for device {dev}")
+        if sp.live:
+            sp.set(form="plain" if dev.type == "cpu" else b1_form(
+                x0.shape[-1], num_keys, b1_limits(dev.index)),
+                bytes=kernels.contract_bytes(*operands, *out))
+        return out

@@ -34,6 +34,7 @@ import math
 import torch
 
 from .. import kernels
+from ..obs.core import span
 from .gatherops import at_set, take1d
 
 __all__ = ["link_children", "euler_rank", "host_jump", "euler_walk",
@@ -216,8 +217,17 @@ def euler_walk(fc, ns, parent_run, run_len):
     get the row's total weight. The plain version on the CPU, the B2
     kernel on the card."""
     dev = fc.device
-    if dev.type == "cpu":
-        return euler_walk_plain(fc, ns, parent_run, run_len)
-    if dev.type == "cuda":
-        return euler_walk_cuda(fc, ns, parent_run, run_len)
-    raise ValueError(f"no euler_walk for device {dev}")
+    with span("kernel.b2", on=fc, rows=fc.shape[0], lanes=fc.shape[-1],
+              operands=4, keys=0) as sp:
+        if dev.type == "cpu":
+            base = euler_walk_plain(fc, ns, parent_run, run_len)
+        elif dev.type == "cuda":
+            base = euler_walk_cuda(fc, ns, parent_run, run_len)
+        else:
+            raise ValueError(f"no euler_walk for device {dev}")
+        if sp.live:
+            sp.set(form="plain" if dev.type == "cpu" else walk_form(
+                fc.shape[-1], _smem_limit(dev.index)),
+                bytes=kernels.contract_bytes(fc, ns, parent_run, run_len,
+                                             base))
+        return base

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..obs.core import span
 from .arrays import VCLASS_H_HIDE, VCLASS_HIDE
 
 __all__ = ["fphase_expand", "fphase_expand_plain", "fphase_expand_cuda",
@@ -149,10 +150,20 @@ def fphase_expand(lk, tb_l, cov_start, cov_end, vclass, seg, flags):
     1 killed from outside). The plain version on the CPU, the B3 kernel
     on the card; any N."""
     dev = lk.device
-    if dev.type == "cpu":
-        return fphase_expand_plain(lk, tb_l, cov_start, cov_end, vclass,
-                                   seg, flags)
-    if dev.type == "cuda":
-        return fphase_expand_cuda(lk, tb_l, cov_start, cov_end, vclass,
-                                  seg, flags)
-    raise ValueError(f"no fphase_expand for device {dev}")
+    B, N = vclass.shape
+    with span("kernel.b3", on=lk, rows=B, lanes=N, operands=7,
+              keys=0) as sp:
+        if dev.type == "cpu":
+            out = fphase_expand_plain(lk, tb_l, cov_start, cov_end, vclass,
+                                      seg, flags)
+        elif dev.type == "cuda":
+            out = fphase_expand_cuda(lk, tb_l, cov_start, cov_end, vclass,
+                                     seg, flags)
+        else:
+            raise ValueError(f"no fphase_expand for device {dev}")
+        if sp.live:
+            sp.set(form="plain" if dev.type == "cpu" else fphase_form(
+                B, N, _sms(dev.index)),
+                bytes=kernels.contract_bytes(lk, tb_l, cov_start, cov_end,
+                                             vclass, seg, flags, *out))
+        return out

@@ -36,7 +36,7 @@ from .euler import euler_walk
 from .fphase import fphase_expand
 from .gatherops import at_set, take1d
 from .torchw import _row
-from .torchw5 import _prepare, _v5_ab
+from .torchw5 import _prepare, _v5_ab, host_wait
 
 __all__ = ["merge_weave_kernel_v5f", "batched_merge_weave_v5f"]
 
@@ -69,10 +69,12 @@ def _v5f(hi, lo, cci, vclass, valid, seg, sg_min_hi, sg_min_lo, sg_max_hi,
     # while_loop does.
     chase = tva0 & (ab.t_vc == 0)
     host_lane = cl0
-    for _ in range(N):
+    for step in range(N):
         pc = host_lane.clamp(0, N - 1)
         on = chase & (host_lane >= 0) & (take1d(vclass, pc) > 0)
-        if not bool(on.any()):
+        with host_wait("v5f.walk", step):
+            moving = bool(on.any())
+        if not moving:
             break
         host_lane = torch.where(on, take1d(cci, pc), host_lane)
     hu0m = torch.where(host_lane >= 0, ab.token_of_lane(host_lane), -1)

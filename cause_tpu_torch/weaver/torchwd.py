@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import mix32, replica_digest
-from .torchw5 import _prepare, _v5
+from .torchw5 import _prepare, _v5, host_wait
 
 __all__ = ["batched_weave_digest", "batched_delta_weave", "splice_ranks"]
 
@@ -119,7 +119,9 @@ def splice_ranks(rank_full, vis_full, rank_w, vis_w, starts, counts, r0):
     r0 = torch.as_tensor(r0, dtype=torch.int32, device=dev)
     off = torch.arange(wcap - 1, device=dev)
     for t in range(2):
-        rows, j = (off[None, :] < counts[:, t:t + 1]).nonzero(as_tuple=True)
+        with host_wait("splice", t):
+            rows, j = (off[None, :] < counts[:, t:t + 1]).nonzero(
+                as_tuple=True)
         src = t * wcap + 1 + j
         w_rank = rank_w[rows, src]
         val = torch.where(w_rank < Nw, r0[rows] + w_rank, N).to(

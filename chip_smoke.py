@@ -188,12 +188,13 @@ Phases, one line each (times from CUDA events unless named host):
    dispatched a bucket; one ``devprof.program`` per dispatch identity,
    each with its dispatch's 6/1/1 (or v5f's) launches and the CUDA
    allocator's statistics; the memory gauge equal to
-   ``memory_allocated``; the stage ladder (A-E, FULL) at the north star
-   with its FULL within 25% of phase 3's v5 dispatch (kernel and digest),
-   FULL's reps in turns with the dispatch's, a call of each a rep, on
-   the ladder's clock (CUDA events), so that both see the same host; the
-   overhead on
-   the wave and on the tick; the JSONL sidecar holding every record.
+   ``memory_allocated``; the phase spans at the north star: one
+   dispatch (kernel and digest) with telemetry on records ``v5.A`` ...
+   ``v5.F`` and ``replica.digest`` once each, each with its ``dev_us``
+   (CUDA events), and their sum within 25% of the same dispatch timed
+   whole by CUDA events with telemetry off, in turns with it, a call of
+   each a rep, so that both see the same host; the overhead on the wave
+   and on the tick; the JSONL sidecar holding every record.
 12. the wire: one offered round of phase 10's served fleet (32 tenants,
    capacity 16, ``d_max`` 64, 8 ``NetClient``s on the loopback
    ``ReplicationServer``, the zipf-hot offers and the 200-op burst, one
@@ -3294,7 +3295,7 @@ def phase_telemetry(torch, dev, card: str, pairs, v5, u_max: int,
 
     import cause_tpu_torch as ct
     from cause_tpu_torch import kernels, obs, serde
-    from cause_tpu_torch.obs import devprof, lag, perfetto, stages
+    from cause_tpu_torch.obs import devprof, lag, perfetto
     from cause_tpu_torch.parallel.session import FleetSession
 
     tag = "[11 telemetry]"
@@ -3545,53 +3546,79 @@ def phase_telemetry(torch, dev, card: str, pairs, v5, u_max: int,
         f"(v5f); memory gauge {sample['device_bytes_in_use']} B == "
         f"memory_allocated; gauged at {sorted(sites)}")
 
-    # ---- the stage ladder at the north star, its FULL reps in turns with
-    # phase 3's dispatch (kernel and digest), a call of each a rep on the
-    # ladder's clock (CUDA events): the host's speed drifts over a run,
-    # so the ladder's FULL is held against the dispatch timed beside it
-    # (phase 3's p50 is printed too). Phase 3 timed its dispatch before
-    # the earlier phases filled the heap with handles; freezing that heap
-    # keeps Python's full collections from scanning it in the middle of
-    # a timed call
+    # ---- the phase spans at the north star: phase 3's dispatch (kernel
+    # and digest) with telemetry on, whose v5.A-v5.F and replica.digest
+    # spans time their work on the card (CUDA events), in turns with the
+    # same dispatch timed whole by CUDA events with telemetry off, a call
+    # of each a rep: the host's speed drifts over a run, so the phases'
+    # sum is held against the dispatch timed beside it (phase 3's p50 is
+    # printed too). Phase 3 timed its dispatch before the earlier phases
+    # filled the heap with handles; freezing that heap keeps Python's
+    # full collections from scanning it in the middle of a timed call
     import gc
 
-    def dispatch(*lanes):
-        return ct.batched_weave_digest(*lanes, u_max=u_max, k_max=u_max,
+    from cause_tpu_torch import benchgen
+
+    lanes = benchgen.lanes_from_numpy(v5, dev)
+    args = [lanes[k] for k in benchgen.LANE_KEYS5]
+
+    def dispatch():
+        return ct.batched_weave_digest(*args, u_max=u_max, k_max=u_max,
                                        device=dev)
 
+    phase_names = [f"v5.{x}" for x in "ABCDEF"] + ["replica.digest"]
+    dispatch()
+    torch.cuda.synchronize(dev)
     gc.collect()
     gc.freeze()
-    obs.configure(enabled=True)
-    lines = []
+    sums, whole, per_phase = [], [], {n: [] for n in phase_names}
     try:
-        ladder = stages.run_v5_stage_ladder(inputs=(v5, u_max),
-                                            reps=3 * REPS, device=dev,
-                                            echo=lines.append,
-                                            beside=dispatch)
+        for _ in range(3 * REPS):
+            obs.configure(enabled=True)
+            seen = max((e.get("id", 0) for e in obs.events()), default=0)
+            dispatch()
+            torch.cuda.synchronize(dev)
+            got = [e for e in obs.events() if e.get("ev") == "span"
+                   and e.get("id", 0) > seen and e["name"] in phase_names]
+            obs.configure(enabled=False)
+            if sorted(e["name"] for e in got) != sorted(phase_names) or \
+                    any("dev_us" not in e for e in got):
+                fail(f"{tag} phase spans: one dispatch recorded "
+                     f"{[(e['name'], e.get('dev_us')) for e in got]}")
+            for e in got:
+                per_phase[e["name"]].append(e["dev_us"] * 1e-3)
+            sums.append(sum(e["dev_us"] for e in got) * 1e-3)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dispatch()
+            end.record()
+            end.synchronize()
+            whole.append(start.elapsed_time(end))
     finally:
         obs.configure(enabled=False)
         gc.unfreeze()
-    if [r["stage"] for r in ladder] != ["A", "B", "C", "D", "E", "FULL"]:
-        fail(f"{tag} stages: {ladder}")
-    full, d_p50 = ladder[-1]["p50_ms"], ladder[-1]["beside_p50_ms"]
-    if abs(full - d_p50) > 0.25 * d_p50:
-        fail(f"{tag} stages: the ladder's FULL p50 {full:.3f} ms is not "
-             f"within 25% of the v5 dispatch p50 {d_p50:.3f} ms timed in "
-             f"turns with it ({[round(t, 3) for t in ladder[-1]['beside_ms']]}"
-             f"; phase 3's {k_p50:.3f} ms)")
-    say(f"{tag} stages at the north star ({v5['hi'].shape[0]} rows, "
-        f"u_max {u_max}; CUDA events, p50 of {3 * REPS}, the older heap "
-        f"frozen): "
-        + ", ".join(f"{r['stage']} {r['p50_ms']:.3f} ms ({r['delta_ms']:+.3f})"
-                    for r in ladder)
-        + f"; FULL against the dispatch timed in turns with it, "
-        f"{d_p50:.3f} ms (CUDA events, {3 * REPS} reps each): "
-        f"{full / d_p50:.3f}; against phase 3's {k_p50:.3f} ms (host "
-        f"clock): {full / k_p50:.3f}; {card}")
+    s_p50, d_p50 = float(np.median(sums)), float(np.median(whole))
+    if abs(s_p50 - d_p50) > 0.25 * d_p50:
+        fail(f"{tag} phase spans: the sum of v5.A-v5.F and replica.digest "
+             f"dev_us, p50 {s_p50:.3f} ms, is not within 25% of the "
+             f"dispatch timed in turns with it, p50 {d_p50:.3f} ms "
+             f"({[round(t, 3) for t in sums]} / "
+             f"{[round(t, 3) for t in whole]}; phase 3's {k_p50:.3f} ms)")
+    say(f"{tag} phase spans at the north star ({v5['hi'].shape[0]} rows, "
+        f"u_max {u_max}; dev_us from CUDA events, p50 of {3 * REPS}, the "
+        f"older heap frozen): "
+        + ", ".join(f"{n} {float(np.median(v)):.3f} ms"
+                    for n, v in per_phase.items())
+        + f"; their sum {s_p50:.3f} ms against the dispatch timed whole "
+        f"in turns with it, {d_p50:.3f} ms (CUDA events, telemetry off): "
+        f"{s_p50 / d_p50:.3f}; against phase 3's {k_p50:.3f} ms (host "
+        f"clock): {s_p50 / k_p50:.3f}; {card}")
 
-    # ---- the sidecar: what was streamed folds like the ring
-    streamed = perfetto.load_jsonl(sidecar)
+    # ---- the sidecar: what was streamed folds like the ring (read
+    # first: the ring's read resolves and streams every open span)
     ring = obs.events()
+    streamed = perfetto.load_jsonl(sidecar)
     if len(streamed) != len(ring):
         fail(f"{tag}: the sidecar holds {len(streamed)} records, the ring "
              f"{len(ring)}")
@@ -7052,8 +7079,8 @@ def main() -> int:
             "serve_bound_ms": serve_per.get(name, {}).get("bound_ms"),
             "serve_library_ms": serve_per.get(name, {}).get("library_ms"),
             # phase 11's telemetry-on runs (the api wave twice, the
-            # session and its tree, the served round, the stage ladder
-            # excluded)
+            # session and its tree, the served round; the phase spans'
+            # dispatches excluded)
             "telemetry_launches": obs_counts[name],
             # phase 12's shipped wire round (the served fleet's round
             # over the sockets with telemetry on, shipped to a collector)

@@ -1,5 +1,5 @@
-"""The port's device telemetry (``obs.devprof``) and stage ladder
-(``obs.stages``) on CPU tensors.
+"""The port's device telemetry (``obs.devprof``) and the v5 ``stage=``
+parity hook on CPU tensors.
 
 Mirrors ``tests/test_devprof.py``. The reference prices compiled XLA
 programs; the port has none, so its counterparts are pinned instead:
@@ -7,19 +7,17 @@ the ``devprof.program`` event once per dispatch identity with the
 dispatch's kernel launches, the ``devprof.compile`` span around the
 kernel library's first build, the CUDA-allocator memory gauges (which
 record nothing on the CPU and never touch CUDA there), and the arena
-footprint (copied). The stage ladder runs ``torchw5``'s ``stage=``
-prefixes, whose per-row checksums equal ``jaxw5``'s stage checksums on
-the same inputs (float32 sums in a different order: ``rtol=1e-6``); the
-FULL stage is the whole kernel.
+footprint (copied). ``torchw5``'s ``stage=`` prefixes give per-row
+checksums equal to ``jaxw5``'s stage checksums on the same inputs
+(float32 sums in a different order: ``rtol=1e-6``); the FULL stage is
+the whole kernel. The v5 phases' timing is the phase spans'
+(``tests/test_torch_spans.py``).
 
 Every new entry point defaults to CUDA and raises without a card; the
 no-card cases live in ``tests/test_torch_hygiene.py``.
 """
 
 import json
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -29,10 +27,8 @@ import cause_tpu_torch as ct
 from cause_tpu_torch import benchgen as tbench
 from cause_tpu_torch import kernels
 from cause_tpu_torch import obs
-from cause_tpu_torch.obs import costmodel, devprof, semantic, stages
+from cause_tpu_torch.obs import costmodel, devprof, semantic
 from cause_tpu_torch.weaver import torchw5
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True)
@@ -259,77 +255,3 @@ def test_full_stage_is_the_kernel_and_bad_stage_raises(ladder_inputs):
     with pytest.raises(ValueError):
         torchw5.batched_merge_weave_v5(*args, u_max=u, k_max=u,
                                        device="cpu", stage="F")
-
-
-def test_stage_ladder_runs_through_obs_spans(capsys):
-    obs.configure(enabled=True)
-    results = stages.run_v5_stage_ladder(reps=1, shape=(2, 30, 6, 64),
-                                         device="cpu")
-    out = capsys.readouterr().out
-    assert "platform=cpu" in out and "prefix->FULL" in out
-    assert [r["stage"] for r in results] == ["A", "B", "C", "D", "E",
-                                             "FULL"]
-    evs = obs.events()
-    prefix = [e for e in evs if e.get("name") == "stages.prefix"]
-    assert [e["fields"]["stage"] for e in prefix] == [
-        "A", "B", "C", "D", "E", "FULL"]
-    assert all(e["platform"] == "cpu" for e in prefix)
-    spans = {e["name"] for e in evs if e.get("ev") == "span"}
-    assert {"stages.marshal", "stages.warm", "stages.rep"} <= spans
-
-
-def test_timed_median_on_given_inputs(ladder_inputs):
-    """The ladder over a caller's own batch (the smoke passes its
-    north-star batch): every stage timed, deltas add up to FULL."""
-    res = stages.run_v5_stage_ladder(reps=2, inputs=ladder_inputs,
-                                     device="cpu", echo=lambda s: None)
-    assert sum(r["delta_ms"] for r in res) == pytest.approx(
-        res[-1]["p50_ms"])
-    out, p50, samples = stages.timed_median("x", lambda: 3, reps=3,
-                                            device="cpu")
-    assert out == 3 and len(samples) == 3 and p50 >= 0
-
-
-def test_stage_ladder_times_beside_in_turns(ladder_inputs):
-    """A program ``beside`` FULL is timed in turns with it, a call of
-    each a rep: FULL's dict holds its p50 and every sample, and the
-    reps' spans alternate between the two programs."""
-    obs.configure(enabled=True)
-    seen = []
-
-    def beside(*lanes):
-        seen.append(len(lanes))
-        return lanes[0]
-
-    res = stages.run_v5_stage_ladder(reps=3, inputs=ladder_inputs,
-                                     device="cpu", echo=lambda s: None,
-                                     beside=beside)
-    full = res[-1]
-    assert full["stage"] == "FULL" and len(full["beside_ms"]) == 3
-    assert full["beside_p50_ms"] == pytest.approx(
-        float(np.median(full["beside_ms"])))
-    assert all("beside_ms" not in r for r in res[:-1])
-    assert seen == [len(tbench.LANE_KEYS5)] * 4  # a warm-up, 3 reps
-    reps = [e["attrs"]["program"] for e in obs.events()
-            if e.get("ev") == "span" and e.get("name") == "stages.rep"
-            and e["attrs"]["program"] in ("stages.prefix.FULL",
-                                          "stages.beside")]
-    assert reps == ["stages.prefix.FULL", "stages.beside"] * 3
-
-
-def test_stages_cli(tmp_path):
-    side = str(tmp_path / "st.jsonl")
-    r = subprocess.run(
-        [sys.executable, "-m", "cause_tpu_torch.obs", "stages", "--shape",
-         "2,30,6,64", "--reps", "1", "--device", "cpu", "--obs-out", side],
-        capture_output=True, text=True, cwd=REPO)
-    assert r.returncode == 0, r.stderr
-    assert "prefix->FULL" in r.stdout
-    recs = [json.loads(ln) for ln in open(side)]
-    assert [x["fields"]["stage"] for x in recs
-            if x.get("name") == "stages.prefix"] == [
-        "A", "B", "C", "D", "E", "FULL"]
-    bad = subprocess.run(
-        [sys.executable, "-m", "cause_tpu_torch.obs", "stages", "--shape",
-         "2,30"], capture_output=True, text=True, cwd=REPO)
-    assert bad.returncode == 2

@@ -19,9 +19,8 @@
   import time, and each wrapper counts only its own launches.
 - Telemetry (``obs``): off, it records nothing, keeps no registry
   state, reads no environment variable after its one-time resolution
-  and changes no output; its new device entry points (the stage
-  ladder, ``devprof``'s samplers, a telemetry-on ``SyncService``)
-  follow the no-card rule; its host modules hold no tensor code; the
+  and changes no output; its new device entry points (``devprof``'s
+  samplers, a telemetry-on ``SyncService``) follow the no-card rule; its host modules hold no tensor code; the
   cost model's dispatch floor is the serving controller's.
 """
 
@@ -371,8 +370,9 @@ OBS_HOST = ["obs/__init__.py", "obs/__main__.py", "obs/core.py",
 @pytest.mark.parametrize("rel", OBS_HOST)
 def test_obs_host_modules_hold_no_tensor_code(rel):
     """The telemetry substrate is host bookkeeping: only ``devprof``
-    (the allocator's statistics) and ``stages`` (it runs kernels) touch
-    torch, and those import it inside their functions. The uplink's
+    (the allocator's statistics) touches torch, and imports it inside
+    its functions; ``core`` reads the profiler's state and makes CUDA
+    events only where torch is already loaded. The uplink's
     pump thread, the collector's and the dashboard's threads never
     reach the card."""
     tree = ast.parse((ROOT / "cause_tpu_torch" / rel).read_text())
@@ -410,17 +410,13 @@ def obs_clean(monkeypatch):
 
 
 def test_obs_entry_points_raise_without_cuda(no_card, obs_clean, tmp_path):
-    """The stage ladder, its timing loop, ``devprof``'s samplers and a
-    telemetry-on service default to CUDA and refuse without a card; on
-    the CPU, asked for, they run."""
-    from cause_tpu_torch.obs import devprof, stages
+    """``devprof``'s samplers and a telemetry-on service default to
+    CUDA and refuse without a card; on the CPU, asked for, they run."""
+    from cause_tpu_torch.obs import devprof
     from cause_tpu_torch.serve import IngestQueue, SyncService
 
     obs_clean.configure(enabled=True)
     calls = (
-        lambda: stages.run_v5_stage_ladder(shape=(2, 30, 6, 64), reps=1,
-                                           echo=lambda s: None),
-        lambda: stages.timed_median("x", lambda: 1, reps=1),
         lambda: devprof.sample_device_memory("wave"),
         lambda: devprof.profiled(lambda: 1, pipeline="v5"),
         lambda: SyncService(IngestQueue()).add_tenant(
@@ -429,7 +425,6 @@ def test_obs_entry_points_raise_without_cuda(no_card, obs_clean, tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
-    assert stages.timed_median("x", lambda: 1, reps=1, device="cpu")[0] == 1
     assert devprof.sample_device_memory("wave", "cpu") == {}
     ct.use_device("cpu")
     svc = SyncService(IngestQueue())

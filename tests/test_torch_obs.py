@@ -15,6 +15,7 @@ materialization) and hold the two event streams equal, record for
 record, after :func:`normalize` removes what may differ:
 
 - the timing and host fields of every record: ``ts_us``, ``dur_us``,
+  the port's ``ts_ns``, ``end_ns``, ``dev_us`` and ``profiled``,
   ``pid``, ``tid``, ``id``, ``parent``, ``platform`` (``gpu``/``cpu``
   in the port), and every field whose name ends in ``_ms``, ``_us`` or
   ``_s``;
@@ -39,7 +40,11 @@ record, after :func:`normalize` removes what may differ:
   allocator (``tests/test_torch_devprof.py`` holds the port's);
 - the ``weave.*`` spans the reference records while JAX traces its
   kernels (``weave.sort``, ``weave.gather`` ...): the port has no
-  tracing step.
+  tracing step;
+- the port's program spans, which the reference does not record: the
+  v5 kernel and its phases (``v5``, ``v5.A`` ... ``v5.F``), its host
+  waits (``v5.sync``), the kernel calls (``kernel.b1`` ... ``kernel.b3``)
+  and the digest (``replica.digest``).
 
 Each package's obs state is its own: the fixture configures and resets
 them apart, and ``test_packages_keep_separate_obs_state`` pins it.
@@ -131,8 +136,8 @@ def P(request):
 
 # ------------------------------------------------------- normalizing
 
-_TOP_DROP = {"ts_us", "dur_us", "pid", "tid", "id", "parent", "platform",
-             "switches"}
+_TOP_DROP = {"ts_us", "dur_us", "ts_ns", "end_ns", "dev_us", "profiled",
+             "pid", "tid", "id", "parent", "platform", "switches"}
 _FIELD_DROP = {"hist_woven", "hist_converged", "window", "slo_breach",
                "breach_total", "burn_rate", "samples", "trace", "span",
                "parent", "worst_trace", "buckets", "records", "gen", "floor_ms", "floor_budget_ms",
@@ -152,14 +157,21 @@ def _clean(d):
     return d
 
 
+def _port_program_span(name: str) -> bool:
+    return name in ("v5", "replica.digest") or name.startswith(
+        ("v5.", "kernel."))
+
+
 def comparable(events):
-    """The records both packages emit: all but ``devprof.*`` and the
-    reference's trace-time ``weave.*`` spans."""
+    """The records both packages emit: all but ``devprof.*``, the
+    reference's trace-time ``weave.*`` spans and the port's program
+    spans."""
     out = []
     for e in events:
         name = str(e.get("name", ""))
         if name.startswith("devprof.") or (
-                e.get("ev") == "span" and name.startswith("weave.")):
+                e.get("ev") == "span" and (name.startswith("weave.")
+                                           or _port_program_span(name))):
             continue
         out.append(e)
     return out
