@@ -1,8 +1,9 @@
 """Build, load and count the hand-written CUDA kernels.
 
 The port's kernels live in ``csrc/*.cu`` (B1 ``sort.cu``, B2
-``euler_walk.cu``, B3 ``fphase.cu``, and the fused token kernels B4-B6
-``befuse_k1.cu``, ``befuse_k2.cu``, ``befuse_k4.cu``), each with a plain
+``euler_walk.cu``, B3 ``fphase.cu``, the fused token kernels B4-B6
+``befuse_k1.cu``, ``befuse_k2.cu``, ``befuse_k4.cu``, and A1
+``seg_order.cu``, v5's phase A after its sort), each with a plain
 C interface; the headers ``csrc/*.cuh`` hold code they share (the radix
 row sort, B1's wide form, the bitonic networks, the fused kernels'
 building blocks).
@@ -16,10 +17,11 @@ rebuilds and an unchanged one is reused.
 Every kernel wrapper adds one to its entry of ``launches`` where it
 launches its kernel, and nowhere else, so a run can show that its main
 path went through the kernels (``reset_launches`` before, read after).
-The dispatchers of B1-B3 (``sort_pairs``, ``euler_walk``,
-``fphase_expand``) run each call under an obs span (``kernel.b1`` ...
-``kernel.b3``) that, live, records the call's form and shapes and its
-contract (``contract_bytes``): the least any implementation must move.
+The dispatchers of B1-B3 and A1 (``sort_pairs``, ``euler_walk``,
+``fphase_expand``, ``seg_order``) run each call under an obs span
+(``kernel.b1`` ... ``kernel.b3``, ``kernel.a1``) that, live, records the
+call's form and shapes and its contract (``contract_bytes``): the least
+any implementation must move.
 
 The card's limits that the wrappers' form rules share (a block's opt-in
 shared memory, the SM count) come from PyTorch's device properties,
@@ -57,6 +59,7 @@ SOURCES = {
     "k1_sort_redirect": "befuse_k1.cu",
     "k2_runs": "befuse_k2.cu",
     "k4_rank_kills": "befuse_k4.cu",
+    "seg_order": "seg_order.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -86,6 +89,8 @@ _SIGNATURES = {
     "cause_k4_scratch_words": [_I, _I],
     "cause_k4_ctas_per_sm": [_I, _I, _I],
     "cause_k4_rank_kills": [_VP] * 17 + [_I] * 6 + [_VP, _VP],
+    "cause_seg_order_scratch_bytes": [_I, _I],
+    "cause_seg_order": [_VP] * 24 + [_I] * 3 + [_VP],
     # only in a build with -DCAUSE_PHASE_CLOCKS (chip_smoke.py --phases)
     "cause_phase_cycles_take": [_VP],
     # only in a build with -DCAUSE_CLUSTER_CLOCKS (chip_smoke.py --tiles)
@@ -93,7 +98,8 @@ _SIGNATURES = {
 }
 # entry points that return other than an int
 _RESTYPES = {"cause_sort_wide_scratch_bytes": ctypes.c_size_t,
-             "cause_euler_walk_scratch_words": ctypes.c_longlong}
+             "cause_euler_walk_scratch_words": ctypes.c_longlong,
+             "cause_seg_order_scratch_bytes": ctypes.c_longlong}
 
 
 def reset_launches() -> None:

@@ -19,7 +19,8 @@ sort, Euler ranking — runs at token width, and the final per-lane
 ranks and visibility expand back over the full lane width.
 
 The batch is an explicit leading ``[B, ...]`` dimension. On the card
-every sort goes through the B1 kernel, the forest ranking through the
+every sort goes through the B1 kernel, phase A after its sort (twin
+groups, E1, E2) through the A1 kernel, the forest ranking through the
 B2 walk and the lane expansion through the B3 kernel; on the CPU the
 same calls take their plain versions. Semantics are EXACT against the
 JAX package (tests/test_torch_v5.py); like it, the kernel takes the
@@ -49,6 +50,7 @@ from .euler import euler_walk, link_children
 from .fphase import fphase_expand
 from .gatherops import (at_add, at_set, searchsorted_iota_right,
                         searchsorted_targets_left, take1d)
+from .segorder import _cummax, _cumsum, _eq, _iota, _shift1, seg_order
 from .torchw import _row
 
 __all__ = ["merge_weave_kernel_v5", "batched_merge_weave_v5", "STAGES",
@@ -81,63 +83,6 @@ def _stage_ck(*xs):
     return total
 
 
-def _shift1(x, fill):
-    """The previous lane's value (x shifted right by one along the last
-    axis; counterpart of ``jaxw3._shift1``)."""
-    return torch.cat([torch.full_like(x[:, :1], fill), x[:, :-1]], dim=1)
-
-
-def _cumsum(x):
-    return torch.cumsum(x, dim=1, dtype=I32)
-
-
-def _cummax(x):
-    return torch.cummax(x, dim=1).values
-
-
-def _iota(B, n, dev):
-    return torch.arange(n, dtype=I32, device=dev).expand(B, n).contiguous()
-
-
-def _lt(a1, a2, b1, b2):
-    return (a1 < b1) | ((a1 == b1) & (a2 < b2))
-
-
-def _le(a1, a2, b1, b2):
-    return (a1 < b1) | ((a1 == b1) & (a2 <= b2))
-
-
-def _eq(a1, a2, b1, b2):
-    return (a1 == b1) & (a2 == b2)
-
-
-def _pair_cummax(hi, lo):
-    """Inclusive running lexicographic max over (hi, lo) int32 pairs:
-    one cummax over the order-preserving int64 packing."""
-    key = hi.long() * (1 << 32) + (lo.long() + (1 << 31))
-    m = _cummax(key)
-    mh = torch.div(m, 1 << 32, rounding_mode="floor")
-    ml = m - mh * (1 << 32) - (1 << 31)
-    return mh.to(I32), ml.to(I32)
-
-
-def _pair_search_le(kh, kl, qh, ql, size):
-    """For each query id, the rightmost index i in the sorted (kh, kl)
-    rows with key[i] <= query (-1 if none): the JAX kernel's binary
-    search, step for step."""
-    steps = 1
-    while (1 << steps) < size + 1:
-        steps += 1
-    lo_b = torch.full_like(qh, -1)
-    hi_b = torch.full_like(qh, size - 1)
-    for _ in range(steps):
-        mid = torch.div(lo_b + hi_b + 1, 2, rounding_mode="floor")
-        ms = mid.clamp(0, size - 1)
-        ok = _le(take1d(kh, ms), take1d(kl, ms), qh, ql)
-        lo_b, hi_b = torch.where(ok, mid, lo_b), torch.where(ok, hi_b, mid - 1)
-    return lo_b
-
-
 def _v5_ab(hi, lo, cci, vclass, seg, sg_min_hi, sg_min_lo, sg_max_hi,
            sg_max_lo, sg_len, sg_lane0, sg_dense, sg_tail_special, sg_valid,
            sg_vsum, u_max: int, stage=None):
@@ -159,86 +104,10 @@ def _v5_ab(hi, lo, cci, vclass, seg, sg_min_hi, sg_min_lo, sg_max_hi,
         kh = torch.where(sg_valid, sg_min_hi, BIG)
         kl = torch.where(sg_valid, sg_min_lo, BIG)
         s_mh, s_ml, s_src = sort_pairs((kh, kl, sidx), num_keys=2)
-        s_Mh = take(sg_max_hi, s_src)
-        s_Ml = take(sg_max_lo, s_src)
-        s_va = take(sg_valid, s_src)
-        s_len = torch.where(s_va, take(sg_len, s_src), 0)
-        s_lane0 = take(sg_lane0, s_src)
-        s_dense = take(sg_dense, s_src)
-        s_tsp = take(sg_tail_special, s_src)
-        s_vsum = take(sg_vsum, s_src)
-
-        # head body fields (shared by the twin test and the E2 stabs)
-        lane0c = s_lane0.clamp(0, N - 1)
-        s_hvc = take(vclass, lane0c)
-        c_lane = take(cci, lane0c)
-        has_c = s_va & (c_lane >= 0)
-        c_hi = torch.where(has_c, take(hi, c_lane.clamp(0, N - 1)), -1)
-        c_lo = torch.where(has_c, take(lo, c_lane.clamp(0, N - 1)), -1)
-
-        # twin groups: adjacent exact-equal dense segments dedupe wholesale
-        same_prev = (
-            _eq(s_mh, s_ml, _shift1(s_mh, -1), _shift1(s_ml, -1))
-            & _eq(s_Mh, s_Ml, _shift1(s_Mh, -1), _shift1(s_Ml, -1))
-            & (s_len == _shift1(s_len, -1))
-            & s_dense & _shift1(s_dense, False)
-            & (s_hvc == _shift1(s_hvc, -1))
-            & (s_tsp == _shift1(s_tsp, False))
-            & (s_vsum == _shift1(s_vsum, -1))
-            & _eq(c_hi, c_lo, _shift1(c_hi, -1), _shift1(c_lo, -1))
-            & s_va & _shift1(s_va, False)
-            & (sidx > 0)
-        )
-        grp_start = ~same_prev
-        grp = _cumsum(grp_start) - 1
-
-        # per-group interval tables; group starts scatter to their ordinal,
-        # everything else to its own dump slot past S (unique indices)
-        is_start = grp_start & s_va
-        gsl = torch.where(is_start, grp, S + sidx)
-
-        def _gtable(vals, fill):
-            base = torch.full((B, 2 * S), fill, dtype=I32, device=dev)
-            return at_set(base, gsl, torch.where(is_start, vals, fill))[:, :S]
-
-        g_mh = _gtable(s_mh, BIG)
-        g_ml = _gtable(s_ml, BIG)
-        g_Mh = _gtable(s_Mh, -1)
-        g_Ml = _gtable(s_Ml, -1)
-
-        # E1: overlap with any earlier group or the next group
-        pmh, pml = _pair_cummax(g_Mh, g_Ml)
-        pmh_e, pml_e = _shift1(pmh, -1), _shift1(pml, -1)
-        gi = grp.clamp(0, S - 1)
-        ov_before = _le(s_mh, s_ml, take(pmh_e, gi), take(pml_e, gi))
-        big1 = torch.full((B, 1), BIG, dtype=I32, device=dev)
-        nxt_mh = torch.cat([g_mh[:, 1:], big1], dim=1)
-        nxt_ml = torch.cat([g_ml[:, 1:], big1], dim=1)
-        ov_after = _le(take(nxt_mh, gi), take(nxt_ml, gi), s_Mh, s_Ml)
-        explode = s_va & (ov_before | ov_after)
-
-        # E2: head-cause stabs. Candidate = rightmost group with min <= c.
-        pg = _pair_search_le(g_mh, g_ml, c_hi, c_lo, S)
-        pgc = pg.clamp(0, S - 1)
-        rep = at_set(torch.zeros((B, 2 * S), dtype=I32, device=dev), gsl,
-                     torch.where(is_start, sidx, 0))[:, :S]
-        rep_pg = take(rep, pgc)
-        r_len = take(s_len, rep_pg)
-        r_tsp = take(s_tsp, rep_pg)
-        gm_h, gm_l = take(g_mh, pgc), take(g_ml, pgc)
-        gM_h, gM_l = take(g_Mh, pgc), take(g_Ml, pgc)
-        stab = has_c & (pg >= 0) & _le(gm_h, gm_l, c_hi, c_lo) & (
-            _lt(c_hi, c_lo, gM_h, gM_l)
-            | (_eq(c_hi, c_lo, gM_h, gM_l) & r_tsp & (r_len > 1))
-        )
-        g_stabbed = at_set(torch.zeros((B, S), dtype=torch.bool, device=dev),
-                           torch.where(stab, pgc, S - 1), True)
-        # make the last slot honest (it may have been used as a dump)
-        g_stabbed[:, S - 1] = (stab & (pgc == S - 1)).any(dim=1)
-        explode = explode | (s_va & take(g_stabbed, gi))
-
-        twin_drop = same_prev & ~explode
-        survive = s_va & ~explode & ~twin_drop
+        (s_va, s_len, s_lane0, s_tsp, grp, grp_start, explode,
+         survive) = seg_order(hi, lo, cci, vclass, s_mh, s_ml, s_src,
+                              sg_max_hi, sg_max_lo, sg_len, sg_lane0,
+                              sg_dense, sg_tail_special, sg_valid, sg_vsum)
         if stage == "A":
             return _stage_ck(explode, survive, grp)
 

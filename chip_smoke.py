@@ -71,6 +71,14 @@ Phases, one line each (times from CUDA events unless named host):
    at the north star's, the tree's and the fleet row's widths over B =
    1-256 (the crossovers of ``euler.walk_form`` and
    ``fphase.fphase_form``) and exits;
+2a. A1 at the benchmark's shapes: the segment order of each cell's
+   first batch (``pairs_full``, ``pairs_random``: 1,024 documents;
+   ``fleet_converge``: its one row), inputs from the benchmark's own
+   generator and marshal, B1's sort of the segments, then A1 against
+   the plain chain (exact), with the kernel's, the plain chain's and
+   B1's times (CUDA events), the bound (the contract,
+   ``segorder.a1_contract``, at 3.35 TB/s) and the launches; ``--a1``
+   runs only phases 1 and 2a and exits;
 3. north star: ``batched_pair_lanes`` -> ``batched_v5_inputs`` ->
    ``lanes_from_numpy`` -> ``batched_weave_digest`` on the card; launch
    counts of one dispatch, p50 of a few, against the plain path;
@@ -429,6 +437,7 @@ REPLACES = {
     "k1_sort_redirect": "cause_tpu/weaver/pallas_befuse.py:544",
     "k2_runs": "cause_tpu/weaver/pallas_befuse.py:580",
     "k4_rank_kills": "cause_tpu/weaver/pallas_befuse.py:656",
+    "seg_order": "none: the XLA glue of cause_tpu/weaver/jaxw5.py phase A",
 }
 SOURCE = {
     "sort": "cause_tpu_torch/csrc/sort.cu",
@@ -437,6 +446,7 @@ SOURCE = {
     "k1_sort_redirect": "cause_tpu_torch/csrc/befuse_k1.cu",
     "k2_runs": "cause_tpu_torch/csrc/befuse_k2.cu",
     "k4_rank_kills": "cause_tpu_torch/csrc/befuse_k4.cu",
+    "seg_order": "cause_tpu_torch/csrc/seg_order.cu",
 }
 FUSED = ("k1_sort_redirect", "k2_runs", "k4_rank_kills")
 # the forms of B1, B2 and B3 (bitonic.b1_form, euler.walk_form,
@@ -446,9 +456,10 @@ FORMS = {"euler_walk": ("row", "split"), "fphase": ("row", "chunk"),
 # the forms the rules give the north star's B1, B2 and B3 calls
 NORTH_STAR_FORMS = {"euler_walk": "row", "fphase": "row", "sort": "radix"}
 # launches of one dispatch of each pipeline
-V5_LAUNCHES = {"sort": 6, "euler_walk": 1, "fphase": 1}
+V5_LAUNCHES = {"sort": 6, "euler_walk": 1, "fphase": 1, "seg_order": 1}
 V5F_LAUNCHES = {"sort": 2, "euler_walk": 1, "fphase": 1,
-                "k1_sort_redirect": 1, "k2_runs": 1, "k4_rank_kills": 1}
+                "k1_sort_redirect": 1, "k2_runs": 1, "k4_rank_kills": 1,
+                "seg_order": 1}
 # the v5 dispatch's sort sites, in call order (torchw5.py)
 SORT_SITES = ("A segments", "C tokens", "E siblings", "E successor",
               "F lanes", "F coverage")
@@ -524,7 +535,8 @@ def max_err(torch, got, want) -> int:
 
 
 def plain_fns():
-    from cause_tpu_torch.weaver import befuse, bitonic, euler, fphase
+    from cause_tpu_torch.weaver import (befuse, bitonic, euler, fphase,
+                                        segorder)
 
     return {
         "sort": bitonic.sort_pairs_plain,
@@ -533,14 +545,16 @@ def plain_fns():
         "k1_sort_redirect": befuse.k1_sort_redirect_plain,
         "k2_runs": befuse.k2_runs_plain,
         "k4_rank_kills": befuse.k4_rank_kills_plain,
+        "seg_order": segorder.seg_order_plain,
     }
 
 
 @contextlib.contextmanager
 def plain_path(record=None):
-    """Route the kernel sites of the v5 pipeline (``torchw5``: sort, walk,
-    expansion), of the v5f pipeline (``torchw5f``: the same three and
-    K1, K2, K4) and of the older generations (``torchw``, ``torchw3``:
+    """Route the kernel sites of the v5 pipeline (``torchw5``: sort, phase
+    A's segment order, walk, expansion; v5f runs phase A there too), of
+    the v5f pipeline (``torchw5f``: sort, walk, expansion and K1, K2,
+    K4) and of the older generations (``torchw``, ``torchw3``:
     sort; ``torchw4``: sort, walk) to their plain PyTorch versions (the
     reference on the card), optionally recording every call's inputs.
     Restores the kernel wrappers on exit."""
@@ -549,9 +563,10 @@ def plain_path(record=None):
 
     plain = plain_fns()
     attr = {"sort": "sort_pairs", "euler_walk": "euler_walk",
-            "fphase": "fphase_expand"}
+            "fphase": "fphase_expand", "seg_order": "seg_order"}
     sites = [(torchw5, attr[n], n) for n in attr]
-    sites += [(torchw5f, attr.get(n, n), n) for n in plain]
+    sites += [(torchw5f, attr.get(n, n), n) for n in plain
+              if n != "seg_order"]
     sites += [(torchw, "sort_pairs", "sort"), (torchw3, "sort_pairs", "sort"),
               (torchw4, "sort_pairs", "sort"),
               (torchw4, "euler_walk", "euler_walk")]
@@ -579,7 +594,8 @@ def plain_path(record=None):
 
 
 def kernel_fns(name):
-    from cause_tpu_torch.weaver import befuse, bitonic, euler, fphase
+    from cause_tpu_torch.weaver import (befuse, bitonic, euler, fphase,
+                                        segorder)
 
     kern = {
         "sort": bitonic.sort_pairs_cuda,
@@ -588,6 +604,7 @@ def kernel_fns(name):
         "k1_sort_redirect": befuse.k1_sort_redirect_cuda,
         "k2_runs": befuse.k2_runs_cuda,
         "k4_rank_kills": befuse.k4_rank_kills_cuda,
+        "seg_order": segorder.seg_order_cuda,
     }
     return kern[name], plain_fns()[name]
 
@@ -724,7 +741,12 @@ def check_call(torch, name, ops, kw, time_it: bool, flags_only=False,
             rec["form_ms"] = {
                 form: cuda_ms(torch, lambda: run(kern, form=form))
                 for form in forms_of(torch, name, ops, kw)}
-        rec["bound_ms"] = bound_ms(call_bytes(ops, want))
+        if name == "seg_order":  # of the lanes, the four a segment reads
+            from cause_tpu_torch.weaver import segorder
+
+            rec["bound_ms"] = bound_ms(segorder.a1_contract(ops, want))
+        else:
+            rec["bound_ms"] = bound_ms(call_bytes(ops, want))
     return rec
 
 
@@ -1654,6 +1676,84 @@ def device_kernels(torch, fn, reps: int = 2):
             kern = [e for e in json.load(f)["traceEvents"]
                     if e.get("cat") == "kernel"]
     return len(kern) / reps, sum(e["dur"] for e in kern) / 1e3 / reps
+
+
+A1_CELLS = ("pairs_full", "pairs_random", "fleet_converge")
+
+
+def a1_cell_args(torch, dev, cell_name: str):
+    """A1's operands at a benchmark cell's first batch (its first row of
+    the fleet), as ``torchw5._v5_ab`` makes them: the benchmark's
+    generator and the port's marshal, B1's sort of the segments."""
+    from cause_tpu_torch import benchgen
+    from cause_tpu_torch.weaver import bitonic
+    from weavebench import cells, gen
+    from weavebench.entries.common import marshal
+
+    cell = cells.resolve(cell_name)
+    cfg, mix = cell["config"], cell["mix"]
+    rng = gen.rng_for(2 ** 31 + 7, 0)
+    if "replicas" in cfg:
+        v5 = marshal(gen.fleet_row(rng, cfg, mix), cfg["capacity"])
+        v5 = {k: np.asarray(v)[None] for k, v in v5.items()}
+    else:
+        v5 = marshal(gen.pair_batch(rng, cfg, mix), cfg["capacity"])
+    t = benchgen.lanes_from_numpy(v5, dev)
+    B, S = t["sg_len"].shape
+    kh = torch.where(t["sg_valid"], t["sg_min_hi"], I32_MAX)
+    kl = torch.where(t["sg_valid"], t["sg_min_lo"], I32_MAX)
+    sidx = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    sort_ops = (kh, kl, sidx.contiguous())
+    s_mh, s_ml, s_src = bitonic.sort_pairs(sort_ops, num_keys=2)
+    args = (t["hi"], t["lo"], t["cci"], t["vc"], s_mh, s_ml, s_src,
+            *(t[k] for k in ("sg_max_hi", "sg_max_lo", "sg_len",
+                             "sg_lane0", "sg_dense", "sg_tail_special",
+                             "sg_valid", "sg_vsum")))
+    return args, sort_ops
+
+
+def phase_a1(torch, dev, card: str) -> dict:
+    """Phase 2a: A1 at each benchmark cell's shape against the plain
+    chain, timed beside the chain and B1's sort of the same segments.
+    Returns the timings a cell."""
+    from cause_tpu_torch import kernels
+    from cause_tpu_torch.weaver import bitonic, segorder
+
+    out = {}
+    for name in A1_CELLS:
+        t0 = time.perf_counter()
+        args, sort_ops = a1_cell_args(torch, dev, name)
+        B, N = args[0].shape
+        S = args[4].shape[1]
+        want = segorder.seg_order_plain(*args)
+        before = kernels.launches["seg_order"]
+        got = segorder.seg_order(*args)
+        torch.cuda.synchronize()
+        if kernels.launches["seg_order"] != before + 1:
+            fail(f"[2a A1] {name}: seg_order launched "
+                 f"{kernels.launches['seg_order'] - before} kernels")
+        for field, x, w in zip(segorder.SegOrder._fields, got, want):
+            if not torch.equal(x, w):
+                fail(f"[2a A1] {name}: {field} differs from the plain chain")
+        rec = {"ms": cuda_ms(torch, lambda: segorder.seg_order_cuda(*args))}
+        rec["plain_ms"] = cuda_ms(torch, lambda: segorder.seg_order_plain(
+            *args), reps=3, warm=1)
+        rec["sort_ms"] = cuda_ms(torch, lambda: bitonic.sort_pairs(
+            sort_ops, num_keys=2))
+        rec["bytes"] = segorder.a1_contract(args, want)
+        rec["bound_ms"] = bound_ms(rec["bytes"])
+        rec.update(B=B, N=N, S=S, launches=1)
+        out[name] = rec
+        say(f"[2a A1] {name}: B={B} N={N} S={S}: kernel {rec['ms']:.4f} "
+            f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bytes']:,} "
+            f"contract bytes at 3.35 TB/s: "
+            f"{100 * rec['bound_ms'] / rec['ms']:.1f}%), plain chain "
+            f"{rec['plain_ms']:.4f} ms, B1's sort {rec['sort_ms']:.4f} ms; "
+            f"1 launch; every output equal to the plain chain; "
+            f"{time.perf_counter() - t0:.1f} s host ({card})")
+        del args, sort_ops, want, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def expect_launches(counts, want, what: str) -> None:
@@ -4321,16 +4421,17 @@ def gen_ladder(torch, timed):
     """Phase 13, step 2: the ladder's trees as ``weaver="torch"``
     handles on the card: the reweave and the merge with a twin each take
     the rung the tree needs (launches: v1 one B1 sort, v4 v5's 6/1/1
-    then 2/1/0), equal the pure weaver's weave and merge, and leave
-    ``pure_fallbacks`` where it was; the reweave again on the plain path,
-    every kernel call of it checked and timed once a shape. Returns the
-    launches and ``check_recorded``'s sums."""
+    and its A1 launch, then 2/1/0), equal the pure weaver's weave and
+    merge, and leave ``pure_fallbacks`` where it was; the reweave again
+    on the plain path, every kernel call of it checked and timed once a
+    shape. Returns the launches and ``check_recorded``'s sums."""
     from cause_tpu_torch.collections import clist as c_list
     from cause_tpu_torch.weaver import torchw
 
     tag = "[13 ladder]"
     want_launches = {"v1": {"sort": 1},
-                     "v4": {"sort": 8, "euler_walk": 2, "fphase": 1}}
+                     "v4": {"sort": 8, "euler_walk": 2, "fphase": 1,
+                            "seg_order": 1}}
     sites = {"v1": ("ladder v1 child sort",),
              "v4": SORT_SITES + ("ladder v4 id sort", "ladder v4 run sort")}
     counts, per = {}, {}
@@ -4464,8 +4565,7 @@ def phase_generations(torch, dev, card: str, batch) -> tuple:
         add_sums(per, step_per)
     gen_matrix_sort(torch, v4_calls)
     del v4_calls
-    expect_launches(counts, ("sort", "euler_walk", "fphase"),
-                    "[13 generations]")
+    expect_launches(counts, tuple(V5_LAUNCHES), "[13 generations]")
     say(f"[13 generations] launches over the phase {counts}; kernels at "
         f"the phase's distinct shapes: {kernel_sums_line(per)}; phase "
         f"{time.perf_counter() - t_phase:.1f} s (host clock); {card}")
@@ -4862,7 +4962,7 @@ def shard_wave(torch, mesh, pairs, wave_digest):
             with launches_in() as got:
                 res, ms = timed_ms(torch, lambda: ct.merge_wave(pairs,
                                                                 mesh))
-            expect_launches(got, ("sort", "euler_walk", "fphase")
+            expect_launches(got, tuple(V5_LAUNCHES)
                             + (FUSED if kernel == "v5f" else ()),
                             f"{tag} {kernel}")
             if got != got_u:
@@ -6682,6 +6782,9 @@ def main() -> int:
                          "and chunk forms at the north star's, the "
                          "tree's and the fleet row's widths over B = 1 to "
                          "256, then exit")
+    ap.add_argument("--a1", action="store_true",
+                    help="only check and time A1 at the benchmark cells' "
+                         "shapes (phase 2a), then exit")
     ap.add_argument("--collector", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.collector:
@@ -6722,6 +6825,9 @@ def main() -> int:
         return 0
     if args.forms:
         form_sweep(torch, dev, card)
+        return 0
+    if args.a1:
+        phase_a1(torch, dev, card)
         return 0
 
     # ------------------------------------------------ north-star inputs
@@ -6835,6 +6941,9 @@ def main() -> int:
         if rec["err"]:
             fail(f"{name} kernel disagrees with its plain version ({tag})")
     del edges
+
+    # ------------------------------------------------ 2a. A1, the cells
+    a1_cells = phase_a1(torch, dev, card)
 
     # ------------------------------------------------ 3. north star
     kernels.reset_launches()
@@ -7147,6 +7256,10 @@ def main() -> int:
             "wire_soak_library_ms": wire_soak_per.get(name, {}).get(
                 "library_ms"),
         })
+    for rec in recs:
+        if rec["name"] == "seg_order":
+            # phase 2a's calls at the benchmark cells' shapes
+            rec["benchmark_cells"] = a1_cells
     say(f"total {time.perf_counter() - t_start:.1f} s (host clock)")
     print(card, flush=True)
     print(json.dumps({"kernels": recs}), flush=True)

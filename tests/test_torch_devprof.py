@@ -158,7 +158,7 @@ def test_library_build_runs_under_the_compile_span(monkeypatch):
     assert kernels.library("fphase") == "lib:fphase"
     spans = [e for e in obs.events() if e.get("name") == "devprof.compile"]
     assert len(spans) == 1
-    assert spans[0]["attrs"] == {"kernels": 6,
+    assert spans[0]["attrs"] == {"kernels": 7,
                                  "library": kernels.source_hash()}
 
 

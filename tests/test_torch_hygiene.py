@@ -34,7 +34,7 @@ import torch
 import cause_tpu_torch as ct
 from cause_tpu_torch import benchgen as tbench
 from cause_tpu_torch import kernels
-from cause_tpu_torch.weaver import befuse, bitonic, euler, fphase
+from cause_tpu_torch.weaver import befuse, bitonic, euler, fphase, segorder
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "cause_tpu_torch").rglob("*.py")) + [
@@ -293,6 +293,9 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
         befuse.k2_runs_cuda(*(p,) * 6, U=128, k_max=128, Kp=128)
     with pytest.raises(ValueError, match="CUDA tensors"):
         befuse.k4_rank_kills_cuda(*(p,) * 11, s8, U=128, k_max=128, N=4)
+    b = torch.zeros((2, 4), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        segorder.seg_order_cuda(*(x,) * 11, b, b, b, x)
     # on CPU tensors the dispatching wrappers take the plain versions
     bitonic.sort_pairs((x, x), num_keys=1)
     euler.euler_walk(torch.full_like(x, -1), torch.full_like(x, -1),
@@ -301,7 +304,7 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     assert kernels.launches == {name: 0 for name in kernels.SOURCES}
     assert set(kernels.launches) == {
         "sort", "euler_walk", "fphase", "k1_sort_redirect", "k2_runs",
-        "k4_rank_kills"}
+        "k4_rank_kills", "seg_order"}
 
 
 @pytest.mark.parametrize("bad, err", [
@@ -342,7 +345,7 @@ def test_nothing_is_built_at_import():
     assert kernels._LIBS == {} or torch.cuda.is_available()
     assert set(kernels.SOURCES) == {"sort", "euler_walk", "fphase",
                                     "k1_sort_redirect", "k2_runs",
-                                    "k4_rank_kills"}
+                                    "k4_rank_kills", "seg_order"}
     for src in kernels.SOURCES.values():
         assert (kernels.CSRC / src).exists()
 

@@ -6,9 +6,10 @@ range of its name under the profiler, takes its start and end from one
 clock (epoch ns), and, on a CUDA tensor's path, times its work on the
 device with CUDA events resolved when the ring is read. The v5 kernel
 records ``v5`` with ``v5.A`` ... ``v5.F``; each host read of a device
-value on the wave's path records ``v5.sync``; the B1-B3 dispatchers
-record ``kernel.b1`` ... ``kernel.b3`` with the call's form, shapes and
-contract bytes; ``mesh.replica_digest`` records ``replica.digest``.
+value on the wave's path records ``v5.sync``; the B1-B3 and A1
+dispatchers record ``kernel.b1`` ... ``kernel.b3`` and ``kernel.a1``
+with the call's form, shapes and contract bytes; ``mesh.replica_digest``
+records ``replica.digest``.
 Off, a wave records nothing and ``span()`` is the shared no-op.
 """
 
@@ -104,7 +105,8 @@ def test_kernel_calls_sit_in_their_phases(wave):
             where.setdefault(e["name"], []).append(by_id[e["parent"]])
     assert where == {"kernel.b1": ["v5.A", "v5.C", "v5.E", "v5.E", "v5.F",
                                    "v5.F"],
-                     "kernel.b2": ["v5.E"], "kernel.b3": ["v5.F"]}
+                     "kernel.b2": ["v5.E"], "kernel.b3": ["v5.F"],
+                     "kernel.a1": ["v5.A"]}
 
 
 def _record(call):
@@ -152,6 +154,21 @@ def test_b3_span_holds_the_calls_contract(wave):
                             "form": "plain",
                             "bytes": 4 * B * (2 * u + 2 * S + 3 * N)
                             + 5 * B * N}
+
+
+def test_a1_span_holds_the_calls_contract(wave):
+    obs.configure(enabled=True)
+    run_v5(wave)
+    (rec,) = spans("kernel.a1")
+    args, _u = wave
+    B, N = args[0].shape
+    S = args[10].shape[1]
+    # in: the sort's three and five int32 tables, three bool tables, and
+    # four lanes a segment; out: three int32 and five bool [B, S]
+    assert rec["attrs"] == {"rows": B, "segments": S, "lanes": N,
+                            "form": "plain",
+                            "bytes": B * S * (8 * 4 + 3 + 4 * 4 + 3 * 4
+                                              + 5)}
 
 
 def test_sync_fires_once_per_walk_test(wave):
